@@ -2,27 +2,48 @@
 """Smoke test of the PyTorch + CUDA port (gpumd_tpu_torch) on one NVIDIA GPU.
 
 Drives the port's main path, NEP molecular dynamics of rocksalt PbTe under
-NVE on the compact engine (DenseNEPMD, full-window rung), with the trained
-NEP4 Te/Pb model in artifacts/trainer_parity_r5_nep.txt at its full width,
-in float32.  Phases:
+NVE on the compact engine (DenseNEPMD), with the trained NEP4 Te/Pb model
+in artifacts/trainer_parity_r5_nep.txt at its full width, in float32, on
+both of its rungs: compact candidate lists (the default; the kept window
+lanes are gathered by compact_rows from the ghost rows, or by
+compact_windows from packed windows on plans that rows_compact_eligible
+rejects) and full windows (compact_lists=False).  Phases:
 
-  1. build   compile the CUDA kernels from gpumd_tpu_torch/csrc with nvcc;
-             print the build time and the card's name and power limit
-  2. kernels at 32,768 atoms, run each kernel (K1, K2, scatter, fold) and
-             its plain torch version on the same tensors from one pipeline
-             pass (K2 and scatter with per-atom virials off and on) and
-             hold the errors to the stated tolerances
-  3. md      200 NVE steps at 32,768 atoms, 300 K, dt 1 fs: finite, no
-             overflow, every kernel launched at least once per step; the
-             first 20 steps track the all-plain pipeline on the card
-  4. time    50 steps at 262,144 atoms after warm-up (atom-step/s), each
-             kernel against its plain version at those shapes (CUDA events),
-             and the cost of the per-step host sync of the rebuild check
+  1. build   compile the CUDA kernels from gpumd_tpu_torch/csrc with nvcc
+             (one process per source, all at once); print the build time
+             and the card's name and power limit
+  2. kernels at 32,768 atoms jittered by 0.1 A, three pipeline passes:
+             the default plan (cap 56, compact_windows), the same state on
+             a plan made from the unjittered lattice (cap 64,
+             compact_rows) and the full-window rung; each kernel against
+             its plain torch version on the tensors of its pass (K2 and the
+             scatter with per-atom virials off and on); the compactions
+             bit for bit, and compact_rows == compact_windows of the
+             packed window on the rows pass
+  3. md      32,768 atoms, 300 K, dt 1 fs: 200 NVE steps on the default
+             rung from the lattice (compact_rows), 50 from the jittered
+             state (compact_windows) and 50 on the full-window rung: finite,
+             no overflow, energy conserved, every kernel of each path
+             launched on every step; after 20 steps the default rung
+             tracks its all-plain run and the full-window rung
+  4. time    262,144 atoms, 50 steps of each rung after warm-up
+             (atom-step/s, the cost of the per-step host sync, a device
+             profile of 5 steps): the default rung from the lattice
+             (compact_rows) and from the jittered state (compact_windows),
+             and the full-window rung; every kernel at those shapes against
+             its plain version and, where one PyTorch call computes the
+             same function, that call (CUDA events); the wall time of one
+             rebuild on each, and 500 more steps of the lattice-start runs
+             with their rebuilds counted and included; then 1,000,000
+             atoms on the default rung, 20 steps (atom-step/s, peak memory)
 
 Usage: python3 chip_smoke.py [--phases build,kernels,md,time]
 Prints the kernels' JSON line, then, last, {"ok": true, "device": {...}}.
-Exits non-zero, printing no result, without a CUDA device or on any
-failed check.
+A kernel's "ms", "plain_ms", "library_ms" and "bound_ms" are per MD step
+at 262,144 atoms on the default rung: the compactions launch twice a step
+(positions and cotangent rows) and count both; compact_windows is timed on
+the packed windows of that plan.  Exits non-zero, printing no result,
+without a CUDA device or on any failed check.
 """
 
 import argparse
@@ -38,17 +59,21 @@ import torch
 ROOT = Path(__file__).resolve().parent
 MODEL = ROOT / "artifacts" / "trainer_parity_r5_nep.txt"
 
+KERNELS = ("k1", "k2", "scatter", "fold", "compact_rows", "compact_windows")
 # Tolerances, relative to max|plain|.  K1 and the fold add the same terms
 # in another order in f32 (descriptor sums of ~100 pairs): 1e-5.  K2 and
 # the scatter also differ by hand-derived vs autograd-free op order and by
-# shared-memory atomics whose order changes from run to run: 1e-4.
-TOL = {"k1": 1e-5, "fold": 1e-5, "k2": 1e-4, "scatter": 1e-4}
-# Positions after 20 NVE steps, kernels vs plain versions on the card: the
-# two runs differ only by f32 summation order (~1e-7 relative in forces),
-# which 20 fs of chaotic dynamics amplifies far less than 1e-3 A.
+# shared-memory atomics whose order changes from run to run: 1e-4.  The
+# compactions copy: bit for bit.
+TOL = {"k1": 1e-5, "fold": 1e-5, "k2": 1e-4, "scatter": 1e-4,
+       "compact_rows": 0.0, "compact_windows": 0.0}
+# Positions after 20 NVE steps, kernels vs plain versions (or one rung vs
+# the other) on the card: the runs differ only by f32 summation order
+# (~1e-7 relative in forces), which 20 fs of chaotic dynamics amplifies far
+# less than 1e-3 A.
 POS_TOL = 1e-3
-# Total-energy change over the 200-step run, per atom: f32 velocity Verlet
-# at dt 1 fs conserves it to ~1e-5 eV/atom; broken forces do not.
+# Total-energy change over a run, per atom: f32 velocity Verlet at dt 1 fs
+# conserves it to ~1e-5 eV/atom; broken forces do not.
 DRIFT_TOL = 5e-4
 
 REPLACES = {
@@ -56,13 +81,21 @@ REPLACES = {
     "k2": "gpumd_tpu/engine/nep_compact.py:1223",
     "scatter": "gpumd_tpu/engine/nep_compact.py:1425",
     "fold": "gpumd_tpu/engine/fold_kernel.py:55",
+    "compact_rows": "gpumd_tpu/engine/nep_compact.py:541",
+    "compact_windows": "gpumd_tpu/engine/nep_compact.py:478",
 }
 SOURCES = {
     "k1": "gpumd_tpu_torch/csrc/nep_k1.cu",
     "k2": "gpumd_tpu_torch/csrc/nep_k2.cu",
     "scatter": "gpumd_tpu_torch/csrc/scatter.cu",
     "fold": "gpumd_tpu_torch/csrc/fold.cu",
+    "compact_rows": "gpumd_tpu_torch/csrc/compact.cu",
+    "compact_windows": "gpumd_tpu_torch/csrc/compact.cu",
 }
+# Peaks of one H100 SXM (NVIDIA's data sheet): HBM3
+# bytes/s and float32 FLOP/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def build_pbte(nc, a0=6.57):
@@ -77,29 +110,47 @@ def build_pbte(nc, a0=6.57):
 
 
 class System:
-    """PbTe at nc^3 cells with the trained model, on the card in f32."""
+    """PbTe at nc^3 cells with the trained model, on the card in f32.
 
-    def __init__(self, nc, plain=False, seed=3, jitter=0.0):
+    `jitter` displaces the atoms (a perfect lattice's pair cotangents cancel
+    to rounding noise, which no check can resolve); `plan_on_lattice`
+    plans the engine on the undisplaced lattice, as a run that starts from
+    it would."""
+
+    def __init__(self, nc, plain=False, seed=3, jitter=0.0,
+                 plan_on_lattice=False, compact_lists=True):
         from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
         from gpumd_tpu_torch.integrate.velocity import initialize_velocity
         from gpumd_tpu_torch.model.box import Box
         from gpumd_tpu_torch.model.state import make_state
         from gpumd_tpu_torch.potentials.nep.model import NEP
 
-        dev = torch.device("cuda")
-        pos, types, lengths = build_pbte(nc)
-        if jitter:  # thermal-like displacements: a perfect lattice's
-            # forces cancel to rounding noise, which no check can resolve
-            pos = pos + np.random.default_rng(seed).normal(0, jitter,
-                                                           pos.shape)
+        lattice, types, lengths = build_pbte(nc)
+        pos = lattice
+        if jitter:
+            pos = lattice + np.random.default_rng(seed).normal(
+                0, jitter, lattice.shape)
         self.n = len(pos)
-        self.nep = NEP.from_file(str(MODEL), dtype=torch.float32, device=dev)
-        self.box = Box.orthogonal(lengths, dtype=torch.float32, device=dev)
+        self.nep = NEP.from_file(str(MODEL), dtype=torch.float32)
+        self.box = Box.orthogonal(lengths, dtype=torch.float32)
         state = make_state(pos, np.where(types == 1, 207.2, 127.6), types,
                            self.box)
         self.state = initialize_velocity(state, 300.0, seed=seed)
-        self.md = DenseNEPMD(self.nep, self.box, self.n, position=pos,
-                             skin=1.5, plain=plain)
+        self.md = DenseNEPMD(self.nep, self.box, self.n,
+                             position=lattice if plan_on_lattice else pos,
+                             skin=1.5, plain=plain,
+                             compact_lists=compact_lists)
+
+    def describe(self):
+        from gpumd_tpu_torch.engine.nep_compact import rows_compact_eligible
+
+        cp = self.md.cplan
+        path = ("full windows" if not cp.cl else "compact_rows"
+                if rows_compact_eligible(cp) else "compact_windows")
+        return (f"n={self.n} grid={cp.base.grid} cap={cp.base.cap} "
+                f"bx={cp.bx} mn_r={cp.mn_r} mn_a={cp.mn_a} "
+                f"a_pad={cp.a_pad} wl={cp.wl} cl={cp.cl} nb={cp.nb} "
+                f"({path})")
 
     def pipeline(self, carry, per_atom_virial):
         from gpumd_tpu_torch.engine.grid import pack_ghost
@@ -115,13 +166,15 @@ class System:
 
 
 def kernel_pairs(md, keep):
-    """(name, kernel fn, plain fn) on one pipeline pass's tensors."""
+    """(name, kernel fn, plain fn) on one pipeline pass's tensors: every
+    kernel that pass ran, one entry per launch of a step."""
     from gpumd_tpu_torch.engine import fold_kernel as fk
     from gpumd_tpu_torch.engine import nep_compact as nc
 
     cp, spec = md.cplan, md.spec
     pav = keep["pvals"].shape[3] == 12
-    return [
+    cidx = keep.get("cidx")
+    pairs = [
         ("k1", lambda: nc.k1_call(keep["centers"], keep["cand"], keep["idx"],
                                   cp, spec),
          lambda: nc.k1_plain(keep["centers"], keep["cand"], keep["idx"], cp,
@@ -130,13 +183,26 @@ def kernel_pairs(md, keep):
                                   keep["cotc"], keep["cotw"], cp, spec, pav),
          lambda: nc.k2_plain(keep["centers"], keep["tiles"], keep["idx"],
                              keep["cotc"], keep["cotw"], cp, spec, pav)),
-        ("scatter", lambda: nc.scatter_call(keep["pvals"], keep["idx_a"], cp),
-         lambda: nc.scatter_plain(keep["pvals"], keep["idx_a"], cp)),
+        ("scatter",
+         lambda: nc.scatter_call(keep["pvals"], keep["idx_a"], cp, cidx),
+         lambda: nc.scatter_plain(keep["pvals"], keep["idx_a"], cp, cidx)),
         ("fold", lambda: fk.fold_windows_to_rows(keep["dcand"], cp.base,
                                                  cp.bx),
          lambda: fk.fold_windows_to_rows_plain(keep["dcand"], cp.base,
                                                cp.bx)),
     ]
+    if cidx is None:
+        return pairs
+    if nc.rows_compact_eligible(cp):
+        srcs, name = (keep["garr"], keep["rows_p"]), "compact_rows"
+        kern, plain = nc.compact_rows_call, nc.compact_rows_plain
+    else:
+        srcs, name = (keep["cand_win"], keep["cotw_win"]), "compact_windows"
+        kern, plain = nc.compact_windows_call, nc.compact_windows_plain
+    for src in srcs:
+        pairs.append((name, lambda s=src: kern(s, cidx, cp),
+                      lambda s=src: plain(s, cidx, cp)))
+    return pairs
 
 
 def _outputs(x):
@@ -162,39 +228,60 @@ def phase_build():
     print(card)  # the card's name and power limit, as nvidia-smi gives them
 
 
+def _compare(tag, name, got, ref, results, failures):
+    got, ref = _outputs(got), _outputs(ref)
+    torch.cuda.synchronize()
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    rel = max(float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+              for g, r in zip(got, ref))
+    fin = all(bool(torch.isfinite(g).all()) for g in got)
+    ok = fin and rel <= TOL[name]
+    print(f"[kernels] {tag}: max_abs_err={err:.3e} rel={rel:.3e} "
+          f"tol={TOL[name]:.0e} {'ok' if ok else 'FAIL'}")
+    r = results.setdefault(name, {"max_abs_err": 0.0})
+    r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+    if not ok:
+        failures.append(tag)
+
+
 def phase_kernels(results):
-    sysm = System(16, jitter=0.1)
-    print(f"[kernels] PbTe n={sysm.n} plan={sysm.md.plan} "
-          f"bx={sysm.md.cplan.bx} mn_r={sysm.md.cplan.mn_r} "
-          f"mn_a={sysm.md.cplan.mn_a} a_pad={sysm.md.cplan.a_pad} "
-          f"wl={sysm.md.cplan.wl}")
+    from gpumd_tpu_torch.engine import nep_compact as nc
+    from gpumd_tpu_torch.engine.grid import pack_block_windows
+
+    passes = [
+        ("lists", dict(jitter=0.1)),
+        ("lists-rows", dict(jitter=0.1, plan_on_lattice=True)),
+        ("windows", dict(jitter=0.1, compact_lists=False)),
+    ]
     failures = []
     with torch.no_grad():
-        carry = sysm.md.init_carry(sysm.state)
-        if bool(carry.overflow):
-            raise RuntimeError("overflow at init")
-        for pav in (False, True):
-            keep = sysm.pipeline(carry, pav)
-            for name, kern, plain in kernel_pairs(sysm.md, keep):
-                if name in ("k1", "fold") and pav:
-                    continue  # the same inputs' shapes as with pav off
-                got = _outputs(kern())
-                ref = _outputs(plain())
-                torch.cuda.synchronize()
-                err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-                rel = max(float((g - r).abs().max())
-                          / max(float(r.abs().max()), 1e-30)
-                          for g, r in zip(got, ref))
-                fin = all(bool(torch.isfinite(g).all()) for g in got)
-                ok = fin and rel <= TOL[name]
-                tag = f"{name}{'[pav]' if pav else ''}"
-                print(f"[kernels] {tag}: max_abs_err={err:.3e} "
-                      f"rel={rel:.3e} tol={TOL[name]:.0e} "
-                      f"{'ok' if ok else 'FAIL'}")
-                r = results.setdefault(name, {"max_abs_err": 0.0})
-                r["max_abs_err"] = max(r["max_abs_err"], err)
-                if not ok:
-                    failures.append(tag)
+        for label, kw in passes:
+            sysm = System(16, **kw)
+            print(f"[kernels] pass {label}: PbTe {sysm.describe()}")
+            carry = sysm.md.init_carry(sysm.state)
+            if bool(carry.overflow):
+                raise RuntimeError(f"overflow at init ({label})")
+            if sysm.md.cplan.cl:
+                print(f"[kernels] pass {label}: max live compact lanes "
+                      f"{int(carry.idx.cnt.max())} of cl {sysm.md.cplan.cl}")
+            for pav in (False, True):
+                keep = sysm.pipeline(carry, pav)
+                for name, kern, plain in kernel_pairs(sysm.md, keep):
+                    if pav and name not in ("k2", "scatter"):
+                        continue  # the same inputs' shapes as with pav off
+                    tag = f"{name}[{label}{',pav' if pav else ''}]"
+                    _compare(tag, name, kern(), plain(), results, failures)
+                if label == "lists-rows" and not pav:
+                    cp, cidx = sysm.md.cplan, keep["cidx"]
+                    for src in (keep["garr"], keep["rows_p"]):
+                        win = pack_block_windows(src, cp.base, cp.bx, cp.wl,
+                                                 far_channels=0)
+                        _compare("compact_windows(pack)==compact_rows",
+                                 "compact_windows",
+                                 nc.compact_windows_call(win, cidx, cp),
+                                 nc.compact_rows_call(src, cidx, cp),
+                                 results, failures)
+            del sysm, carry, keep
     if failures:
         raise RuntimeError(f"kernels disagree with plain versions: {failures}")
 
@@ -223,46 +310,75 @@ def total_energy(state):
     return float(state.kinetic_energy() + pe) / float(state.mask.sum())
 
 
+def _md_path(label, sysm, n_steps, need):
+    """Drive one path from counts of 0, read them just after, gate it.
+    Returns the 20-step positions and the counts."""
+    from gpumd_tpu_torch.engine import cuda_build
+
+    cuda_build.reset_launches()
+    carry, e0, snap = _run_steps(sysm, n_steps, snap_at=20)
+    torch.cuda.synchronize()
+    counts = dict(cuda_build.launches)
+    e1 = total_energy(carry.state)
+    s = carry.state
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (s.position, s.velocity, s.force, s.potential_energy))
+    overflow = bool(carry.overflow)
+    print(f"[md] {label}: {sysm.describe()}")
+    print(f"[md] {label}: steps={n_steps} launches={counts} "
+          f"finite={finite} overflow={overflow}")
+    print(f"[md] {label}: total energy per atom: start {e0:.8f} eV, end "
+          f"{e1:.8f} eV, change {e1 - e0:+.3e} eV (bound {DRIFT_TOL})")
+    if not finite or overflow:
+        raise RuntimeError(f"{label}: non-finite values or overflow")
+    low = [k for k, c in need.items() if counts[k] < c]
+    if low:
+        raise RuntimeError(f"{label}: kernels launched fewer times than "
+                           f"{need}: {low}")
+    if abs(e1 - e0) > DRIFT_TOL:
+        raise RuntimeError(f"{label}: total energy not conserved")
+    return snap, counts
+
+
+def _pos_check(what, box, a, b):
+    dmax = float(box.minimum_image(a - b).abs().max())
+    print(f"[md] 20-step positions, {what}: max |dx| = {dmax:.3e} A "
+          f"(bound {POS_TOL})")
+    if not dmax <= POS_TOL:
+        raise RuntimeError(f"trajectories depart: {what}")
+
+
 def phase_md(results):
     from gpumd_tpu_torch.engine import cuda_build
 
-    n_steps = 200
+    base = ("k1", "k2", "scatter", "fold")
     with torch.no_grad():
+        # the main path: default rung from the lattice (compact_rows)
         sysm = System(16)
-        cuda_build.reset_launches()
-        carry, e0, snap = _run_steps(sysm, n_steps, snap_at=20)
-        torch.cuda.synchronize()
-        counts = dict(cuda_build.launches)
-        e1 = total_energy(carry.state)
-        s = carry.state
-        finite = all(bool(torch.isfinite(t).all()) for t in
-                     (s.position, s.velocity, s.force, s.potential_energy))
-        overflow = bool(carry.overflow)
-        print(f"[md] n={sysm.n} steps={n_steps} launches={counts} "
-              f"finite={finite} overflow={overflow}")
-        print(f"[md] total energy per atom: start {e0:.8f} eV, end "
-              f"{e1:.8f} eV, change {e1 - e0:+.3e} eV (bound {DRIFT_TOL})")
-        for name, c in counts.items():
-            results.setdefault(name, {})["launches"] = c
-        if not finite or overflow:
-            raise RuntimeError("MD produced non-finite values or overflow")
-        low = [k for k, c in counts.items() if c < n_steps]
-        if low:
-            raise RuntimeError(f"kernels launched fewer than {n_steps} "
-                               f"times: {low}")
-        if abs(e1 - e0) > DRIFT_TOL:
-            raise RuntimeError("total energy not conserved")
+        n = 200
+        snap, counts = _md_path("default rung (lattice start)", sysm, n,
+                                {**{k: n for k in base},
+                                 "compact_rows": 2 * n})
+        for k in base + ("compact_rows",):
+            results.setdefault(k, {})["launches"] = counts[k]
+        # the default rung on a plan rows_compact_eligible rejects
+        jit = System(16, jitter=0.1)
+        _, counts = _md_path("default rung (jittered start)", jit, 50,
+                             {**{k: 50 for k in base},
+                              "compact_windows": 100})
+        results.setdefault("compact_windows", {})["launches"] = \
+            counts["compact_windows"]
+        del jit
+        full = System(16, compact_lists=False)
+        snap_w, _ = _md_path("full-window rung", full, 50,
+                             {k: 50 for k in base})
+        _pos_check("default vs full-window rung", sysm.box, snap, snap_w)
         ref = System(16, plain=True)
         cuda_build.reset_launches()
         _, _, snap_p = _run_steps(ref, 20, snap_at=20)
         if any(cuda_build.launches.values()):
             raise RuntimeError("the plain reference run launched kernels")
-        dpos = sysm.box.minimum_image(snap - snap_p)
-        dmax = float(dpos.abs().max())
-        print(f"[md] 20-step positions, kernels vs plain: max |dx| = "
-              f"{dmax:.3e} A (bound {POS_TOL})")
-        if not dmax <= POS_TOL:
-            raise RuntimeError("kernel trajectory departs from the plain one")
+        _pos_check("default rung, kernels vs plain", sysm.box, snap, snap_p)
 
 
 def _time_ms(fn, reps):
@@ -278,58 +394,336 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def phase_time(results):
+def _in_turns(a, b, reps_a, reps_b):
+    """Best of two rounds, in turns a, b, b, a."""
+    ta, tb = [_time_ms(a, reps_a)], []
+    tb += [_time_ms(b, reps_b), _time_ms(b, reps_b)]
+    ta.append(_time_ms(a, reps_a))
+    return min(ta), min(tb)
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _live_pairs(keep, cp):
+    """Live (radial, angular) pair slots of this pass: the kernels skip
+    dead slots (self, empty, FAR, parked)."""
+    t = keep["tiles"]
+    d2 = t[..., 0, :, :] ** 2 + t[..., 1, :, :] ** 2 + t[..., 2, :, :] ** 2
+    live = (d2 > 1e-6) & (t[..., 3, :, :] > -0.5)
+    return int(live.sum()), int(live[..., :cp.mn_a, :].sum())
+
+
+def _distinct_sources(keep, cp):
+    """Distinct source words of one channel that a compaction of this pass
+    reads: on the rows path the blocks' windows overlap in the ghost
+    rows, so a slot that several blocks keep is counted once."""
+    from gpumd_tpu_torch.engine import nep_compact as nc
+
+    cidx = keep["cidx"]
+    if nc.rows_compact_eligible(cp):
+        g = keep["garr"]
+        ids = torch.arange(g[:, :, :1].numel(), dtype=torch.float64,
+                           device=g.device).reshape(g[:, :, :1].shape)
+        got = nc.compact_rows_plain(ids, cidx, cp)
+    else:
+        w = keep["cand_win"]
+        ids = torch.arange(w[..., :1, :].numel(), dtype=torch.float64,
+                           device=w.device).reshape(w[..., :1, :].shape)
+        got = nc.compact_windows_plain(ids, cidx, cp)
+    return int(torch.unique(got).numel())
+
+
+def work(name, keep, cp, spec):
+    """(bytes, operations) one step's launches of `name` need at this
+    pass's shapes: each input read once, each output written once; float
+    operations per live pair estimated from the kernel source (an FMA is
+    2, a transcendental 1)."""
+    kr1, ka1, na1, nlm = spec.kr1, spec.ka1, spec.na1, spec.nlm
+    zbl = 40 if spec.zbl_mode else 0
+    if name in ("k1", "k2"):
+        rad, ang = _live_pairs(keep, cp)
+        if name == "k1":
+            ops = (rad * (10 + 6 + 5 * kr1 + zbl)
+                   + ang * (6 + 4 * ka1 + 2 * na1 * ka1 + 3 * nlm
+                            + 2 * na1 * nlm))
+            nb = _nbytes(keep["centers"], keep["cand"], keep["idx"],
+                         keep["k1"], keep["tiles"])
+        else:
+            ops = (rad * (10 + 10 + 12 * kr1 + 2 * zbl + 24)
+                   + ang * (10 + 8 * ka1 + 4 * na1 * ka1 + 4 * na1 * nlm
+                            + 20 * nlm + 40))
+            nb = _nbytes(keep["centers"], keep["tiles"], keep["idx"],
+                         keep["cotc"], keep["cotw"], keep["outf"],
+                         keep["pvals"])
+        return nb, ops
+    if name == "scatter":
+        idx_a = keep["idx_a"]
+        nb = (_nbytes(keep["pvals"], keep.get("cidx"), keep["dcand"])
+              + idx_a.numel() * idx_a.element_size())
+        return nb, int((keep["pvals"] != 0).sum())
+    if name == "fold":
+        return _nbytes(keep["dcand"], keep["drows"]), keep["dcand"].numel()
+    # compactions: cidx once per launch, the source words the kept lanes
+    # index (positions and cot rows), the output
+    cidx = keep["cidx"]
+    words = 4 * (4 + spec.wch)
+    if name == "compact_windows":  # each block reads cl lanes of its own
+        src = cidx.numel() * words
+    else:
+        src = _distinct_sources(keep, cp) * words
+    return 2 * _nbytes(cidx) + src + cidx.numel() * words, 0
+
+
+def bound(nbytes, nops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_calls(name, keep, cp):
+    """One PyTorch call computing the same function on the same inputs
+    (timed only, as a yardstick), or None; inputs are prepared here."""
+    from gpumd_tpu_torch.engine.grid import (
+        pack_block_windows,
+        pack_ghost_rows,
+    )
+
+    if name == "scatter":
+        nb, pch = cp.nb, keep["pvals"].shape[3]
+        vals = keep["pvals"].reshape(nb, pch, -1)
+        lanes = keep["idx_a"].reshape(nb, -1).long()
+        if keep.get("cidx") is not None:
+            lanes = torch.gather(keep["cidx"].reshape(nb, -1).long(), 1,
+                                 lanes)
+        lanes = lanes[:, None, :].expand(vals.shape).contiguous()
+        return [lambda: vals.new_zeros((nb, pch, cp.wl)).scatter_add_(
+            2, lanes, vals)]
+    if name == "fold":
+        plan = cp.base
+        nx, ny, nz = plan.grid
+        n_slots = nz * ny * nx * plan.cap
+        dev = keep["dcand"].device
+        ids = torch.arange(n_slots, dtype=torch.float64, device=dev)
+        ghost = pack_ghost_rows(ids.reshape(nz, ny, 1, nx * plan.cap), plan,
+                                fill=-1.0)
+        win = pack_block_windows(ghost, plan, cp.bx, cp.wl, far_channels=0)
+        win[..., 9 * (cp.bx + 2) * plan.cap:] = -1.0  # pad lanes: dropped
+        dest = win.reshape(-1)
+        dest = torch.where((dest >= 0) & (dest < n_slots), dest,
+                           torch.full_like(dest, n_slots)).long()
+        c = keep["dcand"].shape[2]
+        src = keep["dcand"].movedim(2, 0).reshape(c, -1).contiguous()
+        return [lambda: src.new_zeros((c, n_slots + 1)).index_add_(
+            1, dest, src)]
+    if name in ("compact_rows", "compact_windows"):
+        cidx = keep["cidx"]
+        calls = []
+        for key in ("cand_win", "cotw_win"):
+            win = keep[key]
+            lanes = cidx.long()[:, :, :, None, :].expand(
+                tuple(win.shape[:4]) + (cp.cl,)).contiguous()
+            calls.append(lambda w=win, i=lanes: torch.gather(w, 4, i))
+        return calls
+    return None
+
+
+def _with_windows(keep, cp):
+    """Add the packed windows of a rows-path pass (to time compact_windows
+    and the library gather on them)."""
+    from gpumd_tpu_torch.engine.grid import pack_block_windows
+
+    if "cand_win" not in keep:
+        keep["cand_win"] = pack_block_windows(keep["garr"], cp.base, cp.bx,
+                                              cp.wl)
+        keep["cotw_win"] = pack_block_windows(keep["rows_p"], cp.base, cp.bx,
+                                              cp.wl, far_channels=0)
+    return keep
+
+
+def _time_rung(sysm, label, n_steps=50):
     from gpumd_tpu_torch.integrate.ensembles.nve import NVE
     from gpumd_tpu_torch.units import TIME_UNIT_CONVERSION
 
-    n_steps = 50
+    md, ens = sysm.md, NVE()
+    dt = 1.0 / TIME_UNIT_CONVERSION
+    print(f"[time] {label}: PbTe {sysm.describe()}")
+    carry = md.init_carry(sysm.state)
+    carry = carry._replace(state=md.compute(carry.state, carry.idx))
+    aux = ens.init(carry.state)
+    step = md.make_step(ens, dt)
+    for _ in range(5):  # warm-up
+        carry, aux = step(carry, aux)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        carry, aux = step(carry, aux)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if bool(carry.overflow) or not bool(
+            torch.isfinite(carry.state.position).all()):
+        raise RuntimeError(f"{label}: timed block invalid")
+    print(f"[time] {label}: {n_steps} steps in {wall:.4f} s: "
+          f"{sysm.n * n_steps / wall:.6e} atom-step/s "
+          f"({1e3 * wall / n_steps:.3f} ms/step)")
+    # the same steps without the rebuild check's host sync
+    state = carry.state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        state, aux = ens.step1(state, aux, dt)
+        state = md.compute(state, carry.idx)
+        state, aux = ens.step2(state, aux, dt)
+    torch.cuda.synchronize()
+    wall_ns = time.perf_counter() - t0
+    print(f"[time] {label}: without the per-step rebuild check and its "
+          f"host sync: {1e3 * wall_ns / n_steps:.3f} ms/step; sync cost "
+          f"{1e3 * (wall - wall_ns) / n_steps:.3f} ms/step")
+    return carry, aux, step
+
+
+def _time_rebuild(sysm, label, reps=3):
+    """Wall time of one rebuild (rebin, ghost packing, neighbour lists),
+    the work a step whose Verlet check trips adds; best of `reps`."""
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry = sysm.md.init_carry(sysm.state)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    if bool(carry.overflow):
+        raise RuntimeError(f"{label}: rebuild overflowed")
+    print(f"[time] {label}: one rebuild {1e3 * best:.3f} ms")
+    return 1e3 * best
+
+
+def _long_run(sysm, carry, aux, step, rebuild_ms, label, n_steps=500):
+    """n_steps more steps with their rebuilds, counted by the carry's
+    reference positions, which only a rebuild replaces."""
+    md = sysm.md
+    rebuilds = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        ref = carry.ref_frac
+        carry, aux = step(carry, aux)
+        rebuilds += carry.ref_frac is not ref
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = carry.state
+    if bool(carry.overflow) or not bool(torch.isfinite(s.position).all()):
+        raise RuntimeError(f"{label}: long run invalid")
+    d = s.box.minimum_image(s.position - s.box.cartesian(carry.ref_frac))
+    umax = float(torch.sqrt(torch.max(torch.sum(d * d, dim=-1) * s.mask)))
+    print(f"[time] {label}: {n_steps} more steps, rebuilds included: "
+          f"{rebuilds} rebuilds, {sysm.n * n_steps / wall:.6e} atom-step/s "
+          f"({1e3 * wall / n_steps:.3f} ms/step); rebuild cost over these "
+          f"steps {rebuild_ms * rebuilds / n_steps:.3f} ms/step; largest "
+          f"displacement since the last rebuild {umax:.4f} A (a rebuild "
+          f"at {md.skin / 2:.4f} A)")
+
+
+def _profile(step, carry, aux, n=5):
+    """Device time over n steps (torch.profiler): busy and idle share, the
+    kernels by name, and the operators that launched them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            carry, aux = step(carry, aux)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    ops = [e for e in events if e.device_type != DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    print(f"[time] profile, {n} steps: wall {wall:.3f} ms/step, device "
+          f"busy {busy:.3f} ms/step, idle share {1 - busy / wall:.3f}")
+    for what, rows in (("kernel", kernels), ("op", ops)):
+        rows.sort(key=lambda e: -e.self_device_time_total)
+        for e in rows[:10]:
+            ms = e.self_device_time_total / 1e3 / n
+            print(f"[time]   {what} {ms:8.3f} ms/step "
+                  f"{100 * ms / busy:5.1f}%  {e.key[:64]}")
+
+
+def _time_kernels(sysm, carry, results=None):
+    """Every kernel of one rung against its plain version and library call,
+    per step; also its bound.  results=None prints without recording."""
+    md = sysm.md
+    keep = sysm.pipeline(carry, False)
+    pairs = kernel_pairs(md, keep)
+    names = list(dict.fromkeys(name for name, _, _ in pairs))
+    if md.cplan.cl:
+        from gpumd_tpu_torch.engine import nep_compact as nc
+
+        _with_windows(keep, md.cplan)
+        if "compact_windows" not in names:
+            names.append("compact_windows")
+            cidx = keep["cidx"]
+            for key in ("cand_win", "cotw_win"):
+                pairs.append(("compact_windows",
+                              lambda s=keep[key]: nc.compact_windows_call(
+                                  s, cidx, md.cplan),
+                              lambda s=keep[key]: nc.compact_windows_plain(
+                                  s, cidx, md.cplan)))
+    for name in names:
+        mine = [(k, p) for n, k, p in pairs if n == name]
+        fast = name not in ("k1", "k2")
+        k_ms = p_ms = 0.0
+        for kern, plain in mine:
+            p, k = _in_turns(plain, kern, 3, 20 if fast else 10)
+            k_ms, p_ms = k_ms + k, p_ms + p
+        lib = library_calls(name, keep, md.cplan)
+        lib_ms = (None if lib is None
+                  else sum(_time_ms(f, 20) for f in lib))
+        nbytes, nops = work(name, keep, md.cplan, md.spec)
+        b_ms, b_by = bound(nbytes, nops)
+        lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"[time] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+              f"({p_ms / k_ms:.2f}x), library {lib_txt}, bound "
+              f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
+              f"{nops / 1e9:.3f} GFLOP; {100 * b_ms / k_ms:.1f}% of bound)")
+        if results is not None:
+            results.setdefault(name, {}).update(
+                ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def phase_time(results):
     with torch.no_grad():
         sysm = System(32)
-        md, ens = sysm.md, NVE()
-        dt = 1.0 / TIME_UNIT_CONVERSION
-        print(f"[time] PbTe n={sysm.n} plan={md.plan} bx={md.cplan.bx} "
-              f"mn_r={md.cplan.mn_r} mn_a={md.cplan.mn_a}")
-        carry = md.init_carry(sysm.state)
-        carry = carry._replace(state=md.compute(carry.state, carry.idx))
-        aux = ens.init(carry.state)
-        step = md.make_step(ens, dt)
-        for _ in range(5):  # warm-up
-            carry, aux = step(carry, aux)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n_steps):
-            carry, aux = step(carry, aux)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        if bool(carry.overflow) or not bool(
-                torch.isfinite(carry.state.position).all()):
-            raise RuntimeError("timed block invalid (overflow/non-finite)")
-        print(f"[time] {n_steps} steps in {wall:.4f} s: "
-              f"{sysm.n * n_steps / wall:.6e} atom-step/s "
-              f"({1e3 * wall / n_steps:.3f} ms/step)")
-        # the same steps without the rebuild check's host sync
-        state = carry.state
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n_steps):
-            state, aux = ens.step1(state, aux, dt)
-            state = md.compute(state, carry.idx)
-            state, aux = ens.step2(state, aux, dt)
-        torch.cuda.synchronize()
-        wall_ns = time.perf_counter() - t0
-        print(f"[time] without the per-step rebuild check and its host "
-              f"sync: {1e3 * wall_ns / n_steps:.3f} ms/step; sync cost "
-              f"{1e3 * (wall - wall_ns) / n_steps:.3f} ms/step")
-        keep = sysm.pipeline(carry, False)
-        for name, kern, plain in kernel_pairs(md, keep):
-            k_ms, p_ms = [], []
-            for _ in range(2):  # in turns: plain, kernel, kernel, plain
-                p_ms.append(_time_ms(plain, 3))
-                k_ms.append(_time_ms(kern, 10))
-            k, p = min(k_ms), min(p_ms)
-            results.setdefault(name, {}).update(ms=k, plain_ms=p)
-            print(f"[time] {name}: kernel {k:.4f} ms, plain {p:.4f} ms "
-                  f"({p / k:.2f}x)")
+        label = "262k default rung"
+        carry, aux, step = _time_rung(sysm, label)
+        _profile(step, carry, aux)
+        _time_kernels(sysm, carry, results)
+        _long_run(sysm, carry, aux, step, _time_rebuild(sysm, label), label)
+        del sysm, carry, aux, step
+        jit = System(32, jitter=0.1)
+        label = "262k default rung, jittered start"
+        carry, aux, step = _time_rung(jit, label)
+        _time_kernels(jit, carry)
+        _time_rebuild(jit, label)
+        del jit, carry, aux, step
+        full = System(32, compact_lists=False)
+        label = "262k full-window rung"
+        carry, aux, step = _time_rung(full, label)
+        _profile(step, carry, aux)
+        _time_kernels(full, carry)
+        _long_run(full, carry, aux, step, _time_rebuild(full, label), label)
+        del full, carry, aux, step
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        big = System(50)
+        _time_rung(big, "1M default rung", n_steps=20)
+        print(f"[time] 1M default rung: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
 
 
 def main():
@@ -343,17 +737,17 @@ def main():
     pin_fp32_matmul()
     phases = args.phases.split(",")
     results = {}
+    t0 = time.time()
     phase_build()
-    if "kernels" in phases:
-        phase_kernels(results)
-    if "md" in phases:
-        phase_md(results)
-    if "time" in phases:
-        phase_time(results)
+    for name, fn in (("kernels", phase_kernels), ("md", phase_md),
+                     ("time", phase_time)):
+        if name in phases:
+            fn(results)
+            print(f"[{name}] done at {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": REPLACES[k], **results.get(k, {})}
-        for k in ("k1", "k2", "scatter", "fold")]}))
+        for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,11 @@
 """Build, load and count the hand-written Hopper kernels.
 
 The CUDA sources in `gpumd_tpu_torch/csrc/*.cu` have a plain C interface.
-At first use they are compiled with nvcc for sm_90a into one shared
-library under `build/` at the checkout root, keyed on a hash of the
-sources and flags, and loaded with ctypes.  Nothing here runs at import:
-a CPU-only machine imports this module and never calls `library()`.
+At first use each is compiled with its own nvcc process for sm_90a, all
+started together, and the objects are linked into one shared library under
+`build/` at the checkout root, keyed on a hash of the sources and flags,
+and loaded with ctypes.  Nothing here runs at import: a CPU-only machine
+imports this module and never calls `library()`.
 
 Every kernel wrapper adds one to `launches[name]` where it launches its
 kernel and nowhere else, so a run can show that it went through the
@@ -25,9 +26,10 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-launches = {"k1": 0, "k2": 0, "scatter": 0, "fold": 0}
+launches = {"k1": 0, "k2": 0, "scatter": 0, "fold": 0, "compact_rows": 0,
+            "compact_windows": 0}
 build_info = {}  # seconds, path, ptxas report of the last build
 
 _lib = None
@@ -40,8 +42,10 @@ F = ctypes.c_float
 _SIGNATURES = {
     "k1_launch": [P] * 12 + [I] * 13 + [F] * 3 + [P],
     "k2_launch": [P] * 14 + [I] * 15 + [F] * 3 + [P],
-    "scatter_launch": [P] * 3 + [I] * 8 + [P],
+    "scatter_launch": [P] * 4 + [I] * 9 + [P],
     "fold_launch": [P] * 2 + [I] * 10 + [P],
+    "compact_rows_launch": [P] * 3 + [I] * 9 + [P],
+    "compact_windows_launch": [P] * 3 + [I] * 4 + [P],
     "gk_error_string": [I],
 }
 
@@ -75,17 +79,32 @@ def library():
     so = out_dir / "libgpumd_kernels.so"
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"tmp-{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in sources)]
+        tag = os.getpid()
+        objs = [out_dir / f"{s.stem}-{tag}.o" for s in sources]
         t0 = time.time()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(s)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for s, o in zip(sources, objs)]
+        outs = [p.communicate() for p in procs]
+        report = "".join(out + err for out, err in outs)
+        failed = [s.name for s, p in zip(sources, procs) if p.returncode]
+        tmp = out_dir / f"tmp-{tag}.so"
+        if not failed:
+            res = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                                  *(str(o) for o in objs)],
+                                 capture_output=True, text=True)
+            report += res.stdout + res.stderr
+            if res.returncode:
+                failed = ["link"]
         build_info["seconds"] = time.time() - t0
-        build_info["ptxas"] = res.stderr
-        (out_dir / "ptxas.txt").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed:\n" + res.stdout[-4000:] + res.stderr[-8000:])
+        build_info["ptxas"] = report
+        (out_dir / "ptxas.txt").write_text(report)
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                               + report[-12000:])
         os.replace(tmp, so)
     else:
         build_info.setdefault("seconds", 0.0)

@@ -1,18 +1,19 @@
 """NEP MD loop on the dense cell-grid state (the throughput path).
 
-Counterpart of gpumd_tpu/engine/dense_md.py, engine="compact" with
-compact_lists=False.  State lives permuted (sorted by cell) between rebins;
-`orig_id` rides along so results map back to input order.  A rebin (re-sort
-plus neighbour-index rebuild) runs when the barostat-safe Verlet criterion
-trips.  The JAX package chose between rebin and keep with lax.cond inside
-one scan; here the choice is a Python branch on a device bool, which costs
-one host sync per step.  The sticky `overflow` flag stays on the device and
+Counterpart of gpumd_tpu/engine/dense_md.py, engine="compact", on both
+rungs: compact candidate lists (the default, as in the JAX package) and
+full windows (compact_lists=False).  State lives permuted (sorted by cell)
+between rebins; `orig_id` rides along so results map back to input order.
+A rebin (re-sort plus neighbour-index rebuild) runs when the
+barostat-safe Verlet criterion trips.  The JAX package chose between rebin
+and keep with lax.cond inside one scan; here the choice is a Python branch
+on a device bool, which costs one host sync per step.  The sticky `overflow` flag stays on the device and
 is read by the caller once per block.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -25,8 +26,10 @@ from gpumd_tpu_torch.engine.grid import (
     plan_grid,
 )
 from gpumd_tpu_torch.engine.nep_compact import (
+    CompactNeighbors,
     CompactSpec,
     block_centers,
+    build_compact_neighbors,
     build_indices,
     compact_nep_compute,
     make_compact_plan,
@@ -43,7 +46,8 @@ class DenseCarry(NamedTuple):
     ref_frac: torch.Tensor  # (n_slots, 3) fractional positions at last rebin
     ref_thick: torch.Tensor  # (3,) box thicknesses at last rebin
     overflow: torch.Tensor  # sticky bool: cap/MN overflow (results invalid)
-    idx: Optional[torch.Tensor] = None  # neighbour index tiles
+    # neighbour index tiles, or the compact lists' rebuild products
+    idx: Union[torch.Tensor, CompactNeighbors, None] = None
 
 
 class DenseNEPMD:
@@ -65,13 +69,13 @@ class DenseNEPMD:
         mn_r: Optional[int] = None,
         mn_a: Optional[int] = None,
         zero_net_force: bool = True,
-        compact_lists: bool = False,
+        compact_lists: bool = True,
         plain: bool = False,
     ):
         if engine == "v2":
             raise NotImplementedError(
                 "engine='v2' (round-2 dense window kernels k1b/k2b) is not "
-                "ported yet: ROADMAP queue 2, items 8-9")
+                "ported yet: ROADMAP queue 2, item 4")
         if engine not in ("auto", "compact"):
             raise ValueError(f"unknown engine {engine!r}")
         self.nep = nep
@@ -101,6 +105,10 @@ class DenseNEPMD:
     def _build_idx(self, sstate: MDState):
         garr = pack_ghost(sstate.position, sstate.type, sstate.mask,
                           sstate.box, self.plan)
+        if self.cplan.cl:
+            return build_compact_neighbors(garr, sstate.box, self.cplan,
+                                           self.nep.model.rc_angular_max,
+                                           plain=self.plain)
         centers = block_centers(garr, self.cplan)
         cand = pack_block_windows(garr, self.plan, self.cplan.bx,
                                   self.cplan.wl)

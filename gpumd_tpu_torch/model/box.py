@@ -49,8 +49,9 @@ class Box(NamedTuple):
 
     @staticmethod
     def from_lattice(lattice, pbc=(True, True, True), dtype=torch.float64,
-                     device=None) -> "Box":
-        """Build from a row-major lattice (rows = a, b, c)."""
+                     device=torch.device("cuda")) -> "Box":
+        """Build from a row-major lattice (rows = a, b, c), on the card
+        unless `device` says otherwise."""
         lat = torch.as_tensor(np.asarray(lattice, np.float64).reshape(3, 3),
                               dtype=dtype, device=device)
         h = lat.T.contiguous()
@@ -60,7 +61,7 @@ class Box(NamedTuple):
 
     @staticmethod
     def orthogonal(lengths, pbc=(True, True, True), dtype=torch.float64,
-                   device=None) -> "Box":
+                   device=torch.device("cuda")) -> "Box":
         return Box.from_lattice(np.diag(np.asarray(lengths, np.float64)),
                                 pbc=pbc, dtype=dtype, device=device)
 

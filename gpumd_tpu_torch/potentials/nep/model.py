@@ -109,6 +109,7 @@ class NEP(NamedTuple):
         return self.model.rc_radial_max
 
     @staticmethod
-    def from_file(path: str, dtype=torch.float32, device=None) -> "NEP":
+    def from_file(path: str, dtype=torch.float32,
+                  device=torch.device("cuda")) -> "NEP":
         model, params = load_nep_txt(path, dtype=dtype, device=device)
         return NEP(model=model, params=params)

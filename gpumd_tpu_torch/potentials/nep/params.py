@@ -110,7 +110,7 @@ def _parse_header_name(name: str):
     return int(parts[0][3]), model_type, "zbl" in parts[1:], charge_mode
 
 
-def params_from_numpy(np_params, device=None,
+def params_from_numpy(np_params, device=torch.device("cuda"),
                       dtype: torch.dtype = torch.float64) -> NepParams:
     """NepParams from numpy leaves: any object with the JAX NepParams field
     names (e.g. `jax NepParams` mapped through np.asarray) or a dict."""
@@ -125,7 +125,8 @@ def params_from_numpy(np_params, device=None,
 
 
 def unflatten_params(model: NepModel, flat: np.ndarray, q_scaler: np.ndarray,
-                     dtype=torch.float64, device=None) -> NepParams:
+                     dtype=torch.float64,
+                     device=torch.device("cuda")) -> NepParams:
     """Split the flat parameter vector as the reference's update_potential
     (ref: nep.cu:227-283) and c-refactor (ref: nep.cu:75-98) do."""
     if model.model_type == 2:
@@ -166,7 +167,7 @@ def unflatten_params(model: NepModel, flat: np.ndarray, q_scaler: np.ndarray,
 
 
 def load_nep_txt(path: str, dtype=torch.float64,
-                 device=None) -> Tuple[NepModel, NepParams]:
+                 device=torch.device("cuda")) -> Tuple[NepModel, NepParams]:
     with open(path) as f:
         tokens = f.read().split()
     pos = 0
@@ -251,7 +252,7 @@ def load_nep_txt(path: str, dtype=torch.float64,
 
 
 def random_params(model: NepModel, seed: int = 0, dtype=torch.float32,
-                  device=None) -> NepParams:
+                  device=torch.device("cuda")) -> NepParams:
     """Random parameters from the same numpy stream as the JAX package's
     random_params, so equal seeds give equal weights."""
     rng = np.random.default_rng(seed)

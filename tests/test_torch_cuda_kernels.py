@@ -6,11 +6,14 @@ not import JAX (the GPU machine has none), so run them there with:
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q
 
 They cover what chip_smoke.py does not: every ZBL variant, two l_max
-template instances, and fold plans with bx = 1, odd caps and free axes.
-Tolerances are relative to max|plain| in f32: 1e-5 for K1 and the fold
-(summation order), 1e-4 for K2 and the scatter (op order and
-shared-memory atomics).
+template instances, fold plans with bx = 1, odd caps and free axes, and
+the compact-list rung on both compactions at CPU-test sizes.  Tolerances
+are relative to max|plain| in f32: 1e-5 for K1 and the fold (summation
+order), 1e-4 for K2 and the scatter (op order and shared-memory atomics);
+the two compactions copy, so they must match bit for bit.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -20,10 +23,16 @@ from gpumd_tpu_torch.engine import cuda_build
 from gpumd_tpu_torch.engine import fold_kernel as TF
 from gpumd_tpu_torch.engine import grid as TG
 from gpumd_tpu_torch.engine import nep_compact as TC
+from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
 from gpumd_tpu_torch.model.box import Box
+from gpumd_tpu_torch.model.state import make_state
+from gpumd_tpu_torch.potentials.nep.model import NEP
 from gpumd_tpu_torch.potentials.nep.params import NepModel, random_params
 
 pytestmark = pytest.mark.cuda
+
+MODEL = str(Path(__file__).resolve().parent.parent / "artifacts"
+            / "trainer_parity_r5_nep.txt")
 
 TOL = {"k1": 1e-5, "fold": 1e-5, "k2": 1e-4, "scatter": 1e-4}
 
@@ -66,7 +75,7 @@ def test_kernels_match_plain(dev, zbl, l_max):
     box = Box.orthogonal(lengths, dtype=torch.float32, device=dev)
     plan = TC.plan_grid_compact(box, 6.5, 1.0, n, position=pos)
     cplan = TC.make_compact_plan(plan, position=pos, box=box,
-                                 rc_angular=4.0)
+                                 rc_angular=4.0, compact_lists=False)
     p = box.wrap(torch.as_tensor(pos, dtype=torch.float32, device=dev))
     perm, smask, _ = TG.bin_dense(p, box, torch.ones(n, device=dev), plan)
     ps = TG.apply_perm(p, perm, 1e5)
@@ -128,3 +137,71 @@ def test_wrappers_reject_wrong_dtype(dev):
     dw = torch.zeros((3, 3, 4, 1, 768), dtype=torch.float64, device=dev)
     with pytest.raises(ValueError, match="dtype"):
         TF.fold_windows_to_rows(dw, plan, 3)
+
+
+def _pbte(nc, jitter, seed=0, a0=6.57):
+    base = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5],
+                     [.5, 0, 0], [0, .5, 0], [0, 0, .5], [.5, .5, .5]])
+    cells = np.stack(np.meshgrid(*[np.arange(nc)] * 3, indexing="ij"),
+                     axis=-1).reshape(-1, 3)
+    pos = (cells[:, None, :] + base[None]).reshape(-1, 3) * a0
+    pos = pos + np.random.default_rng(seed).normal(0, jitter, pos.shape)
+    return pos, np.tile([1, 1, 1, 1, 0, 0, 0, 0], len(cells)), \
+        np.full(3, nc * a0)
+
+
+@pytest.mark.parametrize("nc,jitter,cap", [(5, 0.15, None), (6, 0.1, 64)],
+                         ids=["windows", "rows"])
+def test_compact_lists_match_plain(dev, nc, jitter, cap):
+    """The compact-list rung on the systems of test_torch_compact_lists.py:
+    both compactions (bit for bit), the scatter through cidx, and K1/K2 at
+    source width cl, each against its plain version."""
+    pos, types, lengths = _pbte(nc, jitter)
+    nep = NEP.from_file(MODEL, device=dev)
+    box = Box.orthogonal(lengths, dtype=torch.float32, device=dev)
+    md = DenseNEPMD(nep, box, len(pos), position=pos, skin=1.0, cap=cap)
+    cp = md.cplan
+    rows = TC.rows_compact_eligible(cp)
+    assert cp.cl > 0 and rows == (cap is not None)
+    carry = md.init_carry(make_state(pos, np.where(types == 1, 207.2, 127.6),
+                                     types, box))
+    assert not bool(carry.overflow)
+    s = carry.state
+    garr = TG.pack_ghost(s.position, s.type, s.mask, s.box, md.plan)
+    cidx = carry.idx.cidx
+    for pav in (False, True):
+        k = {}
+        before = dict(cuda_build.launches)
+        TC.compact_pipeline(garr, s.type, s.mask, cp, carry.idx, nep.model,
+                            nep.params, pav, spec=md.spec, keep=k)
+        name = "compact_rows" if rows else "compact_windows"
+        assert cuda_build.launches[name] == before[name] + 2
+        if rows:
+            for src in (k["garr"], k["rows_p"]):
+                got = TC.compact_rows_call(src, cidx, cp)
+                assert torch.equal(got, TC.compact_rows_plain(src, cidx, cp))
+                win = TG.pack_block_windows(src, md.plan, cp.bx, cp.wl,
+                                            far_channels=0)
+                assert torch.equal(got, TC.compact_windows_call(win, cidx,
+                                                                cp))
+        for src in ([k["cand_win"], k["cotw_win"]] if not rows else []):
+            assert torch.equal(TC.compact_windows_call(src, cidx, cp),
+                               TC.compact_windows_plain(src, cidx, cp))
+        pairs = {
+            "k1": (TC.k1_call(k["centers"], k["cand"], k["idx"], cp,
+                              md.spec),
+                   TC.k1_plain(k["centers"], k["cand"], k["idx"], cp,
+                               md.spec)),
+            "k2": (TC.k2_call(k["centers"], k["tiles"], k["idx"], k["cotc"],
+                              k["cotw"], cp, md.spec, pav),
+                   TC.k2_plain(k["centers"], k["tiles"], k["idx"], k["cotc"],
+                               k["cotw"], cp, md.spec, pav)),
+            "scatter": ((TC.scatter_call(k["pvals"], k["idx_a"], cp,
+                                         cidx),),
+                        (TC.scatter_plain(k["pvals"], k["idx_a"], cp,
+                                          cidx),)),
+        }
+        for name, (got, ref) in pairs.items():
+            for g, r in zip(got, ref):
+                assert torch.isfinite(g).all()
+                assert _rel(g, r) <= TOL[name], (name, pav, _rel(g, r))

@@ -33,7 +33,7 @@ LATTICES = {
 def _boxes(name, pbc=(True, True, True)):
     lat = LATTICES[name]
     return (JBox.from_lattice(jnp.asarray(lat), pbc=pbc),
-            TBox.from_lattice(lat, pbc=pbc))
+            TBox.from_lattice(lat, pbc=pbc, device="cpu"))
 
 
 def _positions(rng, n, lat):
@@ -135,7 +135,8 @@ def test_build_indices_equal(name):
     n = len(pos)
     jcp = JC.make_compact_plan(plan, position=pos, box=jb, rc_angular=4.0,
                                compact_lists=False)
-    tcp = TC.make_compact_plan(tplan, position=pos, box=tb, rc_angular=4.0)
+    tcp = TC.make_compact_plan(tplan, position=pos, box=tb, rc_angular=4.0,
+                               compact_lists=False)
     assert (jcp.bx, jcp.mn_r, jcp.mn_a, jcp.cl) == (tcp.bx, tcp.mn_r,
                                                     tcp.mn_a, tcp.cl)
     assert (jcp.a_pad, jcp.wl) == (tcp.a_pad, tcp.wl)
@@ -161,10 +162,3 @@ def test_build_indices_equal(name):
     assert tidx.dtype == torch.int32
     np.testing.assert_array_equal(_np(tidx), _np(jidx))
     assert bool(tok) == bool(jok)
-
-
-def test_compact_lists_not_ported():
-    _, _, tb, pos, _, _, tplan = _grid_setup("orthogonal")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        TC.make_compact_plan(tplan, position=pos, box=tb, rc_angular=4.0,
-                             compact_lists=True)

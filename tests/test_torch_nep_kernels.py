@@ -120,7 +120,8 @@ def oracle():
         k2[pav] = tuple(np.asarray(v) for v in (outf, pvals, dcand))
 
     tmodel = NepModel(**MODEL_KW)
-    tparams = random_params(tmodel, seed=7, dtype=torch.float64)
+    tparams = random_params(tmodel, seed=7, dtype=torch.float64,
+                            device="cpu")
     tplan = TG.DenseGridPlan(*dataclasses.astuple(plan))
     tcplan = TC.CompactPlan(base=tplan, bx=cplan.bx, mn_r=cplan.mn_r,
                             mn_a=cplan.mn_a)

@@ -70,12 +70,15 @@ def force_pass():
     ff = ForceField.create([jnep], jbox, n, mn=128)
     ref = ff.compute(jmake_state(pos, np.ones(n), types, jbox))
 
-    box = Box.orthogonal(lengths)
-    nep = NEP.from_file(MODEL, dtype=torch.float64)
+    box = Box.orthogonal(lengths, device="cpu")
+    nep = NEP.from_file(MODEL, dtype=torch.float64, device="cpu")
     pos_w = box.wrap(torch.as_tensor(pos))
     plan = TC.plan_grid_compact(box, nep.rc, 1.0, n, position=_np(pos_w))
+    # the full-window rung; tests/test_torch_compact_lists.py holds the
+    # compact-list rung on the same system
     cplan = TC.make_compact_plan(plan, position=_np(pos_w), box=box,
-                                 rc_angular=nep.model.rc_angular_max)
+                                 rc_angular=nep.model.rc_angular_max,
+                                 compact_lists=False)
     perm, smask, ov = TG.bin_dense(pos_w, box, torch.ones(n,
                                                           dtype=torch.float64),
                                    plan)
@@ -118,10 +121,13 @@ def test_force_pass_total_virial(force_pass, pav):
                                rtol=1e-8, atol=1e-8)
 
 
-def test_nve_trajectory_matches_md_run():
-    """20 NVE steps at 1 fs from the same velocities; positions compared
-    through orig_id (to_input_order).  f64 force differences of ~1e-14
-    grow little over 20 fs: positions to 1e-8 A, velocities to 1e-9."""
+@pytest.mark.parametrize("compact_lists", [True, False],
+                         ids=["lists", "windows"])
+def test_nve_trajectory_matches_md_run(compact_lists):
+    """20 NVE steps at 1 fs from the same velocities, on either rung;
+    positions compared through orig_id (to_input_order).  f64 force
+    differences of ~1e-14 grow little over 20 fs: positions to 1e-8 A,
+    velocities to 1e-9."""
     pos, types, lengths = _pbte(4, 0.1, 1)
     n = len(pos)
     mass = np.where(types == 1, 207.2, 127.6)
@@ -136,9 +142,11 @@ def test_nve_trajectory_matches_md_run():
     jstate = ff.compute(jmake_state(pos, mass, types, jbox, velocity=vel))
     jfinal, _, _ = md_run(jstate, ff, JNVE(), dt, steps)
 
-    box = Box.orthogonal(lengths)
-    nep = NEP.from_file(MODEL, dtype=torch.float64)
-    md = DenseNEPMD(nep, box, n, position=pos, skin=0.5)
+    box = Box.orthogonal(lengths, device="cpu")
+    nep = NEP.from_file(MODEL, dtype=torch.float64, device="cpu")
+    md = DenseNEPMD(nep, box, n, position=pos, skin=0.5,
+                    compact_lists=compact_lists)
+    assert (md.cplan.cl > 0) == compact_lists
     carry, _ = md.run(make_state(pos, mass, types, box, velocity=vel), NVE(),
                       dt, steps)
     assert not bool(carry.overflow)
@@ -162,7 +170,8 @@ def test_initialize_velocity_injected():
     pos, types, lengths = _pbte(2, 0.0, 0)
     n = len(pos)
     mass = np.where(types == 1, 207.2, 127.6)
-    state = make_state(pos, mass, types, Box.orthogonal(lengths))
+    state = make_state(pos, mass, types, Box.orthogonal(lengths,
+                                                        device="cpu"))
     raw = np.random.default_rng(2).normal(size=(n, 3))
     v = _np(initialize_velocity(state, 450.0, velocity=raw).velocity)
     assert np.abs((mass[:, None] * v).sum(0)).max() < 1e-12
@@ -177,10 +186,10 @@ def test_initialize_velocity_injected():
 
 def test_v2_engine_not_ported():
     pos, types, lengths = _pbte(4, 0.0, 0)
-    nep = NEP.from_file(MODEL, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DenseNEPMD(nep, Box.orthogonal(lengths), len(pos), position=pos,
-                   skin=0.5, engine="v2")
+    nep = NEP.from_file(MODEL, dtype=torch.float64, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 4"):
+        DenseNEPMD(nep, Box.orthogonal(lengths, device="cpu"), len(pos),
+                   position=pos, skin=0.5, engine="v2")
 
 
 def test_params_from_numpy_roundtrip():
@@ -188,7 +197,7 @@ def test_params_from_numpy_roundtrip():
     jparams = jrandom_params(jmodel, seed=4, dtype=jnp.float64)
     leaves = {k: None if v is None else np.asarray(v)
               for k, v in jparams._asdict().items()}
-    tparams = params_from_numpy(leaves, dtype=torch.float64)
+    tparams = params_from_numpy(leaves, dtype=torch.float64, device="cpu")
     assert isinstance(tparams, NepParams)
     for k in NepParams._fields:
         if leaves.get(k) is None:
@@ -196,8 +205,8 @@ def test_params_from_numpy_roundtrip():
         else:
             np.testing.assert_array_equal(_np(getattr(tparams, k)), leaves[k])
     # random_params draws the same numpy stream as the JAX package
-    tmodel, _ = load_nep_txt(MODEL)
-    mine = random_params(tmodel, seed=4, dtype=torch.float64)
+    tmodel, _ = load_nep_txt(MODEL, device="cpu")
+    mine = random_params(tmodel, seed=4, dtype=torch.float64, device="cpu")
     for k in NepParams._fields:
         if leaves.get(k) is not None:
             np.testing.assert_array_equal(_np(getattr(mine, k)), leaves[k])
@@ -205,7 +214,7 @@ def test_params_from_numpy_roundtrip():
 
 def test_load_nep_txt_parity():
     jmodel, jparams = jload(MODEL, dtype=jnp.float64)
-    tmodel, tparams = load_nep_txt(MODEL, dtype=torch.float64)
+    tmodel, tparams = load_nep_txt(MODEL, dtype=torch.float64, device="cpu")
     assert dataclasses.asdict(tmodel) == dataclasses.asdict(jmodel)
     for k in NepParams._fields:
         j = getattr(jparams, k)
