@@ -37,19 +37,42 @@ rejects) and full windows (compact_lists=False).  Phases:
              with their rebuilds counted and included; then 1,000,000
              atoms on the default rung, 20 steps (atom-step/s, peak memory)
 
-Usage: python3 chip_smoke.py [--phases build,kernels,md,time]
+It then drives the second path, Tersoff-1989 MD of diamond Si on the
+compact engine (CompactTersoffMD, full windows, BASELINE config 2), with the
+published Si parameters (Phys. Rev. B 39, 5566 (1989)) written to a
+temporary file and read by Tersoff1989.from_file, in float32:
+
+  5. tersoff-kernels  32,768 Si jittered by 0.1 A: the tersoff kernel
+             against its plain version with per-atom virials off and on,
+             the scatter at pch 4 and 12 and the fold on its cotangents
+  6. tersoff-md       32,768 Si, 300 K, dt 1 fs: 200 NVE steps (energy
+             conserved, tersoff, scatter and fold launched every step),
+             100 NVT-NHC and 50 NVT-Berendsen steps (300 K, coupling 100);
+             after 20 steps each run tracks its all-plain run
+  7. tersoff-time     1,000,000 Si (bench.py's run_tersoff system, skin
+             1.0): 50 steps after warm-up under NVE and under NVT-NHC
+             (atom-step/s, the host-sync cost of each), a device profile
+             of 5 NVE steps, the tersoff, scatter and fold times at that
+             shape beside their plain versions and bounds, one rebuild,
+             peak memory
+
+Usage: python3 chip_smoke.py [--phases build,kernels,md,time,
+       tersoff-kernels,tersoff-md,tersoff-time]
 Prints the kernels' JSON line, then, last, {"ok": true, "device": {...}}.
-A kernel's "ms", "plain_ms", "library_ms" and "bound_ms" are per MD step
-at 262,144 atoms on the default rung: the compactions launch twice a step
-(positions and cotangent rows) and count both; compact_windows is timed on
-the packed windows of that plan.  Exits non-zero, printing no result,
-without a CUDA device or on any failed check.
+A NEP kernel's "ms", "plain_ms", "library_ms" and "bound_ms" are per MD
+step at 262,144 atoms on the default rung: the compactions launch twice a
+step (positions and cotangent rows) and count both; compact_windows is
+timed on the packed windows of that plan.  The tersoff kernel's are per MD
+step at 1,000,000 Si, and its launches those of the 200-step NVE run.
+Exits non-zero, printing no result, without a CUDA device or on any
+failed check.
 """
 
 import argparse
 import json
 import re
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -59,14 +82,16 @@ import torch
 ROOT = Path(__file__).resolve().parent
 MODEL = ROOT / "artifacts" / "trainer_parity_r5_nep.txt"
 
-KERNELS = ("k1", "k2", "scatter", "fold", "compact_rows", "compact_windows")
+KERNELS = ("k1", "k2", "scatter", "fold", "compact_rows", "compact_windows",
+           "tersoff")
 # Tolerances, relative to max|plain|.  K1 and the fold add the same terms
 # in another order in f32 (descriptor sums of ~100 pairs): 1e-5.  K2 and
 # the scatter also differ by hand-derived vs autograd-free op order and by
 # shared-memory atomics whose order changes from run to run: 1e-4.  The
-# compactions copy: bit for bit.
+# compactions copy: bit for bit.  The tersoff kernel sums the bond-order
+# terms in another order and with CUDA's own powf/expf/sincospif: 1e-4.
 TOL = {"k1": 1e-5, "fold": 1e-5, "k2": 1e-4, "scatter": 1e-4,
-       "compact_rows": 0.0, "compact_windows": 0.0}
+       "compact_rows": 0.0, "compact_windows": 0.0, "tersoff": 1e-4}
 # Positions after 20 NVE steps, kernels vs plain versions (or one rung vs
 # the other) on the card: the runs differ only by f32 summation order
 # (~1e-7 relative in forces), which 20 fs of chaotic dynamics amplifies far
@@ -83,6 +108,7 @@ REPLACES = {
     "fold": "gpumd_tpu/engine/fold_kernel.py:55",
     "compact_rows": "gpumd_tpu/engine/nep_compact.py:541",
     "compact_windows": "gpumd_tpu/engine/nep_compact.py:478",
+    "tersoff": "gpumd_tpu/engine/tersoff_compact.py:162",
 }
 SOURCES = {
     "k1": "gpumd_tpu_torch/csrc/nep_k1.cu",
@@ -91,7 +117,13 @@ SOURCES = {
     "fold": "gpumd_tpu_torch/csrc/fold.cu",
     "compact_rows": "gpumd_tpu_torch/csrc/compact.cu",
     "compact_windows": "gpumd_tpu_torch/csrc/compact.cu",
+    "tersoff": "gpumd_tpu_torch/csrc/tersoff.cu",
 }
+# Tersoff-1989 Si (Phys. Rev. B 39, 5566 (1989), Table I), in the format
+# Tersoff1989.from_file reads
+SI_TERSOFF = """tersoff_1989 1 Si
+1830.8 471.18 2.4799 1.7322 1.1e-6 0.78734 1.0039e5 16.217 -0.59825 2.7 3.0
+"""
 # Peaks of one H100 SXM (NVIDIA's data sheet): HBM3
 # bytes/s and float32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -147,7 +179,7 @@ class System:
         cp = self.md.cplan
         path = ("full windows" if not cp.cl else "compact_rows"
                 if rows_compact_eligible(cp) else "compact_windows")
-        return (f"n={self.n} grid={cp.base.grid} cap={cp.base.cap} "
+        return (f"PbTe n={self.n} grid={cp.base.grid} cap={cp.base.cap} "
                 f"bx={cp.bx} mn_r={cp.mn_r} mn_a={cp.mn_a} "
                 f"a_pad={cp.a_pad} wl={cp.wl} cl={cp.cl} nb={cp.nb} "
                 f"({path})")
@@ -163,6 +195,83 @@ class System:
                          self.nep.model, self.nep.params, per_atom_virial,
                          spec=self.md.spec, keep=keep)
         return keep
+
+
+def build_diamond(nc, a0=5.431):
+    """Diamond-lattice Si supercell, 8 atoms per cubic cell (bench.py's
+    run_tersoff system at nc 50)."""
+    base = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5],
+                     [.25, .25, .25], [.75, .75, .25], [.75, .25, .75],
+                     [.25, .75, .75]])
+    cells = np.stack(np.meshgrid(*[np.arange(nc)] * 3, indexing="ij"),
+                     axis=-1).reshape(-1, 3)
+    pos = (cells[:, None, :] + base[None]).reshape(-1, 3) * a0
+    return pos, np.full(3, nc * a0)
+
+
+class TersoffSystem:
+    """Diamond Si at nc^3 cells with Tersoff-1989 (the file `pot_path`), on
+    the card in f32, skin 1.0 as bench.py's run_tersoff."""
+
+    def __init__(self, nc, pot_path, plain=False, seed=3, jitter=0.0):
+        from gpumd_tpu_torch.engine.tersoff_compact import CompactTersoffMD
+        from gpumd_tpu_torch.integrate.velocity import initialize_velocity
+        from gpumd_tpu_torch.model.box import Box
+        from gpumd_tpu_torch.model.state import make_state
+        from gpumd_tpu_torch.potentials.tersoff import Tersoff1989
+
+        pos, lengths = build_diamond(nc)
+        if jitter:
+            pos = pos + np.random.default_rng(seed).normal(0, jitter,
+                                                           pos.shape)
+        self.n = len(pos)
+        pot = Tersoff1989.from_file(pot_path)
+        self.box = Box.orthogonal(lengths, dtype=torch.float32)
+        state = make_state(pos, np.full(self.n, 28.085),
+                           np.zeros(self.n, int), self.box)
+        self.state = initialize_velocity(state, 300.0, seed=seed)
+        self.md = CompactTersoffMD(pot, self.box, self.n, position=pos,
+                                   skin=1.0, plain=plain)
+
+    def describe(self):
+        cp = self.md.cplan
+        return (f"Si n={self.n} grid={cp.base.grid} cap={cp.base.cap} "
+                f"bx={cp.bx} mn={cp.mn_r} a_pad={cp.a_pad} wl={cp.wl} "
+                f"cl={cp.cl} nb={cp.nb} (full windows)")
+
+    def pipeline(self, carry, per_atom_virial):
+        from gpumd_tpu_torch.engine.tersoff_compact import (
+            compact_tersoff_compute,
+        )
+
+        s = carry.state
+        keep = {}
+        compact_tersoff_compute(s.position, s.type, s.mask, s.box,
+                                self.md.cplan, carry.idx, self.md.spec,
+                                per_atom_virial=per_atom_virial, keep=keep)
+        keep["idx_a"] = keep["idx"]
+        return keep
+
+
+def tersoff_pairs(md, keep):
+    """(name, kernel fn, plain fn) on one Tersoff pass's tensors."""
+    from gpumd_tpu_torch.engine import fold_kernel as fk
+    from gpumd_tpu_torch.engine import nep_compact as nc
+    from gpumd_tpu_torch.engine import tersoff_compact as tc
+
+    cp, spec = md.cplan, md.spec
+    pav = keep["pvals"].shape[3] == 12
+    args = (keep["centers"], keep["cand"], keep["idx"], cp, spec, pav)
+    return [
+        ("tersoff", lambda: tc.tersoff_kernel_call(*args),
+         lambda: tc.tersoff_kernel_plain(*args)),
+        ("scatter", lambda: nc.scatter_call(keep["pvals"], keep["idx"], cp),
+         lambda: nc.scatter_plain(keep["pvals"], keep["idx"], cp)),
+        ("fold", lambda: fk.fold_windows_to_rows(keep["dcand"], cp.base,
+                                                 cp.bx),
+         lambda: fk.fold_windows_to_rows_plain(keep["dcand"], cp.base,
+                                               cp.bx)),
+    ]
 
 
 def kernel_pairs(md, keep):
@@ -257,7 +366,7 @@ def phase_kernels(results):
     with torch.no_grad():
         for label, kw in passes:
             sysm = System(16, **kw)
-            print(f"[kernels] pass {label}: PbTe {sysm.describe()}")
+            print(f"[kernels] pass {label}: {sysm.describe()}")
             carry = sysm.md.init_carry(sysm.state)
             if bool(carry.overflow):
                 raise RuntimeError(f"overflow at init ({label})")
@@ -286,11 +395,11 @@ def phase_kernels(results):
         raise RuntimeError(f"kernels disagree with plain versions: {failures}")
 
 
-def _run_steps(sysm, n_steps, snap_at=None):
+def _run_steps(sysm, n_steps, snap_at=None, ens=None):
     from gpumd_tpu_torch.integrate.ensembles.nve import NVE
     from gpumd_tpu_torch.units import TIME_UNIT_CONVERSION
 
-    md, ens = sysm.md, NVE()
+    md, ens = sysm.md, ens or NVE()
     dt = 1.0 / TIME_UNIT_CONVERSION
     carry = md.init_carry(sysm.state)
     carry = carry._replace(state=md.compute(carry.state, carry.idx))
@@ -310,13 +419,14 @@ def total_energy(state):
     return float(state.kinetic_energy() + pe) / float(state.mask.sum())
 
 
-def _md_path(label, sysm, n_steps, need):
-    """Drive one path from counts of 0, read them just after, gate it.
-    Returns the 20-step positions and the counts."""
+def _md_path(label, sysm, n_steps, need, ens=None):
+    """Drive one path from counts of 0, read them just after, gate it
+    (energy conservation under NVE only: `ens` None).  Returns the 20-step
+    positions and the counts."""
     from gpumd_tpu_torch.engine import cuda_build
 
     cuda_build.reset_launches()
-    carry, e0, snap = _run_steps(sysm, n_steps, snap_at=20)
+    carry, e0, snap = _run_steps(sysm, n_steps, snap_at=20, ens=ens)
     torch.cuda.synchronize()
     counts = dict(cuda_build.launches)
     e1 = total_energy(carry.state)
@@ -328,14 +438,16 @@ def _md_path(label, sysm, n_steps, need):
     print(f"[md] {label}: steps={n_steps} launches={counts} "
           f"finite={finite} overflow={overflow}")
     print(f"[md] {label}: total energy per atom: start {e0:.8f} eV, end "
-          f"{e1:.8f} eV, change {e1 - e0:+.3e} eV (bound {DRIFT_TOL})")
+          f"{e1:.8f} eV, change {e1 - e0:+.3e} eV"
+          + (f" (bound {DRIFT_TOL})" if ens is None else
+             f"; temperature {float(s.temperature()):.2f} K"))
     if not finite or overflow:
         raise RuntimeError(f"{label}: non-finite values or overflow")
     low = [k for k, c in need.items() if counts[k] < c]
     if low:
         raise RuntimeError(f"{label}: kernels launched fewer times than "
                            f"{need}: {low}")
-    if abs(e1 - e0) > DRIFT_TOL:
+    if ens is None and abs(e1 - e0) > DRIFT_TOL:
         raise RuntimeError(f"{label}: total energy not conserved")
     return snap, counts
 
@@ -439,10 +551,10 @@ def work(name, keep, cp, spec):
     """(bytes, operations) one step's launches of `name` need at this
     pass's shapes: each input read once, each output written once; float
     operations per live pair estimated from the kernel source (an FMA is
-    2, a transcendental 1)."""
-    kr1, ka1, na1, nlm = spec.kr1, spec.ka1, spec.na1, spec.nlm
-    zbl = 40 if spec.zbl_mode else 0
+    2, a transcendental 1).  `spec` is read by K1 and K2 only."""
     if name in ("k1", "k2"):
+        kr1, ka1, na1, nlm = spec.kr1, spec.ka1, spec.na1, spec.nlm
+        zbl = 40 if spec.zbl_mode else 0
         rad, ang = _live_pairs(keep, cp)
         if name == "k1":
             ops = (rad * (10 + 6 + 5 * kr1 + zbl)
@@ -542,13 +654,13 @@ def _with_windows(keep, cp):
     return keep
 
 
-def _time_rung(sysm, label, n_steps=50):
+def _time_rung(sysm, label, n_steps=50, ens=None):
     from gpumd_tpu_torch.integrate.ensembles.nve import NVE
     from gpumd_tpu_torch.units import TIME_UNIT_CONVERSION
 
-    md, ens = sysm.md, NVE()
+    md, ens = sysm.md, ens or NVE()
     dt = 1.0 / TIME_UNIT_CONVERSION
-    print(f"[time] {label}: PbTe {sysm.describe()}")
+    print(f"[time] {label}: {sysm.describe()}")
     carry = md.init_carry(sysm.state)
     carry = carry._replace(state=md.compute(carry.state, carry.idx))
     aux = ens.init(carry.state)
@@ -580,7 +692,7 @@ def _time_rung(sysm, label, n_steps=50):
     print(f"[time] {label}: without the per-step rebuild check and its "
           f"host sync: {1e3 * wall_ns / n_steps:.3f} ms/step; sync cost "
           f"{1e3 * (wall - wall_ns) / n_steps:.3f} ms/step")
-    return carry, aux, step
+    return carry, aux, step, 1e3 * wall / n_steps
 
 
 def _time_rebuild(sysm, label, reps=3):
@@ -700,20 +812,20 @@ def phase_time(results):
     with torch.no_grad():
         sysm = System(32)
         label = "262k default rung"
-        carry, aux, step = _time_rung(sysm, label)
+        carry, aux, step, _ = _time_rung(sysm, label)
         _profile(step, carry, aux)
         _time_kernels(sysm, carry, results)
         _long_run(sysm, carry, aux, step, _time_rebuild(sysm, label), label)
         del sysm, carry, aux, step
         jit = System(32, jitter=0.1)
         label = "262k default rung, jittered start"
-        carry, aux, step = _time_rung(jit, label)
+        carry, aux, step, _ = _time_rung(jit, label)
         _time_kernels(jit, carry)
         _time_rebuild(jit, label)
         del jit, carry, aux, step
         full = System(32, compact_lists=False)
         label = "262k full-window rung"
-        carry, aux, step = _time_rung(full, label)
+        carry, aux, step, _ = _time_rung(full, label)
         _profile(step, carry, aux)
         _time_kernels(full, carry)
         _long_run(full, carry, aux, step, _time_rebuild(full, label), label)
@@ -726,9 +838,142 @@ def phase_time(results):
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
 
 
+def _tersoff_live(keep, cp, spec):
+    """Live bonds (fc > 0 candidates: d < R2, real centre and neighbour)
+    and ordered live bond pairs (j != k) of this pass: the kernel's work."""
+    from gpumd_tpu_torch.engine.nep_compact import _gather_lanes
+
+    nb, mn, a_pad = cp.nb, cp.mn_r, cp.a_pad
+    c = keep["centers"].reshape(nb, 4, 1, a_pad)
+    g = _gather_lanes(keep["cand"].reshape(nb, 4, -1),
+                      keep["idx"].reshape(nb, mn, a_pad))
+    d2 = sum((g[:, q] - c[:, q]) ** 2 for q in range(3))
+    t = spec.num_types
+    ti = torch.clamp(torch.round(c[:, 3]), 0, t - 1).long()
+    tj = torch.clamp(torch.round(g[:, 3]), 0, t - 1).long()
+    r2 = torch.as_tensor(spec.r2, device=d2.device)[ti * t + tj]
+    live = ((d2 > 1e-6) & (g[:, 3] > -0.5) & (c[:, 3] > -0.5)
+            & (d2 < r2 * r2))
+    nl = live.sum(dim=1).double()
+    return int(nl.sum()), int((nl * (nl - 1)).sum())
+
+
+def tersoff_work(keep, cp, spec):
+    """(bytes, operations) of one tersoff launch: each input read once,
+    each output written once; float operations from the kernel source (an
+    FMA 2, a transcendental 1): ~10 per slot (gather, distance), ~80 per
+    live bond (cutoff, exponentials, bond order, p_j, virial) and ~47 per
+    ordered live bond pair (12 in pass 1, 35 in pass 2)."""
+    bonds, pairs = _tersoff_live(keep, cp, spec)
+    nb = _nbytes(keep["centers"], keep["cand"], keep["idx"], keep["outf"],
+                 keep["pvals"])
+    return nb, 10 * keep["idx"].numel() + 80 * bonds + 47 * pairs
+
+
+def phase_tersoff_kernels(results, pot_path):
+    failures = []
+    with torch.no_grad():
+        sysm = TersoffSystem(16, pot_path, jitter=0.1)
+        print(f"[tersoff-kernels] {sysm.describe()}")
+        carry = sysm.md.init_carry(sysm.state)
+        if bool(carry.overflow):
+            raise RuntimeError("tersoff: overflow at init")
+        for pav in (False, True):
+            keep = sysm.pipeline(carry, pav)
+            if not pav:
+                bonds, pairs = _tersoff_live(keep, sysm.md.cplan,
+                                             sysm.md.spec)
+                print(f"[tersoff-kernels] live bonds per atom "
+                      f"{bonds / sysm.n:.3f}, ordered bond pairs per atom "
+                      f"{pairs / sysm.n:.3f}")
+            for name, kern, plain in tersoff_pairs(sysm.md, keep):
+                tag = f"{name}[tersoff{',pav' if pav else ''}]"
+                _compare(tag, name, kern(), plain(), results, failures)
+    if failures:
+        raise RuntimeError(f"kernels disagree with plain versions: {failures}")
+
+
+def phase_tersoff_md(results, pot_path):
+    from gpumd_tpu_torch.engine import cuda_build
+    from gpumd_tpu_torch.integrate.ensembles.nvt import (
+        NVTBerendsen,
+        NVTNoseHooverChain,
+    )
+
+    runs = [("NVE", None, 200),
+            ("NVT-NHC", lambda: NVTNoseHooverChain(t0=300.0, t1=300.0,
+                                                    coupling=100.0), 100),
+            ("NVT-Berendsen", lambda: NVTBerendsen(t0=300.0, t1=300.0,
+                                                   coupling=100.0), 50)]
+    kernels = ("tersoff", "scatter", "fold")
+    with torch.no_grad():
+        sysm = TersoffSystem(16, pot_path)
+        ref = TersoffSystem(16, pot_path, plain=True)
+        for label, make, n in runs:
+            snap, counts = _md_path(f"tersoff {label}", sysm, n,
+                                    {k: n + 1 for k in kernels},
+                                    ens=make and make())
+            if label == "NVE":
+                results.setdefault("tersoff", {})["launches"] = \
+                    counts["tersoff"]
+            cuda_build.reset_launches()
+            _, _, snap_p = _run_steps(ref, 20, snap_at=20,
+                                      ens=make and make())
+            if any(cuda_build.launches.values()):
+                raise RuntimeError("the plain reference run launched kernels")
+            _pos_check(f"tersoff {label}, kernels vs plain", sysm.box, snap,
+                       snap_p)
+
+
+def phase_tersoff_time(results, pot_path):
+    from gpumd_tpu_torch.integrate.ensembles.nvt import NVTNoseHooverChain
+
+    with torch.no_grad():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        big = TersoffSystem(50, pot_path)
+        label = "1M Si NVE"
+        carry, aux, step, ms_nve = _time_rung(big, label)
+        _profile(step, carry, aux)
+        md = big.md
+        keep = big.pipeline(carry, False)
+        for name, kern, plain in tersoff_pairs(md, keep):
+            p_ms, k_ms = _in_turns(plain, kern, 2, 10)
+            if name == "tersoff":
+                nbytes, nops = tersoff_work(keep, md.cplan, md.spec)
+                lib_ms = None  # no single PyTorch call computes it
+            else:
+                nbytes, nops = work(name, keep, md.cplan, None)
+                lib = library_calls(name, keep, md.cplan)
+                lib_ms = sum(_time_ms(f, 20) for f in lib)
+            b_ms, b_by = bound(nbytes, nops)
+            lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+            print(f"[time] 1M Si {name}: kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms ({p_ms / k_ms:.2f}x), library {lib_txt}, "
+                  f"bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
+                  f"{nops / 1e9:.3f} GFLOP; {100 * b_ms / k_ms:.1f}% of "
+                  f"bound)")
+            if name == "tersoff":
+                results.setdefault(name, {}).update(
+                    ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                    bound_ms=b_ms, bound_by=b_by)
+        del keep
+        _time_rebuild(big, label)
+        del carry, aux, step
+        _, _, _, ms_nhc = _time_rung(big, "1M Si NVT-NHC",
+                                     ens=NVTNoseHooverChain(
+                                         t0=300.0, t1=300.0, coupling=100.0))
+        print(f"[time] 1M Si: NVT-NHC costs {ms_nhc - ms_nve:.3f} ms/step "
+              f"more than NVE (the chain's two host syncs and scalar "
+              f"integration a step)")
+        print(f"[time] 1M Si: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,md,time")
+    ap.add_argument("--phases", default="build,kernels,md,time,"
+                    "tersoff-kernels,tersoff-md,tersoff-time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port's smoke test needs one")
@@ -739,11 +984,19 @@ def main():
     results = {}
     t0 = time.time()
     phase_build()
-    for name, fn in (("kernels", phase_kernels), ("md", phase_md),
-                     ("time", phase_time)):
-        if name in phases:
-            fn(results)
-            print(f"[{name}] done at {time.time() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        pot_path = str(Path(tmp) / "Si_Tersoff_1989.txt")
+        Path(pot_path).write_text(SI_TERSOFF)
+        for name, fn in (
+                ("kernels", phase_kernels), ("md", phase_md),
+                ("time", phase_time),
+                ("tersoff-kernels",
+                 lambda r: phase_tersoff_kernels(r, pot_path)),
+                ("tersoff-md", lambda r: phase_tersoff_md(r, pot_path)),
+                ("tersoff-time", lambda r: phase_tersoff_time(r, pot_path))):
+            if name in phases:
+                fn(results)
+                print(f"[{name}] done at {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": REPLACES[k], **results.get(k, {})}

@@ -11,7 +11,9 @@
 // each output written once, ~ (1 + (bx+2)/bx) * 4 B per output element.
 // Design: one thread per output element, which gathers its 9 (dz, dy)
 // groups and their x-halo cells with the periodic wrap in the index
-// arithmetic.  Neighbouring threads hold neighbouring slots of a cell, so
+// arithmetic; the (at most two) window cells that hold a ghost x-cell are
+// computed, not searched over all bx + 2 (at bx 14 the search made the
+// kernel bound by its integer divisions).  Neighbouring threads hold neighbouring slots of a cell, so
 // reads and writes coalesce.  Unlike the TPU kernel it needs no 128-lane
 // alignment, so it serves every plan.
 #include <cuda_runtime.h>
@@ -51,11 +53,14 @@ __global__ void fold_kernel(const float* __restrict__ dw,
       }
       const float* src = dw + (((size_t)zb * ny + yb) * C + c) * nxb * wl;
       const int grp = (dz * 3 + dy) * (bx + 2);
-      for (int wx = 0; wx < bx + 2; ++wx) {
-        for (int q = 0; q < ng; ++q) {
-          const int t = gxs[q] - wx;
-          if (t >= 0 && t % bx == 0 && t / bx < nxb)
-            acc += src[(size_t)(t / bx) * wl + (grp + wx) * cap + s];
+      // ghost x-cell g sits at window cell wx of x-block xb when
+      // g = xb*bx + wx: wx = g % bx, or g % bx + bx when that is < bx + 2
+      for (int q = 0; q < ng; ++q) {
+        const int g = gxs[q];
+        for (int wx = g % bx; wx < bx + 2; wx += bx) {
+          const int xb = (g - wx) / bx;
+          if (xb >= 0 && xb < nxb)
+            acc += src[(size_t)xb * wl + (grp + wx) * cap + s];
         }
       }
     }

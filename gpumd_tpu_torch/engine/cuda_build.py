@@ -29,7 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launches = {"k1": 0, "k2": 0, "scatter": 0, "fold": 0, "compact_rows": 0,
-            "compact_windows": 0}
+            "compact_windows": 0, "tersoff": 0}
 build_info = {}  # seconds, path, ptxas report of the last build
 
 _lib = None
@@ -46,6 +46,7 @@ _SIGNATURES = {
     "fold_launch": [P] * 2 + [I] * 10 + [P],
     "compact_rows_launch": [P] * 3 + [I] * 9 + [P],
     "compact_windows_launch": [P] * 3 + [I] * 4 + [P],
+    "tersoff_launch": [P] * 6 + [I] * 7 + [P],
     "gk_error_string": [I],
 }
 

@@ -167,13 +167,18 @@ class DenseNEPMD:
 
     # ---- force pass ------------------------------------------------------
 
-    def compute(self, state: MDState, idx) -> MDState:
-        out = compact_nep_compute(
+    def _force_pass(self, state: MDState, idx):
+        """Energy, force and virials of slot state (the potential's
+        part of `compute`)."""
+        return compact_nep_compute(
             state.position, state.type, state.mask, state.box, self.cplan,
             idx, self.nep.model, self.nep.params,
             per_atom_virial=self.per_atom_virial,
             temperature=self.nep.temperature, spec=self.spec,
             plain=self.plain)
+
+    def compute(self, state: MDState, idx) -> MDState:
+        out = self._force_pass(state, idx)
         f = out.force
         n_real = torch.clamp(torch.sum(state.mask), min=1.0)
         if out.virial_atom is not None:

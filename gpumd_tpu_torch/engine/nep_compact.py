@@ -1128,6 +1128,12 @@ def _lane_blocks_to_slots(v, cplan: CompactPlan):
     return v[:, :cplan.a].reshape(-1)
 
 
+def blocks_to_slots(v, cplan: CompactPlan):
+    """(nz, ny, nxb, C, a_pad) -> (n_slots, C)."""
+    v = v[..., :cplan.a].movedim(3, 4)
+    return v.reshape(-1, v.shape[-1])
+
+
 def middle_compact_flat(s_rad, e_zbl, s_flat, ti, mask, model: NepModel,
                         params: NepParams, temperature=None):
     """c-tensor contraction + invariants + ANN in the flat channel-major

@@ -1,0 +1,148 @@
+"""NVT thermostats: Berendsen and Nose-Hoover chain.
+
+Counterpart of gpumd_tpu/integrate/ensembles/nvt.py (NVTBerendsen,
+NVTNoseHooverChain).  `coupling` is tau/dt (a step count), as parsed from
+`ensemble nvt_xxx T1 T2 coupling` (ref: src/integrate/integrate.cu:394-546);
+T1 -> T2 ramps linearly by the step index aux["i"] over `n_steps`.
+
+  * nvt_ber  Berendsen velocity rescale (ensemble_ber.cu), on the card
+  * nvt_nhc  Nose-Hoover chain of 4, Suzuki-Yoshida 7 weights x n_respa 4,
+             masses kT tau^2 (x 3N for the first) (ensemble_nhc.cu:28-150)
+
+The chain's scalars are integrated on the host in Python floats (f64), as
+the reference does (ensemble_nhc.cu copies the kinetic energy to the
+CPU): a half step reads twice the kinetic energy and the degrees of
+freedom in one device-to-host copy (one sync) and applies one velocity
+scale on the card.  On the card the chain is some thousand scalar
+operations a half step, each of which would be a launch.  Langevin, BDP
+and BAOAB need random streams and are not ported yet (ROADMAP queue 1,
+item 8).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gpumd_tpu_torch.integrate.verlet import (
+    velocity_verlet_step1,
+    velocity_verlet_step2,
+)
+from gpumd_tpu_torch.model.state import MDState
+from gpumd_tpu_torch.units import K_B
+
+NHC_LENGTH = 4
+# Suzuki-Yoshida weights (Tuckerman), ref: ensemble_nhc.cu:118-127
+_SY_W = (0.784513610477560, 0.235573213359357, -1.17767998417887,
+         1.31518632068391, -1.17767998417887, 0.235573213359357,
+         0.784513610477560)
+_N_RESPA = 4
+
+
+def _ke2(state: MDState):
+    """Twice the kinetic energy (a device scalar)."""
+    return torch.sum(state.mass * torch.sum(state.velocity ** 2, dim=-1)
+                     * state.mask)
+
+
+def _ndof(state: MDState):
+    return 3.0 * torch.sum(state.mask)
+
+
+@dataclass(frozen=True)
+class _RampMixin:
+    t0: float = 300.0
+    t1: float = 300.0
+    coupling: float = 100.0  # tau / dt
+    n_steps: int = 0  # for the ramp; 0 = constant t0
+    mobile: Optional[object] = None  # (N,) mobility mask (1 = free)
+    pinned: Optional[tuple] = None  # (mask, velocity) constant-velocity group
+
+    def _temp(self, aux) -> float:
+        """Target temperature at step aux["i"]; the ramp fraction is
+        rounded to float32 as in the JAX package."""
+        if self.n_steps <= 0 or self.t0 == self.t1:
+            return self.t0
+        f32 = np.float32
+        frac = f32(aux["i"]) / f32(self.n_steps)
+        return float(f32(self.t0) + f32(self.t1 - self.t0) * frac)
+
+
+@dataclass(frozen=True)
+class NVTBerendsen(_RampMixin):
+    def init(self, state: MDState):
+        return {"i": 0}
+
+    def step1(self, state: MDState, aux, dt):
+        return velocity_verlet_step1(state, dt, self.mobile, self.pinned), aux
+
+    def step2(self, state: MDState, aux, dt):
+        state = velocity_verlet_step2(state, dt, self.mobile, self.pinned)
+        t_now = state.temperature()
+        factor = torch.sqrt(1.0 + (self._temp(aux) / t_now - 1.0)
+                            / self.coupling)
+        # the startup T = 0 singularity: leave the velocities as they are
+        factor = torch.where(torch.isfinite(factor), factor,
+                             torch.ones_like(factor))
+        return (state._replace(velocity=state.velocity * factor),
+                {"i": aux["i"] + 1})
+
+
+@dataclass(frozen=True)
+class NVTNoseHooverChain(_RampMixin):
+    """Nose-Hoover chain of 4 with the SY(7) x n_respa 4 factorization;
+    aux holds the chain's positions and velocities as Python floats."""
+
+    def init(self, state: MDState):
+        return {"i": 0, "pos": [0.0] * NHC_LENGTH,
+                "vel": [1.0, -1.0, 1.0, -1.0]}
+
+    def _chain(self, state: MDState, aux, dt, dt_half):
+        """One NHC half-update; returns (velocity scale factor, aux')."""
+        t0 = self._temp(aux)
+        kt = K_B * t0
+        ek2, dn = torch.stack([_ke2(state), _ndof(state)]).tolist()
+        tau = dt * self.coupling
+        mas = [kt * tau * tau] * NHC_LENGTH
+        mas[0] *= dn
+        pos, vel = list(aux["pos"]), list(aux["vel"])
+        m = NHC_LENGTH
+
+        def sweep(j):
+            tmp = math.exp(-dt8 * vel[j + 1] / mas[j + 1])
+            g = (vel[j - 1] ** 2 / mas[j - 1] - kt) if j > 0 else (
+                ek2 - dn * kt)
+            vel[j] = tmp * (tmp * vel[j] + dt4 * g)
+
+        factor = 1.0
+        for n1 in range(7):
+            dt2 = dt_half * _SY_W[n1] / _N_RESPA
+            dt4 = dt2 * 0.5
+            dt8 = dt4 * 0.5
+            for _ in range(_N_RESPA):
+                vel[m - 1] += dt4 * (vel[m - 2] ** 2 / mas[m - 2] - kt)
+                for j in range(m - 2, -1, -1):
+                    sweep(j)
+                s = math.exp(-dt2 * vel[0] / mas[0])
+                factor *= s
+                ek2 *= s * s
+                pos = [p + dt2 * v / ms for p, v, ms in zip(pos, vel, mas)]
+                for j in range(0, m - 1):
+                    sweep(j)
+                vel[m - 1] += dt4 * (vel[m - 2] ** 2 / mas[m - 2] - kt)
+        return factor, {**aux, "pos": pos, "vel": vel}
+
+    def step1(self, state: MDState, aux, dt):
+        factor, aux = self._chain(state, aux, dt, 0.5 * dt)
+        state = state._replace(velocity=state.velocity * factor)
+        return velocity_verlet_step1(state, dt, self.mobile, self.pinned), aux
+
+    def step2(self, state: MDState, aux, dt):
+        state = velocity_verlet_step2(state, dt, self.mobile, self.pinned)
+        factor, aux = self._chain(state, aux, dt, 0.5 * dt)
+        state = state._replace(velocity=state.velocity * factor)
+        return state, {**aux, "i": aux["i"] + 1}

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from gpumd_tpu_torch.model.box import Box
+from gpumd_tpu_torch.units import K_B
 
 
 class MDState(NamedTuple):
@@ -36,6 +37,11 @@ class MDState(NamedTuple):
     def kinetic_energy(self):
         v2 = torch.sum(self.velocity ** 2, dim=-1)
         return 0.5 * torch.sum(self.mass * v2 * self.mask)
+
+    def temperature(self):
+        """Instantaneous temperature in K from 3N degrees of freedom."""
+        n = torch.clamp(torch.sum(self.mask), min=1.0)
+        return 2.0 * self.kinetic_energy() / (3.0 * n * K_B)
 
 
 def make_state(

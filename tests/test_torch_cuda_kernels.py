@@ -6,11 +6,13 @@ not import JAX (the GPU machine has none), so run them there with:
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q
 
 They cover what chip_smoke.py does not: every ZBL variant, two l_max
-template instances, fold plans with bx = 1, odd caps and free axes, and
-the compact-list rung on both compactions at CPU-test sizes.  Tolerances
-are relative to max|plain| in f32: 1e-5 for K1 and the fold (summation
-order), 1e-4 for K2 and the scatter (op order and shared-memory atomics);
-the two compactions copy, so they must match bit for bit.
+template instances, fold plans with bx = 1, odd caps and free axes, the
+compact-list rung on both compactions at CPU-test sizes, and the Tersoff
+kernel on the 512-atom CPU-test plan, with two types (SiC) and at 32k
+atoms.  Tolerances are relative to max|plain| in f32: 1e-5 for K1 and the
+fold (summation order), 1e-4 for K2, the scatter and the Tersoff kernel
+(op order, shared-memory atomics, CUDA's own transcendentals); the two
+compactions copy, so they must match bit for bit.
 """
 
 from pathlib import Path
@@ -23,18 +25,27 @@ from gpumd_tpu_torch.engine import cuda_build
 from gpumd_tpu_torch.engine import fold_kernel as TF
 from gpumd_tpu_torch.engine import grid as TG
 from gpumd_tpu_torch.engine import nep_compact as TC
+from gpumd_tpu_torch.engine import tersoff_compact as TT
 from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
 from gpumd_tpu_torch.model.box import Box
 from gpumd_tpu_torch.model.state import make_state
 from gpumd_tpu_torch.potentials.nep.model import NEP
 from gpumd_tpu_torch.potentials.nep.params import NepModel, random_params
+from gpumd_tpu_torch.potentials.tersoff import Tersoff1989
 
 pytestmark = pytest.mark.cuda
 
 MODEL = str(Path(__file__).resolve().parent.parent / "artifacts"
             / "trainer_parity_r5_nep.txt")
 
-TOL = {"k1": 1e-5, "fold": 1e-5, "k2": 1e-4, "scatter": 1e-4}
+TOL = {"k1": 1e-5, "fold": 1e-5, "k2": 1e-4, "scatter": 1e-4,
+       "tersoff": 1e-4}
+# Tersoff-1989 Si and SiC (Phys. Rev. B 39, 5566 (1989), Table I)
+SIC = """tersoff_1989 2 Si C
+1830.8 471.18 2.4799 1.7322 1.1e-6 0.78734 1.0039e5 16.217 -0.59825 2.7 3.0
+1393.6 346.74 3.4879 2.2119 1.5724e-7 0.72751 38049 4.3484 -0.57058 1.8 2.1
+0.9776
+"""
 
 
 @pytest.fixture
@@ -205,3 +216,63 @@ def test_compact_lists_match_plain(dev, nc, jitter, cap):
             for g, r in zip(got, ref):
                 assert torch.isfinite(g).all()
                 assert _rel(g, r) <= TOL[name], (name, pav, _rel(g, r))
+
+
+def _tersoff_inputs(dev, tmp_path, nc, c_frac, skin):
+    """Diamond lattice of nc^3 cells jittered by 0.1 A, c_frac of its sites
+    C (two types) or Si alone (the first line of SIC): the tersoff
+    kernel's inputs from CompactTersoffMD's own plan."""
+    text = SIC if c_frac else "\n".join(SIC.splitlines()[:2]).replace(
+        "2 Si C", "1 Si") + "\n"
+    path = tmp_path / "tersoff.txt"
+    path.write_text(text)
+    pot = Tersoff1989.from_file(str(path), device=dev)
+    base = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5],
+                     [.25, .25, .25], [.75, .75, .25], [.75, .25, .75],
+                     [.25, .75, .75]])
+    cells = np.stack(np.meshgrid(*[np.arange(nc)] * 3, indexing="ij"),
+                     axis=-1).reshape(-1, 3)
+    rng = np.random.default_rng(1)
+    pos = (cells[:, None, :] + base[None]).reshape(-1, 3) * 5.431
+    pos = pos + rng.uniform(-0.1, 0.1, pos.shape)
+    types = (rng.uniform(size=len(pos)) < c_frac).astype(int)
+    box = Box.orthogonal([nc * 5.431] * 3, dtype=torch.float32, device=dev)
+    md = TT.CompactTersoffMD(pot, box, len(pos), position=pos, skin=skin)
+    carry = md.init_carry(make_state(pos, np.where(types, 12.011, 28.085),
+                                     types, box))
+    assert not bool(carry.overflow)
+    s = carry.state
+    garr = TG.pack_ghost(s.position, s.type, s.mask, s.box, md.plan)
+    cp = md.cplan
+    return (TC.block_centers(garr, cp),
+            TG.pack_block_windows(garr, cp.base, cp.bx, cp.wl), carry.idx,
+            cp, md.spec)
+
+
+@pytest.mark.parametrize("nc,c_frac,skin", [(4, 0.0, 0.5), (4, 0.3, 0.5),
+                                            (16, 0.0, 1.0)],
+                         ids=["si512", "sic512", "si32k"])
+def test_tersoff_matches_plain(dev, tmp_path, nc, c_frac, skin):
+    centers, cand, idx, cp, spec = _tersoff_inputs(dev, tmp_path, nc, c_frac,
+                                                   skin)
+    for pav in (False, True):
+        before = cuda_build.launches["tersoff"]
+        got = TT.tersoff_kernel_call(centers, cand, idx, cp, spec, pav)
+        assert cuda_build.launches["tersoff"] == before + 1
+        ref = TT.tersoff_kernel_plain(centers, cand, idx, cp, spec, pav)
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape
+            assert torch.isfinite(g).all()
+            assert _rel(g, r) <= TOL["tersoff"], (pav, _rel(g, r))
+
+
+def test_tersoff_wrapper_rejects_wrong_inputs(dev, tmp_path):
+    centers, cand, idx, cp, spec = _tersoff_inputs(dev, tmp_path, 4, 0.0,
+                                                   0.5)
+    with pytest.raises(ValueError, match="dtype"):
+        TT.tersoff_kernel_call(centers.double(), cand, idx, cp, spec, False)
+    with pytest.raises(ValueError, match="shape"):
+        TT.tersoff_kernel_call(centers, cand[..., :-128].contiguous(), idx,
+                               cp, spec, False)
+    with pytest.raises(ValueError, match="dtype"):
+        TT.tersoff_kernel_call(centers, cand, idx.long(), cp, spec, False)
