@@ -37,19 +37,42 @@ rejects) and full windows (compact_lists=False).  Phases:
              with their rebuilds counted and included; then 1,000,000
              atoms on the default rung, 20 steps (atom-step/s, peak memory)
 
-It then drives the second path, Tersoff-1989 MD of diamond Si on the
+It then drives the dense-window engines on the same PbTe model: the
+round-2 engine of DenseNEPMD(engine="v2") (kernels K1b and K2b, the path
+engine="auto" takes for models the compact engine rejects) and the
+round-1 force pass dense_nep_compute (the round-1 K1 and K2, here
+dense_k1 and dense_k2):
+
+  5. dense-kernels  32,768 atoms jittered by 0.1 A on the v2 plan (grid
+             11^3, cap 40): K1b and K2b on the tensors of one
+             dense_nep_compute_v2 pass, dense_k1 and dense_k2 on those of
+             one dense_nep_compute pass, each against its plain version
+  6. dense-md       32,768 atoms, 300 K, dt 1 fs: 200 NVE steps on
+             engine="v2" (finite, no overflow, energy conserved, K1b and
+             K2b launched on every step); after 20 steps it tracks its
+             all-plain run and the compact default rung; then the round-1
+             pass, its counts from 0, on the state after 20 steps against
+             dense_nep_compute_v2
+  7. dense-time     262,144 atoms on v2: 50 steps after warm-up
+             (atom-step/s, the host-sync cost, a device profile of 5
+             steps), the four kernels at that shape beside their plain
+             versions and bounds (the round-1 ones on a dense_nep_compute
+             pass), one rebuild; then 1,000,000 atoms, 20 steps
+             (atom-step/s, peak memory)
+
+It then drives the third path, Tersoff-1989 MD of diamond Si on the
 compact engine (CompactTersoffMD, full windows, BASELINE config 2), with the
 published Si parameters (Phys. Rev. B 39, 5566 (1989)) written to a
 temporary file and read by Tersoff1989.from_file, in float32:
 
-  5. tersoff-kernels  32,768 Si jittered by 0.1 A: the tersoff kernel
+  8. tersoff-kernels  32,768 Si jittered by 0.1 A: the tersoff kernel
              against its plain version with per-atom virials off and on,
              the scatter at pch 4 and 12 and the fold on its cotangents
-  6. tersoff-md       32,768 Si, 300 K, dt 1 fs: 200 NVE steps (energy
+  9. tersoff-md       32,768 Si, 300 K, dt 1 fs: 200 NVE steps (energy
              conserved, tersoff, scatter and fold launched every step),
              100 NVT-NHC and 50 NVT-Berendsen steps (300 K, coupling 100);
              after 20 steps each run tracks its all-plain run
-  7. tersoff-time     1,000,000 Si (bench.py's run_tersoff system, skin
+ 10. tersoff-time     1,000,000 Si (bench.py's run_tersoff system, skin
              1.0): 50 steps after warm-up under NVE and under NVT-NHC
              (atom-step/s, the host-sync cost of each), a device profile
              of 5 NVE steps, the tersoff, scatter and fold times at that
@@ -57,13 +80,17 @@ temporary file and read by Tersoff1989.from_file, in float32:
              peak memory
 
 Usage: python3 chip_smoke.py [--phases build,kernels,md,time,
-       tersoff-kernels,tersoff-md,tersoff-time]
+       dense-kernels,dense-md,dense-time,tersoff-kernels,tersoff-md,
+       tersoff-time]
 Prints the kernels' JSON line, then, last, {"ok": true, "device": {...}}.
 A NEP kernel's "ms", "plain_ms", "library_ms" and "bound_ms" are per MD
 step at 262,144 atoms on the default rung: the compactions launch twice a
 step (positions and cotangent rows) and count both; compact_windows is
-timed on the packed windows of that plan.  The tersoff kernel's are per MD
-step at 1,000,000 Si, and its launches those of the 200-step NVE run.
+timed on the packed windows of that plan.  The dense kernels' are per
+force pass at 262,144 atoms on the v2 plan, their launches those of the
+200-step v2 run (dense_k1 and dense_k2: of the round-1 pass).  The tersoff
+kernel's are per MD step at 1,000,000 Si, and its launches those of the
+200-step NVE run.
 Exits non-zero, printing no result, without a CUDA device or on any
 failed check.
 """
@@ -83,15 +110,18 @@ ROOT = Path(__file__).resolve().parent
 MODEL = ROOT / "artifacts" / "trainer_parity_r5_nep.txt"
 
 KERNELS = ("k1", "k2", "scatter", "fold", "compact_rows", "compact_windows",
-           "tersoff")
+           "tersoff", "k1b", "k2b", "dense_k1", "dense_k2")
 # Tolerances, relative to max|plain|.  K1 and the fold add the same terms
 # in another order in f32 (descriptor sums of ~100 pairs): 1e-5.  K2 and
 # the scatter also differ by hand-derived vs autograd-free op order and by
 # shared-memory atomics whose order changes from run to run: 1e-4.  The
 # compactions copy: bit for bit.  The tersoff kernel sums the bond-order
 # terms in another order and with CUDA's own powf/expf/sincospif: 1e-4.
+# The dense K1s sum in another order (1e-5); the dense K2s derive by hand
+# what the plain versions take from autograd (1e-4).
 TOL = {"k1": 1e-5, "fold": 1e-5, "k2": 1e-4, "scatter": 1e-4,
-       "compact_rows": 0.0, "compact_windows": 0.0, "tersoff": 1e-4}
+       "compact_rows": 0.0, "compact_windows": 0.0, "tersoff": 1e-4,
+       "k1b": 1e-5, "k2b": 1e-4, "dense_k1": 1e-5, "dense_k2": 1e-4}
 # Positions after 20 NVE steps, kernels vs plain versions (or one rung vs
 # the other) on the card: the runs differ only by f32 summation order
 # (~1e-7 relative in forces), which 20 fs of chaotic dynamics amplifies far
@@ -109,6 +139,10 @@ REPLACES = {
     "compact_rows": "gpumd_tpu/engine/nep_compact.py:541",
     "compact_windows": "gpumd_tpu/engine/nep_compact.py:478",
     "tersoff": "gpumd_tpu/engine/tersoff_compact.py:162",
+    "k1b": "gpumd_tpu/engine/nep_dense.py:555",
+    "k2b": "gpumd_tpu/engine/nep_dense.py:588",
+    "dense_k1": "gpumd_tpu/engine/nep_dense.py:303",
+    "dense_k2": "gpumd_tpu/engine/nep_dense.py:331",
 }
 SOURCES = {
     "k1": "gpumd_tpu_torch/csrc/nep_k1.cu",
@@ -118,6 +152,8 @@ SOURCES = {
     "compact_rows": "gpumd_tpu_torch/csrc/compact.cu",
     "compact_windows": "gpumd_tpu_torch/csrc/compact.cu",
     "tersoff": "gpumd_tpu_torch/csrc/tersoff.cu",
+    **{k: "gpumd_tpu_torch/csrc/nep_dense.cu"
+       for k in ("k1b", "k2b", "dense_k1", "dense_k2")},
 }
 # Tersoff-1989 Si (Phys. Rev. B 39, 5566 (1989), Table I), in the format
 # Tersoff1989.from_file reads
@@ -150,7 +186,7 @@ class System:
     it would."""
 
     def __init__(self, nc, plain=False, seed=3, jitter=0.0,
-                 plan_on_lattice=False, compact_lists=True):
+                 plan_on_lattice=False, compact_lists=True, engine="auto"):
         from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
         from gpumd_tpu_torch.integrate.velocity import initialize_velocity
         from gpumd_tpu_torch.model.box import Box
@@ -171,11 +207,18 @@ class System:
         self.md = DenseNEPMD(self.nep, self.box, self.n,
                              position=lattice if plan_on_lattice else pos,
                              skin=1.5, plain=plain,
-                             compact_lists=compact_lists)
+                             compact_lists=compact_lists, engine=engine)
 
     def describe(self):
+        from gpumd_tpu_torch.engine.grid import round_up
         from gpumd_tpu_torch.engine.nep_compact import rows_compact_eligible
+        from gpumd_tpu_torch.engine.nep_dense import _chunk_lanes
 
+        if self.md.engine == "v2":
+            p = self.md.plan
+            return (f"PbTe n={self.n} grid={p.grid} cap={p.cap} "
+                    f"C={round_up(27 * p.cap, _chunk_lanes(p.cap))} "
+                    f"(v2 dense windows)")
         cp = self.md.cplan
         path = ("full windows" if not cp.cl else "compact_rows"
                 if rows_compact_eligible(cp) else "compact_windows")
@@ -838,6 +881,192 @@ def phase_time(results):
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
 
 
+def dense_passes(sysm, carry):
+    """One dense_nep_compute_v2 and one dense_nep_compute pass on the
+    carry's slot state, keeping each kernel's inputs."""
+    from gpumd_tpu_torch.engine import nep_dense as nd
+
+    s, nep = carry.state, sysm.nep
+    k2, k1 = {}, {}
+    nd.dense_nep_compute_v2(s.position, s.type, s.mask, s.box, sysm.md.plan,
+                            nep.model, nep.params, keep=k2)
+    nd.dense_nep_compute(s.position, s.type, s.mask, s.box, sysm.md.plan,
+                         nep.model, nep.params, keep=k1)
+    return k2, k1
+
+
+def dense_pairs(plan, spec, k2, k1):
+    """(name, kernel fn, plain fn) for the four dense kernels."""
+    from gpumd_tpu_torch.engine import nep_dense as nd
+
+    c, w, cs, ca = k2["centers"], k2["cand"], k2["cot_s"], k2["cot_a"]
+    g, cs1, ca1 = k1["garr"], k1["cot_s"], k1["cot_a"]
+    return [
+        ("k1b", lambda: nd.k1b_call(c, w, plan, spec),
+         lambda: nd.k1b_plain(c, w, plan, spec)),
+        ("k2b", lambda: nd.k2b_call(c, w, cs, ca, plan, spec),
+         lambda: nd.k2b_plain(c, w, cs, ca, plan, spec)),
+        ("dense_k1", lambda: nd.k1_call(g, plan, spec),
+         lambda: nd.k1_plain(g, plan, spec)),
+        ("dense_k2", lambda: nd.k2_call(g, cs1, ca1, plan, spec),
+         lambda: nd.k2_plain(g, cs1, ca1, plan, spec)),
+    ]
+
+
+def phase_dense_kernels(results):
+    failures = []
+    with torch.no_grad():
+        sysm = System(16, jitter=0.1, engine="v2")
+        print(f"[dense-kernels] {sysm.describe()}")
+        carry = sysm.md.init_carry(sysm.state)
+        if bool(carry.overflow):
+            raise RuntimeError("v2: overflow at init")
+        k2, k1 = dense_passes(sysm, carry)
+        live = _dense_live(k2, sysm.md.plan, sysm.md.spec)
+        print(f"[dense-kernels] per centre: {live[0] / sysm.n:.1f} "
+              f"candidate slots, {live[1] / sysm.n:.2f} inside the radial "
+              f"cutoff, {live[2] / sysm.n:.2f} inside the angular one")
+        for name, kern, plain in dense_pairs(sysm.md.plan, sysm.md.spec, k2,
+                                             k1):
+            _compare(f"{name}[v2 plan]", name, kern(), plain(), results,
+                     failures)
+    if failures:
+        raise RuntimeError(f"kernels disagree with plain versions: {failures}")
+
+
+def phase_dense_md(results):
+    from gpumd_tpu_torch.engine import cuda_build
+    from gpumd_tpu_torch.engine import nep_dense as nd
+
+    with torch.no_grad():
+        sysm = System(16, engine="v2")
+        n = 200
+        snap, counts = _md_path("v2 engine", sysm, n, {"k1b": n, "k2b": n})
+        for k in ("k1b", "k2b"):
+            results.setdefault(k, {})["launches"] = counts[k]
+        ref = System(16, engine="v2", plain=True)
+        cuda_build.reset_launches()
+        _, _, snap_p = _run_steps(ref, 20, snap_at=20)
+        if any(cuda_build.launches.values()):
+            raise RuntimeError("the plain reference run launched kernels")
+        _pos_check("v2 engine, kernels vs plain", sysm.box, snap, snap_p)
+        del ref
+        _, _, snap_c = _run_steps(System(16), 20, snap_at=20)
+        _pos_check("v2 engine vs compact default rung", sysm.box, snap,
+                   snap_c)
+        # the round-1 path, its counts from 0: dense_nep_compute on a
+        # thermal state (20 steps from the lattice) against v2
+        carry, _, _ = _run_steps(sysm, 20)
+        s, nep = carry.state, sysm.nep
+        cuda_build.reset_launches()
+        out1 = nd.dense_nep_compute(s.position, s.type, s.mask, s.box,
+                                    sysm.md.plan, nep.model, nep.params)
+        torch.cuda.synchronize()
+        counts = dict(cuda_build.launches)
+        out2 = nd.dense_nep_compute_v2(s.position, s.type, s.mask, s.box,
+                                       sysm.md.plan, nep.model, nep.params)
+        de = float((out1.energy - out2.energy).abs().max())
+        df = float((out1.force - out2.force).abs().max())
+        fmax = float(out2.force.abs().max())
+        print(f"[md] round-1 pass: launches {counts}; vs v2: max |dE| "
+              f"{de:.3e} eV, max |dF| {df:.3e} of {fmax:.3e} eV/A")
+        if counts["dense_k1"] < 1 or counts["dense_k2"] < 1:
+            raise RuntimeError("round-1 pass: kernels not launched")
+        if not (torch.isfinite(out1.force).all() and de <= 1e-4
+                and df <= 1e-4 * fmax):
+            raise RuntimeError("round-1 pass disagrees with v2")
+        for k in ("dense_k1", "dense_k2"):
+            results.setdefault(k, {})["launches"] = counts[k]
+
+
+def _dense_live(k2, plan, spec):
+    """(candidate slots, pairs inside the radial or ZBL cutoff, pairs
+    inside the angular cutoff) of one v2 pass: the kernels test every slot
+    and evaluate the live pairs only."""
+    from gpumd_tpu_torch.engine.nep_dense import _by_type, _cell_chunks
+
+    cap = plan.cap
+    c = k2["centers"].reshape(-1, 4, cap)
+    w = k2["cand"].reshape(c.shape[0], 4, -1)
+    nr = na = 0
+    for sl in _cell_chunks(c.shape[0], cap, w.shape[2]):
+        ci, wj = c[sl, :, :, None], w[sl, :, None, :]
+        d2 = sum((wj[:, q] - ci[:, q]) ** 2 for q in range(3))
+        tj = wj[:, 3]
+        ok = (d2 > 1e-6) & (torch.abs(tj - torch.round(tj)) < 0.5) & (
+            tj > -0.5) & (tj < spec.num_types - 0.5)
+        d = torch.sqrt(d2)
+        rcp_r = 0.5 * (_by_type(ci[:, 3], spec.rc_radial)
+                       + _by_type(tj, spec.rc_radial))
+        rcp_a = 0.5 * (_by_type(ci[:, 3], spec.rc_angular)
+                       + _by_type(tj, spec.rc_angular))
+        lr = d < rcp_r
+        if spec.zbl:
+            lr = lr | (d < spec.zbl_rc_outer)
+        nr += int((ok & lr).sum())
+        na += int((ok & (d < rcp_a)).sum())
+    return c.shape[0] * cap * w.shape[2], nr, na
+
+
+def dense_work(name, k2, k1, live, spec):
+    """(bytes, operations) of one launch: each input read once, each output
+    written once; float operations from the kernel source (an FMA 2, a
+    transcendental 1): ~10 per candidate slot tested, and per live pair
+    the Chebyshev basis, ZBL, Y_lm or their derivatives and the sums."""
+    slots, rad, ang = live
+    kr1, ka1, nlm, sw = spec.kr1, spec.ka1, spec.nlm, spec.s_width
+    zt = sum((L + 1) ** 2 for L in range(1, spec.l_max + 1))
+    zbl = 40 if spec.zbl else 0
+    if name in ("dense_k1", "dense_k2"):  # 27 cap candidates, no pad lanes
+        slots = slots * 27 * k2["centers"].shape[-1] // k2["cand"].shape[-1]
+    if name in ("k1b", "dense_k1"):
+        ops = (10 * slots + rad * (15 + 6 * kr1 + sw + zbl)
+               + ang * (16 + 6 * ka1 + 2 * zt + 2 * nlm + 2 * ka1 * nlm))
+    else:
+        ops = (10 * slots + rad * (20 + 14 * kr1 + 2 * zbl)
+               + ang * (30 + 12 * ka1 + 4 * ka1 * nlm + 4 * zt + 10 * nlm))
+    nb = {"k1b": (k2["centers"], k2["cand"], k2["s"], k2["a"]),
+          "k2b": (k2["centers"], k2["cand"], k2["cot_s"], k2["cot_a"],
+                  k2["dcenter"], k2["dcand"]),
+          "dense_k1": (k1["garr"], k1["s"], k1["a"]),
+          "dense_k2": (k1["garr"], k1["cot_s"], k1["cot_a"], k1["g"])}[name]
+    return _nbytes(*nb), ops
+
+
+def phase_dense_time(results):
+    with torch.no_grad():
+        sysm = System(32, engine="v2")
+        label = "262k v2 engine"
+        carry, aux, step, _ = _time_rung(sysm, label)
+        _profile(step, carry, aux)
+        k2, k1 = dense_passes(sysm, carry)
+        spec = sysm.md.spec
+        live = _dense_live(k2, sysm.md.plan, spec)
+        print(f"[time] {label}: per centre {live[0] / sysm.n:.1f} candidate "
+              f"slots, {live[1] / sysm.n:.2f} radial and "
+              f"{live[2] / sysm.n:.2f} angular live pairs")
+        for name, kern, plain in dense_pairs(sysm.md.plan, spec, k2, k1):
+            p_ms, k_ms = _in_turns(plain, kern, 1, 10)
+            nbytes, nops = dense_work(name, k2, k1, live, spec)
+            b_ms, b_by = bound(nbytes, nops)
+            print(f"[time] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+                  f"({p_ms / k_ms:.2f}x), library n/a, bound {b_ms:.4f} ms "
+                  f"by {b_by} ({nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} "
+                  f"GFLOP; {100 * b_ms / k_ms:.1f}% of bound)")
+            results.setdefault(name, {}).update(
+                ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
+        del k2, k1
+        _time_rebuild(sysm, label)
+        del sysm, carry, aux, step
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        big = System(50, engine="v2")
+        _time_rung(big, "1M v2 engine", n_steps=20)
+        print(f"[time] 1M v2 engine: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+
+
 def _tersoff_live(keep, cp, spec):
     """Live bonds (fc > 0 candidates: d < R2, real centre and neighbour)
     and ordered live bond pairs (j != k) of this pass: the kernel's work."""
@@ -973,6 +1202,7 @@ def phase_tersoff_time(results, pot_path):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,md,time,"
+                    "dense-kernels,dense-md,dense-time,"
                     "tersoff-kernels,tersoff-md,tersoff-time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -990,6 +1220,9 @@ def main():
         for name, fn in (
                 ("kernels", phase_kernels), ("md", phase_md),
                 ("time", phase_time),
+                ("dense-kernels", phase_dense_kernels),
+                ("dense-md", phase_dense_md),
+                ("dense-time", phase_dense_time),
                 ("tersoff-kernels",
                  lambda r: phase_tersoff_kernels(r, pot_path)),
                 ("tersoff-md", lambda r: phase_tersoff_md(r, pot_path)),

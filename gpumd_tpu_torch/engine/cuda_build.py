@@ -29,7 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launches = {"k1": 0, "k2": 0, "scatter": 0, "fold": 0, "compact_rows": 0,
-            "compact_windows": 0, "tersoff": 0}
+            "compact_windows": 0, "tersoff": 0, "k1b": 0, "k2b": 0,
+            "dense_k1": 0, "dense_k2": 0}
 build_info = {}  # seconds, path, ptxas report of the last build
 
 _lib = None
@@ -47,6 +48,10 @@ _SIGNATURES = {
     "compact_rows_launch": [P] * 3 + [I] * 9 + [P],
     "compact_windows_launch": [P] * 3 + [I] * 4 + [P],
     "tersoff_launch": [P] * 6 + [I] * 7 + [P],
+    "dense_k1b_launch": [P] * 8 + [I] * 11 + [F] * 2 + [P],
+    "dense_k2b_launch": [P] * 10 + [I] * 11 + [F] * 2 + [P],
+    "dense_k1_launch": [P] * 7 + [I] * 10 + [F] * 2 + [P],
+    "dense_k2_launch": [P] * 8 + [I] * 10 + [F] * 2 + [P],
     "gk_error_string": [I],
 }
 

@@ -1,14 +1,18 @@
 """NEP MD loop on the dense cell-grid state (the throughput path).
 
-Counterpart of gpumd_tpu/engine/dense_md.py, engine="compact", on both
-rungs: compact candidate lists (the default, as in the JAX package) and
-full windows (compact_lists=False).  State lives permuted (sorted by cell)
-between rebins; `orig_id` rides along so results map back to input order.
-A rebin (re-sort plus neighbour-index rebuild) runs when the
+Counterpart of gpumd_tpu/engine/dense_md.py.  engine="compact" runs the
+compact engine on both rungs: compact candidate lists (the default, as in
+the JAX package) and full windows (compact_lists=False).  engine="v2" runs
+the round-2 dense window engine (engine/nep_dense.py), kept for models the
+compact engine rejects; "auto" picks compact when it takes the model.
+State lives permuted (sorted by cell) between rebins; `orig_id` rides
+along so results map back to input order.  A rebin (re-sort, plus the
+neighbour-index rebuild on the compact engine) runs when the
 barostat-safe Verlet criterion trips.  The JAX package chose between rebin
 and keep with lax.cond inside one scan; here the choice is a Python branch
-on a device bool, which costs one host sync per step.  The sticky `overflow` flag stays on the device and
-is read by the caller once per block.
+on a device bool, which costs one host sync per step.  The sticky
+`overflow` flag stays on the device and is read by the caller once per
+block.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from gpumd_tpu_torch.engine.nep_compact import (
     make_compact_plan,
     plan_grid_compact,
 )
+from gpumd_tpu_torch.engine.nep_dense import DenseNepSpec, dense_nep_compute_v2
 from gpumd_tpu_torch.model.box import Box
 from gpumd_tpu_torch.model.state import MDState
 from gpumd_tpu_torch.potentials.nep.model import NEP
@@ -56,6 +61,10 @@ class DenseNEPMD:
     `plain=True` runs every kernel's plain version instead of the CUDA
     kernel (a reference run on the card)."""
 
+    # the force path; subclasses that set none (CompactTersoffMD) run the
+    # compact one
+    engine = "compact"
+
     def __init__(
         self,
         nep: NEP,
@@ -72,18 +81,13 @@ class DenseNEPMD:
         compact_lists: bool = True,
         plain: bool = False,
     ):
-        if engine == "v2":
-            raise NotImplementedError(
-                "engine='v2' (round-2 dense window kernels k1b/k2b) is not "
-                "ported yet: ROADMAP queue 2, item 4")
-        if engine not in ("auto", "compact"):
+        if engine not in ("auto", "compact", "v2"):
             raise ValueError(f"unknown engine {engine!r}")
         self.nep = nep
         # subtract the mean net force each step: restores exact global
         # Newton III against the f32 rounding of the two pair halves
         self.zero_net_force = zero_net_force
-        self.spec = CompactSpec.from_model(nep.model, nep.params)
-        if cap is None:
+        if engine in ("auto", "compact") and cap is None:
             self.plan = plan_grid_compact(box, nep.model.rc_radial_max, skin,
                                           n_atoms, position=position)
         else:
@@ -93,8 +97,21 @@ class DenseNEPMD:
             raise ValueError("box too thin for the dense engine (needs >= 3 "
                              "cells of rc+skin per periodic direction)")
         self.skin = skin
-        self.per_atom_virial = per_atom_virial
         self.plain = plain
+        if engine == "auto":
+            # compact when the model qualifies, else the round-2 engine
+            try:
+                CompactSpec.from_model(nep.model, nep.params)
+                engine = "compact"
+            except NotImplementedError:
+                engine = "v2"
+        self.engine = engine
+        self.per_atom_virial = per_atom_virial and engine == "compact"
+        if engine == "v2":
+            self.spec = DenseNepSpec.from_model(nep.model)
+            self.cplan = None
+            return
+        self.spec = CompactSpec.from_model(nep.model, nep.params)
         self.cplan = make_compact_plan(
             self.plan, position=position, box=box,
             rc_angular=nep.model.rc_angular_max, mn_r=mn_r, mn_a=mn_a,
@@ -120,8 +137,11 @@ class DenseNEPMD:
         n = state.position.shape[0]
         sstate, orig_id, overflow = self._rebin_arrays(
             state, torch.arange(n, device=state.position.device), state.box)
-        idx, ok = self._build_idx(sstate)
-        overflow = overflow | ~ok | ~self._cells_valid(sstate.box)
+        idx = None
+        if self.engine == "compact":
+            idx, ok = self._build_idx(sstate)
+            overflow = overflow | ~ok
+        overflow = overflow | ~self._cells_valid(sstate.box)
         return DenseCarry(state=sstate, orig_id=orig_id,
                           ref_frac=sstate.box.fractional(sstate.position),
                           ref_thick=sstate.box.thickness(),
@@ -177,7 +197,9 @@ class DenseNEPMD:
             temperature=self.nep.temperature, spec=self.spec,
             plain=self.plain)
 
-    def compute(self, state: MDState, idx) -> MDState:
+    def compute(self, state: MDState, idx=None) -> MDState:
+        if self.engine == "v2":
+            return self._compute_v2(state)
         out = self._force_pass(state, idx)
         f = out.force
         n_real = torch.clamp(torch.sum(state.mask), min=1.0)
@@ -192,6 +214,21 @@ class DenseNEPMD:
         return state._replace(force=f,
                               potential_energy=out.energy * state.mask,
                               virial=w, heat_current=j)
+
+    def _compute_v2(self, state: MDState) -> MDState:
+        out = dense_nep_compute_v2(
+            state.position, state.type, state.mask, state.box, self.plan,
+            self.nep.model, self.nep.params, plain=self.plain)
+        # the total virial spread uniformly over the real atoms: pressure
+        # and thermo are exact; per-atom observables need engine="compact"
+        n_real = torch.clamp(torch.sum(state.mask), min=1.0)
+        w = (out.virial_total / n_real) * state.mask[:, None, None]
+        f = out.force
+        if self.zero_net_force:
+            f = (f - torch.sum(f, dim=0) / n_real) * state.mask[:, None]
+        return state._replace(force=f,
+                              potential_energy=out.energy * state.mask,
+                              virial=w)
 
     # ---- MD step ---------------------------------------------------------
 
@@ -216,8 +253,11 @@ class DenseNEPMD:
             if bool(need):  # the one host sync of the step
                 state, orig_id, ov = self._rebin_arrays(state, c.orig_id,
                                                         state.box)
-                idx, ok = self._build_idx(state)
-                ov = ov | ~ok | ~self._cells_valid(state.box)
+                idx = None
+                if self.engine == "compact":
+                    idx, ok = self._build_idx(state)
+                    ov = ov | ~ok
+                ov = ov | ~self._cells_valid(state.box)
                 reff = state.box.fractional(state.position)
                 reft = state.box.thickness()
             else:

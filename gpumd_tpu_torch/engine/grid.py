@@ -252,6 +252,51 @@ def fold_block_windows(dw, plan: DenseGridPlan, bx: int):
     return out.reshape(nz + 2, ny + 2, c, (nx + 2) * cap)
 
 
+def pack_candidates(garr, plan: DenseGridPlan, lane_align: int = 128):
+    """Ghost grid (nz+2, ny+2, 4, (nx+2)*cap) -> per-cell packed candidates
+    (nz, ny, nx, 4, C) and centres (nz, ny, nx, 4, cap).  Candidate lanes
+    are the 27 cells of the 3^3 window, (dz, dy, dx)-major, cap lanes
+    each; C = 27*cap rounded up to `lane_align`, the pad lanes at FAR with
+    type -1."""
+    nx, ny, nz = plan.grid
+    cap = plan.cap
+    g5 = garr.reshape(nz + 2, ny + 2, 4, nx + 2, cap).movedim(3, 2)
+    chunks = [g5[dz:dz + nz, dy:dy + ny, dx:dx + nx]
+              for dz in range(3) for dy in range(3) for dx in range(3)]
+    c_pad = round_up(27 * cap, lane_align)
+    if c_pad > 27 * cap:
+        pad = torch.full((nz, ny, nx, 4, c_pad - 27 * cap), FAR,
+                         dtype=garr.dtype, device=garr.device)
+        pad[..., 3, :] = -1.0
+        chunks.append(pad)
+    return g5[1:1 + nz, 1:1 + ny, 1:1 + nx], torch.cat(chunks, dim=-1)
+
+
+def fold_candidate_grad(dcand, plan: DenseGridPlan):
+    """Adjoint of pack_candidates on the position channels: candidate
+    cotangents (nz, ny, nx, 3, C) -> ghost-grid cotangents
+    (nz+2, ny+2, 3, (nx+2)*cap).  The pad lanes are dropped."""
+    nx, ny, nz = plan.grid
+    cap = plan.cap
+    dg5 = torch.zeros((nz + 2, ny + 2, nx + 2, 3, cap), dtype=dcand.dtype,
+                      device=dcand.device)
+    k = 0
+    for dz in range(3):
+        for dy in range(3):
+            for dx in range(3):
+                dg5[dz:dz + nz, dy:dy + ny, dx:dx + nx] += \
+                    dcand[..., k * cap:(k + 1) * cap]
+                k += 1
+    return dg5.movedim(2, 3).reshape(nz + 2, ny + 2, 3, (nx + 2) * cap)
+
+
+def fold_ghost_grad(dg, plan: DenseGridPlan):
+    """Adjoint of pack_ghost on the position channels (the lattice shift is
+    additive, so cotangents pass through): (nz+2, ny+2, 3, (nx+2)*cap) ->
+    (n_slots, 3)."""
+    return fold_ghost_grad_c(dg, plan)
+
+
 def fold_ghost_grad_c(dg, plan: DenseGridPlan):
     """Fold ghost-layer cotangents back onto their interior cells:
     (nz+2, ny+2, C, (nx+2)*cap) -> (n_slots, C)."""

@@ -7,12 +7,15 @@ not import JAX (the GPU machine has none), so run them there with:
 
 They cover what chip_smoke.py does not: every ZBL variant, two l_max
 template instances, fold plans with bx = 1, odd caps and free axes, the
-compact-list rung on both compactions at CPU-test sizes, and the Tersoff
+compact-list rung on both compactions at CPU-test sizes, the Tersoff
 kernel on the 512-atom CPU-test plan, with two types (SiC) and at 32k
-atoms.  Tolerances are relative to max|plain| in f32: 1e-5 for K1 and the
-fold (summation order), 1e-4 for K2, the scatter and the Tersoff kernel
-(op order, shared-memory atomics, CUDA's own transcendentals); the two
-compactions copy, so they must match bit for bit.
+atoms, and the four dense-window kernels (K1b, K2b, round-1 K1 and K2) on
+random solids with close pairs inside the ZBL switch, empty slots and an
+open axis.  Tolerances are relative to max|plain| in f32: 1e-5 for the
+K1s and the fold (summation order), 1e-4 for the K2s, the scatter and the
+Tersoff kernel (op order, hand-derived vs autograd gradients, shared-memory
+atomics, CUDA's own transcendentals); the two compactions copy, so they
+must match bit for bit.
 """
 
 from pathlib import Path
@@ -25,6 +28,7 @@ from gpumd_tpu_torch.engine import cuda_build
 from gpumd_tpu_torch.engine import fold_kernel as TF
 from gpumd_tpu_torch.engine import grid as TG
 from gpumd_tpu_torch.engine import nep_compact as TC
+from gpumd_tpu_torch.engine import nep_dense as TD
 from gpumd_tpu_torch.engine import tersoff_compact as TT
 from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
 from gpumd_tpu_torch.model.box import Box
@@ -39,7 +43,8 @@ MODEL = str(Path(__file__).resolve().parent.parent / "artifacts"
             / "trainer_parity_r5_nep.txt")
 
 TOL = {"k1": 1e-5, "fold": 1e-5, "k2": 1e-4, "scatter": 1e-4,
-       "tersoff": 1e-4}
+       "tersoff": 1e-4, "k1b": 1e-5, "k2b": 1e-4, "dense_k1": 1e-5,
+       "dense_k2": 1e-4}
 # Tersoff-1989 Si and SiC (Phys. Rev. B 39, 5566 (1989), Table I)
 SIC = """tersoff_1989 2 Si C
 1830.8 471.18 2.4799 1.7322 1.1e-6 0.78734 1.0039e5 16.217 -0.59825 2.7 3.0
@@ -276,3 +281,88 @@ def test_tersoff_wrapper_rejects_wrong_inputs(dev, tmp_path):
                                cp, spec, False)
     with pytest.raises(ValueError, match="dtype"):
         TT.tersoff_kernel_call(centers, cand, idx.long(), cp, spec, False)
+
+
+def _dense_state(dev, model, n, lengths, pbc, seed):
+    """Random solid (uniform positions: pairs far inside the ZBL switch)
+    binned on the v2 engine's plan_grid plan, in f32 on the card."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, 1, (n, 3)) * lengths
+    if not pbc[2]:
+        pos[:, 2] = pos[:, 2] * 0.9 + 0.05 * lengths[2]
+    types = rng.integers(0, model.num_types, n)
+    box = Box.orthogonal(lengths, pbc=pbc, dtype=torch.float32, device=dev)
+    p = box.wrap(torch.as_tensor(pos, dtype=torch.float32, device=dev))
+    plan = TG.plan_grid(box, model.rc_radial_max, 1.0, n,
+                        position=p.cpu().numpy())
+    perm, smask, ov = TG.bin_dense(p, box, torch.ones(n, device=dev), plan)
+    assert not bool(ov)
+    return (TG.apply_perm(p, perm, 1e5),
+            TG.apply_perm(torch.as_tensor(types, dtype=torch.int32,
+                                          device=dev), perm, 0),
+            smask, box, plan)
+
+
+@pytest.mark.parametrize("which", ["universal-l2", "none-l4", "trained",
+                                   "open-z"])
+def test_dense_kernels_match_plain(dev, which):
+    """K1b, K2b (one dense_nep_compute_v2 pass) and the round-1 K1, K2 (one
+    dense_nep_compute pass), each against its plain version on the tensors
+    of its pass."""
+    if which == "trained":
+        nep = NEP.from_file(MODEL, device=dev)
+        model, params = nep.model, nep.params
+    else:
+        model = _model("none" if which == "none-l4" else "universal",
+                       4 if which == "none-l4" else 2)
+        params = random_params(model, seed=5, dtype=torch.float32, device=dev)
+    lengths = np.array([27.5, 28.0, 29.0])
+    pbc = (True, True, which != "open-z")
+    ps, ts, smask, box, plan = _dense_state(dev, model, 700, lengths, pbc, 4)
+    spec = TD.DenseNepSpec.from_model(model)
+    k2, k1 = {}, {}
+    before = dict(cuda_build.launches)
+    TD.dense_nep_compute_v2(ps, ts, smask, box, plan, model, params, keep=k2)
+    TD.dense_nep_compute(ps, ts, smask, box, plan, model, params, keep=k1)
+    for name in ("k1b", "k2b", "dense_k1", "dense_k2"):
+        assert cuda_build.launches[name] == before[name] + 1, name
+    assert bool((smask == 0).any())  # empty slots in the cells
+    c, w = k2["centers"], k2["cand"]
+    pairs = {
+        "k1b": (TD.k1b_call(c, w, plan, spec),
+                TD.k1b_plain(c, w, plan, spec)),
+        "k2b": (TD.k2b_call(c, w, k2["cot_s"], k2["cot_a"], plan, spec),
+                TD.k2b_plain(c, w, k2["cot_s"], k2["cot_a"], plan, spec)),
+        "dense_k1": (TD.k1_call(k1["garr"], plan, spec),
+                     TD.k1_plain(k1["garr"], plan, spec)),
+        "dense_k2": ((TD.k2_call(k1["garr"], k1["cot_s"], k1["cot_a"], plan,
+                                 spec),),
+                     (TD.k2_plain(k1["garr"], k1["cot_s"], k1["cot_a"], plan,
+                                  spec),)),
+    }
+    for name, (got, ref) in pairs.items():
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape
+            assert torch.isfinite(g).all()
+            assert _rel(g, r) <= TOL[name], (name, _rel(g, r))
+
+
+def test_dense_wrappers_reject_wrong_inputs(dev):
+    model = _model("universal", 2)
+    params = random_params(model, seed=5, dtype=torch.float32, device=dev)
+    ps, ts, smask, box, plan = _dense_state(
+        dev, model, 300, np.array([23.0, 23.0, 23.0]), (True,) * 3, 1)
+    spec = TD.DenseNepSpec.from_model(model)
+    k = {}
+    TD.dense_nep_compute_v2(ps, ts, smask, box, plan, model, params, keep=k)
+    c, w = k["centers"], k["cand"]
+    with pytest.raises(ValueError, match="dtype"):
+        TD.k1b_call(c.double(), w, plan, spec)
+    with pytest.raises(ValueError, match="shape"):
+        TD.k1b_call(c, w[..., :27 * plan.cap - 1].contiguous(), plan, spec)
+    with pytest.raises(ValueError, match="contiguous"):
+        TD.k2b_call(c, w, k["cot_s"], k["cot_a"].transpose(3, 4), plan, spec)
+    with pytest.raises(ValueError, match="dtype"):
+        TD.k1_call(k["garr"].double(), plan, spec)
+    with pytest.raises(ValueError, match="shape"):
+        TD.k2_call(k["garr"], k["cot_s"], k["cot_a"], plan, spec)

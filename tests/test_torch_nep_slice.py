@@ -184,12 +184,29 @@ def test_initialize_velocity_injected():
                                rtol=1e-12)
 
 
-def test_v2_engine_not_ported():
-    pos, types, lengths = _pbte(4, 0.0, 0)
+def test_v2_engine_plans_with_plan_grid():
+    """engine="v2" plans with plan_grid (cells >= rc + skin), builds no
+    neighbour index, and runs: one NVE step of 512 PbTe atoms at the
+    trained model's full width, energy and momentum as from the compact
+    engine's first force pass."""
+    pos, types, lengths = _pbte(4, 0.05, 0)
+    n = len(pos)
+    box = Box.orthogonal(lengths, device="cpu")
     nep = NEP.from_file(MODEL, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 4"):
-        DenseNEPMD(nep, Box.orthogonal(lengths, device="cpu"), len(pos),
-                   position=pos, skin=0.5, engine="v2")
+    md = DenseNEPMD(nep, box, n, position=pos, skin=0.5, engine="v2")
+    assert md.engine == "v2" and md.cplan is None
+    assert md.plan == TG.plan_grid(box, nep.rc, 0.5, n, position=pos)
+    mass = np.where(types == 1, 207.2, 127.6)
+    state = make_state(pos, mass, types, box)
+    carry, _ = md.run(state, NVE(), 1.0 / TIME_UNIT_CONVERSION, 1)
+    assert carry.idx is None and not bool(carry.overflow)
+    ref = DenseNEPMD(nep, box, n, position=pos, skin=0.5)
+    rc = ref.init_carry(state)
+    e_ref = torch.sum(ref.compute(rc.state, rc.idx).potential_energy)
+    e0 = md.compute(md.init_carry(state).state).potential_energy
+    assert float(torch.sum(e0)) == pytest.approx(float(e_ref), rel=1e-12)
+    p = torch.sum(carry.state.velocity * carry.state.mass[:, None], dim=0)
+    assert float(p.abs().max()) < 1e-12
 
 
 def test_params_from_numpy_roundtrip():
