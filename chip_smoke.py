@@ -79,9 +79,24 @@ temporary file and read by Tersoff1989.from_file, in float32:
              shape beside their plain versions and bounds, one rebuild,
              peak memory
 
+Last, the probes' path: the port's counterparts of the three probe scripts
+(gpumd_tpu_torch/probes, kernels in csrc/probes.cu):
+
+ 11. probes   each probe kernel against its plain version on random inputs
+             at the shapes the probes' path gives it (the gather at G 256,
+             bit for bit; bench_mxu_probes at 1,734 blocks: every one-hot
+             case, ksplit 1 and 4, TF32 and f32; the feature matmul at ch
+             24 and 168; both pair-reduce orders; the blocked gather at
+             nblk 18 and 11 with indices out of range); then, counts from
+             0, the three entry points'
+             main() at the scripts' geometry (the probes' path, which
+             prints the scripts' keys); the transcendental gate (every
+             kernel op within 1e-6 of f64); every probe timed beside its
+             plain version, library call and bound
+
 Usage: python3 chip_smoke.py [--phases build,kernels,md,time,
        dense-kernels,dense-md,dense-time,tersoff-kernels,tersoff-md,
-       tersoff-time]
+       tersoff-time,probes]
 Prints the kernels' JSON line, then, last, {"ok": true, "device": {...}}.
 A NEP kernel's "ms", "plain_ms", "library_ms" and "bound_ms" are per MD
 step at 262,144 atoms on the default rung: the compactions launch twice a
@@ -90,7 +105,9 @@ timed on the packed windows of that plan.  The dense kernels' are per
 force pass at 262,144 atoms on the v2 plan, their launches those of the
 200-step v2 run (dense_k1 and dense_k2: of the round-1 pass).  The tersoff
 kernel's are per MD step at 1,000,000 Si, and its launches those of the
-200-step NVE run.
+200-step NVE run.  A probe's are per call at its script's geometry
+(bench_mxu_probes at 1,734 blocks, its scale 8), its launches those of the
+probes' path.
 Exits non-zero, printing no result, without a CUDA device or on any
 failed check.
 """
@@ -109,8 +126,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 MODEL = ROOT / "artifacts" / "trainer_parity_r5_nep.txt"
 
+PROBES = ("probe_gather", "probe_transcendentals", "probe_onehot_dot",
+          "probe_feature_matmul", "probe_pair_reduce", "probe_bgather")
 KERNELS = ("k1", "k2", "scatter", "fold", "compact_rows", "compact_windows",
-           "tersoff", "k1b", "k2b", "dense_k1", "dense_k2")
+           "tersoff", "k1b", "k2b", "dense_k1", "dense_k2") + PROBES
 # Tolerances, relative to max|plain|.  K1 and the fold add the same terms
 # in another order in f32 (descriptor sums of ~100 pairs): 1e-5.  K2 and
 # the scatter also differ by hand-derived vs autograd-free op order and by
@@ -119,9 +138,22 @@ KERNELS = ("k1", "k2", "scatter", "fold", "compact_rows", "compact_windows",
 # terms in another order and with CUDA's own powf/expf/sincospif: 1e-4.
 # The dense K1s sum in another order (1e-5); the dense K2s derive by hand
 # what the plain versions take from autograd (1e-4).
+# The probes: the gather copies (bit for bit); rsqrtf/cosf/sinf against
+# torch's ops, both within 2 ulp (1e-6); the TF32 products round their
+# inputs to 10 mantissa bits (2e-3; 1e-5 for the f32 FFMA path, which is
+# checked under its own tag); the pair reduce and the blocked gather add
+# the same f32 terms in another order (1e-5).
 TOL = {"k1": 1e-5, "fold": 1e-5, "k2": 1e-4, "scatter": 1e-4,
        "compact_rows": 0.0, "compact_windows": 0.0, "tersoff": 1e-4,
-       "k1b": 1e-5, "k2b": 1e-4, "dense_k1": 1e-5, "dense_k2": 1e-4}
+       "k1b": 1e-5, "k2b": 1e-4, "dense_k1": 1e-5, "dense_k2": 1e-4,
+       "probe_gather": 0.0, "probe_transcendentals": 1e-6,
+       "probe_onehot_dot": 2e-3, "probe_feature_matmul": 2e-3,
+       "probe_pair_reduce": 1e-5, "probe_bgather": 1e-5}
+TOL_F32_PRODUCT = 1e-5
+# The transcendental gate: the kernels' max relative error against f64 on
+# the probe's ranges (rsqrtf, cosf, sinf are within 2 ulp, ~2.4e-7;
+# __cosf-class fast math reads ~4e-4 there).
+TRANS_GATE = 1e-6
 # Positions after 20 NVE steps, kernels vs plain versions (or one rung vs
 # the other) on the card: the runs differ only by f32 summation order
 # (~1e-7 relative in forces), which 20 fs of chaotic dynamics amplifies far
@@ -143,6 +175,12 @@ REPLACES = {
     "k2b": "gpumd_tpu/engine/nep_dense.py:588",
     "dense_k1": "gpumd_tpu/engine/nep_dense.py:303",
     "dense_k2": "gpumd_tpu/engine/nep_dense.py:331",
+    "probe_gather": "scripts/bench_gather.py:28",
+    "probe_transcendentals": "scripts/probe_transcendentals.py:21",
+    "probe_onehot_dot": "scripts/bench_mxu_probes.py:75",
+    "probe_feature_matmul": "scripts/bench_mxu_probes.py:113",
+    "probe_pair_reduce": "scripts/bench_mxu_probes.py:150",
+    "probe_bgather": "scripts/bench_mxu_probes.py:207",
 }
 SOURCES = {
     "k1": "gpumd_tpu_torch/csrc/nep_k1.cu",
@@ -154,6 +192,7 @@ SOURCES = {
     "tersoff": "gpumd_tpu_torch/csrc/tersoff.cu",
     **{k: "gpumd_tpu_torch/csrc/nep_dense.cu"
        for k in ("k1b", "k2b", "dense_k1", "dense_k2")},
+    **{k: "gpumd_tpu_torch/csrc/probes.cu" for k in PROBES},
 }
 # Tersoff-1989 Si (Phys. Rev. B 39, 5566 (1989), Table I), in the format
 # Tersoff1989.from_file reads
@@ -161,9 +200,10 @@ SI_TERSOFF = """tersoff_1989 1 Si
 1830.8 471.18 2.4799 1.7322 1.1e-6 0.78734 1.0039e5 16.217 -0.59825 2.7 3.0
 """
 # Peaks of one H100 SXM (NVIDIA's data sheet): HBM3
-# bytes/s and float32 FLOP/s outside the tensor cores.
+# bytes/s, float32 FLOP/s outside the tensor cores, dense TF32 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 
 def build_pbte(nc, a0=6.57):
@@ -380,16 +420,17 @@ def phase_build():
     print(card)  # the card's name and power limit, as nvidia-smi gives them
 
 
-def _compare(tag, name, got, ref, results, failures):
+def _compare(tag, name, got, ref, results, failures, tol=None):
     got, ref = _outputs(got), _outputs(ref)
     torch.cuda.synchronize()
+    tol = TOL[name] if tol is None else tol
     err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
     rel = max(float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
               for g, r in zip(got, ref))
     fin = all(bool(torch.isfinite(g).all()) for g in got)
-    ok = fin and rel <= TOL[name]
+    ok = fin and rel <= tol
     print(f"[kernels] {tag}: max_abs_err={err:.3e} rel={rel:.3e} "
-          f"tol={TOL[name]:.0e} {'ok' if ok else 'FAIL'}")
+          f"tol={tol:.0e} {'ok' if ok else 'FAIL'}")
     r = results.setdefault(name, {"max_abs_err": 0.0})
     r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
     if not ok:
@@ -631,9 +672,9 @@ def work(name, keep, cp, spec):
     return 2 * _nbytes(cidx) + src + cidx.numel() * words, 0
 
 
-def bound(nbytes, nops):
+def bound(nbytes, nops, peak=F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_FLOP_PER_S * 1e3
+    t_ops = nops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1199,11 +1240,253 @@ def phase_tersoff_time(results, pot_path):
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
 
 
+def _ptxas_entry(name):
+    """(registers, bytes of spill stores) ptxas reported for the kernel
+    entry `name` in the build's report."""
+    from gpumd_tpu_torch.engine import cuda_build
+
+    report = (Path(cuda_build.build_info["path"]).parent
+              / "ptxas.txt").read_text()
+    rest = report[report.find(f"Compiling entry function '{name}'"):]
+    regs = re.search(r"Used (\d+) registers", rest)
+    spill = re.search(r"(\d+) bytes spill stores", rest)
+    return (int(regs.group(1)) if regs else None,
+            int(spill.group(1)) if spill else None)
+
+
+def _probe_checks(results, failures):
+    """Every probe kernel against its plain version on random inputs at the
+    shapes the probes' path gives it (the gather at G 256, bench_mxu_probes
+    at 1,734 blocks), the blocked gather with indices out of range."""
+    from gpumd_tpu_torch.probes import bench_gather as BG
+    from gpumd_tpu_torch.probes import bench_mxu_probes as MX
+    from gpumd_tpu_torch.probes import probe_transcendentals as PT
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    table, idx = BG.make_inputs(device=dev, seed=5)
+    g, w, s = table.shape[0], table.shape[1], idx.shape[1]
+    _compare(f"probe_gather[W {w}, S {s}, G {g}]", "probe_gather",
+             BG.gather_call(table, idx), BG.gather_plain(table, idx),
+             results, failures)
+    del table, idx
+    x = torch.cat([torch.linspace(1e-3, 3.2, 4096),
+                   torch.linspace(1.0, 120.0, 4096)]).reshape(8, 1024).to(dev)
+    _compare("probe_transcendentals[(8, 1024)]", "probe_transcendentals",
+             PT.run(x), PT.run_plain(x), results, failures)
+    nb = MX.NB_FULL // 8
+    for m, k in ((144, 4096), (72, 4096), (144, 3072), (88, 3072),
+                 (108, 4096), (96, 3072)):
+        vals = randn(nb, m, k)
+        for ksplit in ((1, 4) if (m, k) == (144, 4096) else (1,)):
+            ref = MX.onehot_dot_plain(vals, 128, ksplit)
+            for prec in MX.PRECISIONS:
+                _compare(f"probe_onehot_dot[nb {nb}, {m}x{k}x128, ksplit "
+                         f"{ksplit}, {prec}]", "probe_onehot_dot",
+                         MX.onehot_dot(vals, 128, ksplit, prec), ref,
+                         results, failures,
+                         tol=None if prec == "default" else TOL_F32_PRODUCT)
+            del ref
+        del vals
+    vals = randn(nb, 32 * 8, 128)
+    for ch in (24, 168):
+        _compare(f"probe_feature_matmul[nb {nb}, mn 32, k 8, ch {ch}]",
+                 "probe_feature_matmul", MX.feature_matmul(vals, ch),
+                 MX.feature_matmul_plain(vals, ch), results, failures)
+    del vals
+    g, y = randn(nb, 4 * 8 * 7, 128), randn(nb, 4 * 8 * 24, 128)
+    ref = MX.pair_reduce_plain(g, y)
+    for order in MX.ORDERS:
+        _compare(f"probe_pair_reduce[nb {nb}, {order}]", "probe_pair_reduce",
+                 MX.pair_reduce(g, y, order=order), ref, results, failures)
+    del g, y, ref
+    for nblk, chunks in ((18, 14), (11, 14), (11, 12)):
+        width = 128 * nblk
+        src = randn(nb, 17, width)
+        idx = torch.randint(-64, width + 64, (nb, 8 * chunks, 128),
+                            generator=gen, device=dev, dtype=torch.int32)
+        _compare(f"probe_bgather[nb {nb}, nblk {nblk}, chunks {chunks}, "
+                 f"indices out of range]", "probe_bgather",
+                 MX.bgather(src, idx), MX.bgather_plain(src, idx), results,
+                 failures)
+
+
+def _probe_row(results, name, label, k_ms, p_ms, lib_ms, nbytes, nops,
+               peak=F32_FLOP_PER_S, **extra):
+    b_ms, b_by = bound(nbytes, nops, peak)
+    lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+    print(f"[time] {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+          f"({p_ms / k_ms:.2f}x), library {lib_txt}, bound {b_ms:.4f} ms "
+          f"by {b_by} ({nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} GFLOP; "
+          f"{100 * b_ms / k_ms:.1f}% of bound)"
+          + "".join(f", {k} {v:.4f}" if isinstance(v, float) else
+                    f", {k} {v}" for k, v in extra.items()))
+    results.setdefault(name, {}).update(
+        ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
+        bound_by=b_by, **extra)
+
+
+def _sectors(keys):
+    """Distinct 32-byte sectors (8 f32 words) that flat element offsets
+    fall in."""
+    return int(torch.unique(keys.reshape(-1) // 8).numel())
+
+
+def _probe_time(results):
+    """Every probe at its script's geometry (bench_mxu_probes at scale 8:
+    1,734 blocks): kernel, plain version and library call with CUDA
+    events, and the bound.  Bytes count each input once and each output
+    once; a gather's table counts the 32-byte sectors its indices touch."""
+    from gpumd_tpu_torch.probes import bench_gather as BG
+    from gpumd_tpu_torch.probes import bench_mxu_probes as MX
+    from gpumd_tpu_torch.probes import probe_transcendentals as PT
+
+    dev = torch.device("cuda")
+    table, idx = BG.make_inputs(device=dev)
+    g, w, lanes = table.shape
+    idx_l = idx.long()
+    p, k = _in_turns(lambda: BG.gather_plain(table, idx),
+                     lambda: BG.gather_call(table, idx), 5, 5)
+    lib = _time_ms(lambda: torch.take_along_dim(table, idx_l, dim=1), 5)
+    keys = ((torch.arange(g, device=dev).view(g, 1, 1) * w + idx_l) * lanes
+            + torch.arange(lanes, device=dev))
+    _probe_row(results, "probe_gather", f"probe_gather (G {g}, W {w}, S "
+               f"{idx.shape[1]})", k, p, lib,
+               2 * _nbytes(idx) + 32 * _sectors(keys), 0)
+    del table, idx, idx_l, keys
+
+    x = torch.linspace(1.0, 120.0, 8192, device=dev).reshape(8, 1024)
+    p, k = _in_turns(lambda: PT.run_plain(x), lambda: PT.run(x), 200, 200)
+    _probe_row(results, "probe_transcendentals",
+               "probe_transcendentals (8, 1024)", k, p, None,
+               4 * _nbytes(x), 3 * x.numel())
+
+    nb = MX.NB_FULL // 8
+    (vals,) = MX.case_inputs("onehot_current_144x4096x128", nb, dev)
+    _, m, kk = vals.shape
+    r = MX.onehot_mask(kk, 128, device=dev)
+    p, k = _in_turns(lambda: MX.onehot_dot_plain(vals, 128),
+                     lambda: MX.onehot_dot(vals, 128), 3, 10)
+    k_hi = _time_ms(lambda: MX.onehot_dot(vals, 128, prec="highest"), 5)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        lib = _time_ms(lambda: torch.matmul(vals, r), 10)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    _probe_row(results, "probe_onehot_dot",
+               f"probe_onehot_dot (nb {nb}, {m}x{kk}x128, TF32)", k, p, lib,
+               _nbytes(vals) + 4 * nb * m * 128, 2 * nb * m * kk * 128,
+               TF32_FLOP_PER_S, ms_highest=k_hi)
+    del vals
+
+    (vals,) = MX.case_inputs("feature_matmul_mn32_k8_ch168", nb, dev)
+    full = MX.feature_table(168, 8, device=dev).repeat(1, 32 // 8)
+    p, k = _in_turns(lambda: MX.feature_matmul_plain(vals, 168),
+                     lambda: MX.feature_matmul(vals, 168), 5, 20)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        lib = _time_ms(lambda: torch.matmul(full, vals), 20)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    _probe_row(results, "probe_feature_matmul",
+               f"probe_feature_matmul (nb {nb}, mn 32, k 8, ch 168, TF32)",
+               k, p, lib, _nbytes(vals) + 4 * nb * 168 * 128,
+               2 * nb * 168 * vals.shape[1] * 128, TF32_FLOP_PER_S)
+    del vals
+
+    gv, yv = MX.case_inputs("pair_reduce_spill", nb, dev)
+    p, k = _in_turns(lambda: MX.pair_reduce_plain(gv, yv),
+                     lambda: MX.pair_reduce(gv, yv, order="spill"), 3, 10)
+    k_tiled = _time_ms(lambda: MX.pair_reduce(gv, yv, order="tiled"), 10)
+    g5 = gv.view(nb, 4, 7, 8, 128)
+    y5 = yv.view(nb, 4, 24, 8, 128)
+    lib = _time_ms(lambda: torch.einsum("bcnra,bcmra->bnma", g5, y5), 10)
+    regs_s, spill_s = _ptxas_entry("probe_reduce_spill_kernel")
+    regs_t, spill_t = _ptxas_entry("probe_reduce_tiled_kernel")
+    _probe_row(results, "probe_pair_reduce",
+               f"probe_pair_reduce (nb {nb}, 7x24 channels, 4 chunks; ms is "
+               f"the spill order)", k, p, lib,
+               _nbytes(gv, yv) + 4 * nb * 168 * 128,
+               2 * nb * 168 * 4 * 8 * 128, ms_tiled=k_tiled,
+               ptxas_spill=f"{regs_s} registers, {spill_s} B spill stores",
+               ptxas_tiled=f"{regs_t} registers, {spill_t} B spill stores")
+    del gv, yv
+
+    src, bidx = MX.case_inputs("bgather_17ch_nblk18", nb, dev)
+    p, k = _in_turns(lambda: MX.bgather_plain(src, bidx),
+                     lambda: MX.bgather(src, bidx), 3, 10)
+    s11, i11 = MX.case_inputs("bgather_17ch_nblk11", nb, dev)
+    k11 = _time_ms(lambda: MX.bgather(s11, i11), 10)
+    del s11, i11
+    # where its time goes: the same windows with 8 index rows (the staging
+    # of the windows, mostly) and a plain copy of the windows
+    i8 = bidx[:, :8].contiguous()
+    k_nq8 = _time_ms(lambda: MX.bgather(src, i8), 10)
+    copy_ms = _time_ms(src.clone, 10)
+    nch, width = src.shape[1:]
+    j = bidx.long().reshape(nb, 1, -1)
+    gsum_ms = _time_ms(lambda: torch.gather(
+        src, 2, j.expand(nb, nch, j.shape[2])).view(nb, nch, -1, 128).sum(2),
+        10)
+    # every channel row reads the same columns: nch x the (b, column)
+    # sectors the valid indices touch
+    valid = (bidx >= 0) & (bidx < width)
+    keys = (torch.arange(nb, device=dev).view(nb, 1, 1) * width
+            + bidx.long())[valid]
+    _probe_row(results, "probe_bgather",
+               f"probe_bgather (nb {nb}, 17 channels, nblk 18, 14 chunks, "
+               f"the script's zero indices)", k, p, None,
+               _nbytes(bidx) + 4 * nb * nch * 128
+               + 32 * nch * _sectors(keys),
+               nch * int(valid.sum()), ms_nblk11=k11, gather_sum_ms=gsum_ms,
+               ms_8_index_rows=k_nq8, window_copy_ms=copy_ms)
+
+
+def phase_probes(results):
+    """Phase 11: the probe kernels against their plain versions, the
+    probes' own path (the three entry points at the scripts' geometry,
+    counts from 0), the transcendental gate, and the timings."""
+    from gpumd_tpu_torch.engine import cuda_build
+    from gpumd_tpu_torch.probes import bench_gather as BG
+    from gpumd_tpu_torch.probes import bench_mxu_probes as MX
+    from gpumd_tpu_torch.probes import probe_transcendentals as PT
+
+    failures = []
+    with torch.no_grad():
+        _probe_checks(results, failures)
+        if failures:
+            raise RuntimeError(f"probe kernels disagree with plain versions: "
+                               f"{failures}")
+        cuda_build.reset_launches()
+        acc = PT.main([])
+        BG.main([])
+        MX.main([])
+        torch.cuda.synchronize()
+        counts = dict(cuda_build.launches)
+        print(f"[probes] launches on the probes' path: "
+              f"{ {k: counts[k] for k in PROBES} }")
+        low = [k for k in PROBES if counts[k] < 1]
+        if low:
+            raise RuntimeError(f"probe kernels not launched: {low}")
+        for k in PROBES:
+            results.setdefault(k, {})["launches"] = counts[k]
+        worst = max(v["kernel_max_rel"] for v in acc.values())
+        print(f"[probes] transcendentals: worst kernel max relative error "
+              f"{worst:.3e} (gate {TRANS_GATE:.0e})")
+        if not worst <= TRANS_GATE:
+            raise RuntimeError("in-kernel transcendentals above the gate")
+        _probe_time(results)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,md,time,"
                     "dense-kernels,dense-md,dense-time,"
-                    "tersoff-kernels,tersoff-md,tersoff-time")
+                    "tersoff-kernels,tersoff-md,tersoff-time,probes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port's smoke test needs one")
@@ -1226,7 +1509,8 @@ def main():
                 ("tersoff-kernels",
                  lambda r: phase_tersoff_kernels(r, pot_path)),
                 ("tersoff-md", lambda r: phase_tersoff_md(r, pot_path)),
-                ("tersoff-time", lambda r: phase_tersoff_time(r, pot_path))):
+                ("tersoff-time", lambda r: phase_tersoff_time(r, pot_path)),
+                ("probes", phase_probes)):
             if name in phases:
                 fn(results)
                 print(f"[{name}] done at {time.time() - t0:.1f} s")

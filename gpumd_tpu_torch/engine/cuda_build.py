@@ -30,7 +30,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 launches = {"k1": 0, "k2": 0, "scatter": 0, "fold": 0, "compact_rows": 0,
             "compact_windows": 0, "tersoff": 0, "k1b": 0, "k2b": 0,
-            "dense_k1": 0, "dense_k2": 0}
+            "dense_k1": 0, "dense_k2": 0, "probe_gather": 0,
+            "probe_transcendentals": 0, "probe_onehot_dot": 0,
+            "probe_feature_matmul": 0, "probe_pair_reduce": 0,
+            "probe_bgather": 0}
 build_info = {}  # seconds, path, ptxas report of the last build
 
 _lib = None
@@ -52,6 +55,12 @@ _SIGNATURES = {
     "dense_k2b_launch": [P] * 10 + [I] * 11 + [F] * 2 + [P],
     "dense_k1_launch": [P] * 7 + [I] * 10 + [F] * 2 + [P],
     "dense_k2_launch": [P] * 8 + [I] * 10 + [F] * 2 + [P],
+    "probe_gather_launch": [P] * 3 + [I] * 4 + [P],
+    "probe_trans_launch": [P] * 4 + [I] + [P],
+    "probe_onehot_launch": [P] * 2 + [I] * 6 + [P],
+    "probe_feature_launch": [P] * 2 + [I] * 5 + [P],
+    "probe_reduce_launch": [P] * 3 + [I] * 6 + [P],
+    "probe_bgather_launch": [P] * 3 + [I] * 5 + [P],
     "gk_error_string": [I],
 }
 

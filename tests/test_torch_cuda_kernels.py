@@ -11,7 +11,11 @@ compact-list rung on both compactions at CPU-test sizes, the Tersoff
 kernel on the 512-atom CPU-test plan, with two types (SiC) and at 32k
 atoms, and the four dense-window kernels (K1b, K2b, round-1 K1 and K2) on
 random solids with close pairs inside the ZBL switch, empty slots and an
-open axis.  Tolerances are relative to max|plain| in f32: 1e-5 for the
+open axis; and the six probe kernels of csrc/probes.cu (the one-hot dot
+at m 72/88/108 and ksplit 4 in TF32 and f32, the feature matmul at ch 24
+and 168, both pair-reduce orders, the blocked gather at nblk 11 and 18 with
+indices out of range, the gather bit for bit, the transcendental gate).
+Tolerances are relative to max|plain| in f32: 1e-5 for the
 K1s and the fold (summation order), 1e-4 for the K2s, the scatter and the
 Tersoff kernel (op order, hand-derived vs autograd gradients, shared-memory
 atomics, CUDA's own transcendentals); the two compactions copy, so they
@@ -36,6 +40,9 @@ from gpumd_tpu_torch.model.state import make_state
 from gpumd_tpu_torch.potentials.nep.model import NEP
 from gpumd_tpu_torch.potentials.nep.params import NepModel, random_params
 from gpumd_tpu_torch.potentials.tersoff import Tersoff1989
+from gpumd_tpu_torch.probes import bench_gather as PG
+from gpumd_tpu_torch.probes import bench_mxu_probes as PM
+from gpumd_tpu_torch.probes import probe_transcendentals as PT
 
 pytestmark = pytest.mark.cuda
 
@@ -366,3 +373,91 @@ def test_dense_wrappers_reject_wrong_inputs(dev):
         TD.k1_call(k["garr"].double(), plan, spec)
     with pytest.raises(ValueError, match="shape"):
         TD.k2_call(k["garr"], k["cot_s"], k["cot_a"], plan, spec)
+
+
+# ---------------------------------------------------------------------------
+# The probe kernels (csrc/probes.cu) against their plain versions.  TF32
+# products keep 10 mantissa bits of each input: 2e-3 of max|plain|; the
+# f32 FFMA path, the pair reduce and the blocked gather add f32 terms in
+# another order: 1e-5; the gather copies: bit for bit.
+# ---------------------------------------------------------------------------
+
+
+def _gen(dev, seed):
+    return torch.Generator(dev).manual_seed(seed)
+
+
+@pytest.mark.parametrize("prec", PM.PRECISIONS)
+@pytest.mark.parametrize("m,k,n,ksplit", [
+    (144, 4096, 128, 1), (144, 4096, 128, 4), (72, 4096, 128, 1),
+    (88, 3072, 128, 1), (108, 4096, 128, 1), (96, 3072, 128, 4),
+    (20, 100, 64, 1)])
+def test_probe_onehot_matches_plain(dev, prec, m, k, n, ksplit):
+    vals = torch.randn((3, m, k), device=dev, generator=_gen(dev, m + k))
+    before = cuda_build.launches["probe_onehot_dot"]
+    got = PM.onehot_dot(vals, n, ksplit, prec)
+    assert cuda_build.launches["probe_onehot_dot"] == before + 1
+    ref = PM.onehot_dot_plain(vals, n, ksplit)
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert _rel(got, ref) <= (2e-3 if prec == "default" else 1e-5)
+
+
+@pytest.mark.parametrize("ch", [24, 168, 200])
+def test_probe_feature_matches_plain(dev, ch):
+    vals = torch.randn((5, 32 * 8, 128), device=dev, generator=_gen(dev, ch))
+    got = PM.feature_matmul(vals, ch)
+    ref = PM.feature_matmul_plain(vals, ch)
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert _rel(got, ref) <= 2e-3
+
+
+@pytest.mark.parametrize("order", PM.ORDERS)
+def test_probe_pair_reduce_matches_plain(dev, order):
+    gen = _gen(dev, 7)
+    g = torch.randn((9, 4 * 8 * 7, 128), device=dev, generator=gen)
+    y = torch.randn((9, 4 * 8 * 24, 128), device=dev, generator=gen)
+    before = cuda_build.launches["probe_pair_reduce"]
+    got = PM.pair_reduce(g, y, order=order)
+    assert cuda_build.launches["probe_pair_reduce"] == before + 1
+    assert _rel(got, PM.pair_reduce_plain(g, y)) <= 1e-5
+
+
+@pytest.mark.parametrize("nblk,chunks", [(18, 14), (11, 14), (11, 12),
+                                         (3, 2)])
+def test_probe_bgather_matches_plain(dev, nblk, chunks):
+    gen = _gen(dev, nblk)
+    width = 128 * nblk
+    src = torch.randn((6, 17, width), device=dev, generator=gen)
+    idx = torch.randint(-50, width + 50, (6, 8 * chunks, 128), device=dev,
+                        generator=gen, dtype=torch.int32)
+    assert (idx < 0).any() and (idx >= width).any()
+    got = PM.bgather(src, idx)
+    assert _rel(got, PM.bgather_plain(src, idx)) <= 1e-5
+
+
+def test_probe_gather_bit_for_bit(dev):
+    table, idx = PG.make_inputs(w=11200, s=1024, g=4, device=dev, seed=2)
+    got = PG.gather_call(table, idx)
+    assert torch.equal(got, PG.gather_plain(table, idx))
+
+
+def test_probe_transcendentals_within_gate(dev):
+    for key, v in PT.measure(dev).items():
+        assert v["kernel_max_rel"] <= 1e-6, (key, v)
+    x = torch.linspace(0.5, 120.0, 4096, device=dev)
+    for got, ref in zip(PT.run(x), PT.run_plain(x)):
+        assert _rel(got, ref) <= 1e-6
+
+
+def test_probe_wrappers_reject_wrong_inputs(dev):
+    with pytest.raises(ValueError, match="shared memory"):
+        PM.bgather(torch.zeros((1, 17, 128 * 27), device=dev),
+                   torch.zeros((1, 8, 128), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="dtype"):
+        PM.onehot_dot(torch.zeros((1, 16, 32), dtype=torch.float64,
+                                  device=dev), 128)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        PM.onehot_dot(torch.zeros((1, 16, 32), device=dev), 100)
+    with pytest.raises(ValueError, match="na 7"):
+        PM.pair_reduce(torch.zeros((1, 48, 128), device=dev),
+                       torch.zeros((1, 96, 128), device=dev), na=6, nlm=12)

@@ -45,8 +45,28 @@ def _t(x, dtype=torch.float64):
 
 
 def _close(got, ref):
-    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
-                               rtol=RTOL, atol=ATOL)
+    """|got - ref| <= ATOL + RTOL |ref| everywhere; a failure names the
+    worst element, its index, how many elements fail, and the process
+    state that could change either side (JAX's x64 and matmul precision,
+    torch's default dtype and threads)."""
+    got, ref = got.detach().numpy(), np.asarray(ref)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    with np.errstate(invalid="ignore"):
+        excess = np.abs(got - ref) - (ATOL + RTOL * np.abs(ref))
+    bad = ~(excess <= 0)  # NaN fails too
+    if bad.any():
+        worst = tuple(int(i) for i in np.unravel_index(
+            np.argmax(np.where(np.isnan(excess), np.inf, excess)),
+            got.shape))
+        raise AssertionError(
+            f"{int(bad.sum())} of {got.size} elements outside rtol {RTOL}, "
+            f"atol {ATOL}; worst at {worst}: got {got[worst]!r}, ref "
+            f"{ref[worst]!r}, |diff| {abs(got[worst] - ref[worst]):.3e}; "
+            f"max|ref| {np.nanmax(np.abs(ref)):.3e}; jax x64 "
+            f"{jax.config.jax_enable_x64}, matmul precision "
+            f"{jax.config.jax_default_matmul_precision}, ref dtype "
+            f"{ref.dtype}; torch default dtype {torch.get_default_dtype()}, "
+            f"threads {torch.get_num_threads()}")
 
 
 @pytest.fixture(scope="module")

@@ -1,0 +1,315 @@
+"""The probe kernels' plain versions vs the probe scripts' Pallas kernels.
+
+Each plain torch version in gpumd_tpu_torch/probes is held against the
+kernel body of its script (scripts/bench_gather.py,
+scripts/probe_transcendentals.py, scripts/bench_mxu_probes.py), run through
+pl.pallas_call(..., interpret=True) with the script's BlockSpecs, on the
+same inputs made from a numpy seed, at small shapes (nb 2, k 256, nblk 2-3).
+Everything is f32.  Tolerances, relative to max|reference|: the gather
+copies (exact); the blocked gather and the pair reduce add the same terms in
+another order (1e-6); the one-hot dot and the feature matmul add up to 256
+products in another order (1e-5).  Transcendentals: torch against XLA:CPU
+within 1e-6 on the script's scale, |a - b| / max(|b|, 1e-3).
+
+The scripts are loaded from their paths.  bench_mxu_probes.py points JAX's
+compile cache at .jax_cache when it is imported; the import here runs with
+jax.config.update made a no-op, so the worker keeps its own cache.
+"""
+
+import functools
+import importlib.util
+import json
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from gpumd_tpu_torch.engine import cuda_build
+from gpumd_tpu_torch.probes import bench_gather as BG
+from gpumd_tpu_torch.probes import bench_mxu_probes as MX
+from gpumd_tpu_torch.probes import probe_transcendentals as PT
+
+SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(f"probe_script_{name}",
+                                                  SCRIPTS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def script_mods():
+    cache_dir = jax.config.jax_compilation_cache_dir
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.config, "update", lambda *a, **k: calls.append(a[0]))
+        mods = {n: _load(n) for n in ("bench_gather", "probe_transcendentals",
+                                      "bench_mxu_probes")}
+    assert jax.config.jax_compilation_cache_dir == cache_dir
+    return mods, calls, cache_dir
+
+
+def _close(got, ref, rtol):
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape
+    err = np.abs(got.astype(np.float64) - ref)
+    worst = np.unravel_index(np.argmax(err), err.shape)
+    scale = max(float(np.abs(ref).max()), 1e-30)
+    assert err[worst] <= rtol * scale, (
+        f"max |got - ref| {err[worst]:.3e} at {worst} (got {got[worst]}, "
+        f"ref {ref[worst]}) above {rtol} x max|ref| {scale:.3e}")
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+@pytest.fixture
+def scripts(script_mods):
+    return script_mods[0]
+
+
+def test_script_import_keeps_the_worker_cache(script_mods):
+    mods, calls, cache_dir = script_mods
+    assert "jax_compilation_cache_dir" in calls  # what was neutralised
+    assert jax.config.jax_compilation_cache_dir == cache_dir
+    assert mods["bench_mxu_probes"].NB_FULL == MX.NB_FULL
+
+
+# ---------------------------------------------------------------------------
+# gather
+# ---------------------------------------------------------------------------
+
+
+def test_gather_plain_matches_pallas(scripts):
+    """The script's body takes along axis 0 of its block.  With the
+    script's (1, W, 128) blocks that axis has length 1 and the take fails
+    to broadcast (its main catches the error and prints PALLAS FAILED);
+    on squeezed (W, 128) blocks it is the gather of the script's XLA
+    baseline, take_along_axis(table, idx, axis=1), which is what the port
+    computes."""
+    g, w, s = 2, 40, 16
+    rng = _rng(0)
+    table = rng.normal(size=(g, w, 128)).astype(np.float32)
+    idx = rng.integers(0, w, (g, s, 128)).astype(np.int32)
+    f = pl.pallas_call(
+        scripts["bench_gather"].kern, grid=(g,),
+        in_specs=[pl.BlockSpec((None, w, 128), lambda i: (i, 0, 0)),
+                  pl.BlockSpec((None, s, 128), lambda i: (i, 0, 0))],
+        out_specs=pl.BlockSpec((None, s, 128), lambda i: (i, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((g, s, 128), jnp.float32),
+        interpret=True)
+    ref = np.asarray(f(jnp.asarray(table), jnp.asarray(idx)))
+    got = BG.gather_call(_t(table), _t(idx)).numpy()
+    assert np.array_equal(got, ref)
+    assert np.array_equal(got, np.take_along_axis(table, idx, axis=1))
+
+
+# ---------------------------------------------------------------------------
+# transcendentals
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,lo,hi", PT.RANGES, ids=[r[0] for r in
+                                                       PT.RANGES])
+def test_transcendentals_match_xla(scripts, name, lo, hi):
+    xs = np.linspace(lo, hi, 8 * 1024, dtype=np.float32).reshape(8, -1)
+    got = [v.numpy() for v in PT.run(_t(xs))]
+    x = jnp.asarray(xs)
+    xla = [np.asarray(jax.jit(f)(x)) for f in (jax.lax.rsqrt, jnp.cos,
+                                              jnp.sin)]
+    pallas = [np.asarray(v) for v in scripts["probe_transcendentals"].run(x)]
+    for op, g, xv, pv in zip(PT.OPS, got, xla, pallas):
+        assert float(np.max(PT.rel_error(g, xv.astype(np.float64)))) <= \
+            1e-6, op
+        assert float(np.max(PT.rel_error(g, pv.astype(np.float64)))) <= \
+            1e-6, op
+
+
+def test_transcendental_errors_are_small_on_cpu():
+    res = PT.measure("cpu")
+    assert set(res) == {f"{r[0]}.{op}" for r in PT.RANGES for op in PT.OPS}
+    for key, v in res.items():
+        assert set(v) == {"kernel_max_rel", "kernel_rms_rel",
+                          "torch_max_rel"}
+        assert np.isfinite(v["kernel_max_rel"]), key  # rsqrt(0) counts 0
+        assert v["kernel_max_rel"] <= 1e-6, key
+
+
+# ---------------------------------------------------------------------------
+# one-hot dot and feature matmul
+# ---------------------------------------------------------------------------
+
+
+def _pallas_onehot(script, vals, n, ksplit):
+    nb, m, k = vals.shape
+    f = pl.pallas_call(
+        functools.partial(script._dot_kernel, m, k, n, ksplit,
+                          prec=jax.lax.Precision.DEFAULT),
+        grid=(nb,),
+        in_specs=[pl.BlockSpec((1, m, k), lambda b: (b, 0, 0))],
+        out_specs=pl.BlockSpec((1, m, n), lambda b: (b, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((nb, m, n), jnp.float32),
+        interpret=True)
+    return np.asarray(f(jnp.asarray(vals)))
+
+
+@pytest.mark.parametrize("m,k,n,ksplit", [(72, 256, 128, 1),
+                                          (88, 256, 128, 4),
+                                          (108, 256, 128, 1),
+                                          (144, 256, 96, 4)])
+def test_onehot_plain_matches_pallas(scripts, m, k, n, ksplit):
+    vals = _rng(1).normal(size=(2, m, k)).astype(np.float32)
+    ref = _pallas_onehot(scripts["bench_mxu_probes"], vals, n, ksplit)
+    _close(MX.onehot_dot_plain(_t(vals), n, ksplit), ref, 1e-5)
+    # the column mask: columns 0 and 64 of 128 hold the row sums
+    if n == 128:
+        cols = np.flatnonzero(np.abs(ref).max(axis=(0, 1)) > 0)
+        assert list(cols) == [0, 64]
+
+
+def test_feature_plain_matches_pallas(scripts):
+    script = scripts["bench_mxu_probes"]
+    mn, k = 32, 8
+    vals = _rng(2).normal(size=(2, mn * k, 128)).astype(np.float32)
+    for ch in (24, 168):
+        f = pl.pallas_call(
+            functools.partial(script._feat_kernel, mn, k, ch), grid=(2,),
+            in_specs=[pl.BlockSpec((1, mn * k, 128), lambda b: (b, 0, 0))],
+            out_specs=pl.BlockSpec((1, ch, 128), lambda b: (b, 0, 0)),
+            out_shape=jax.ShapeDtypeStruct((2, ch, 128), jnp.float32),
+            interpret=True)
+        ref = np.asarray(f(jnp.asarray(vals)))
+        _close(MX.feature_matmul_plain(_t(vals), ch, k), ref, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# pair reduce and blocked gather
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("order", MX.ORDERS)
+def test_pair_reduce_plain_matches_pallas(scripts, order):
+    script = scripts["bench_mxu_probes"]
+    body = {"spill": script._reduce_spill_kernel,
+            "tiled": script._reduce_tiled_kernel}[order]
+    na, nlm, chunks, nb = 7, 24, 2, 2  # the script has 4 chunks
+    rng = _rng(3)
+    g = rng.normal(size=(nb, chunks * 8 * na, 128)).astype(np.float32)
+    y = rng.normal(size=(nb, chunks * 8 * nlm, 128)).astype(np.float32)
+    f = pl.pallas_call(
+        functools.partial(body, na, nlm, chunks), grid=(nb,),
+        in_specs=[pl.BlockSpec((1, chunks * 8 * na, 128),
+                               lambda b: (b, 0, 0)),
+                  pl.BlockSpec((1, chunks * 8 * nlm, 128),
+                               lambda b: (b, 0, 0))],
+        out_specs=pl.BlockSpec((1, na * nlm, 128), lambda b: (b, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((nb, na * nlm, 128), jnp.float32),
+        interpret=True)
+    ref = np.asarray(f(jnp.asarray(g), jnp.asarray(y)))
+    _close(MX.pair_reduce(_t(g), _t(y), order=order), ref, 1e-6)
+
+
+@pytest.mark.parametrize("nblk,chunks", [(2, 3), (3, 2)])
+def test_bgather_plain_matches_pallas(scripts, nblk, chunks):
+    script = scripts["bench_mxu_probes"]
+    nch, nb, width = 17, 2, 128 * nblk
+    rng = _rng(4 + nblk)
+    src = rng.normal(size=(nb, nch, width)).astype(np.float32)
+    # in range, negative, and at or past the window's end
+    idx = rng.integers(-40, width + 40, (nb, 8 * chunks, 128)).astype(
+        np.int32)
+    assert (idx < 0).any() and (idx >= width).any()
+    f = pl.pallas_call(
+        functools.partial(script._bgather_kernel, nch, chunks, nblk),
+        grid=(nb,),
+        in_specs=[pl.BlockSpec((1, nch, width), lambda b: (b, 0, 0)),
+                  pl.BlockSpec((1, 8 * chunks, 128), lambda b: (b, 0, 0))],
+        out_specs=pl.BlockSpec((1, nch, 128), lambda b: (b, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((nb, nch, 128), jnp.float32),
+        interpret=True)
+    ref = np.asarray(f(jnp.asarray(src), jnp.asarray(idx)))
+    _close(MX.bgather(_t(src), _t(idx)), ref, 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# wrappers and entry points on the CPU
+# ---------------------------------------------------------------------------
+
+
+def test_wrappers_take_plain_versions_on_cpu():
+    rng = _rng(5)
+    vals = _t(rng.normal(size=(2, 72, 64)).astype(np.float32))
+    feats = _t(rng.normal(size=(2, 64, 128)).astype(np.float32))
+    g = _t(rng.normal(size=(1, 56, 128)).astype(np.float32))
+    y = _t(rng.normal(size=(1, 192, 128)).astype(np.float32))
+    before = dict(cuda_build.launches)
+    for prec in MX.PRECISIONS:
+        assert torch.equal(MX.onehot_dot(vals, 128, 2, prec),
+                           MX.onehot_dot_plain(vals, 128, 2))
+    assert torch.equal(MX.feature_matmul(feats, 24),
+                       MX.feature_matmul_plain(feats, 24))
+    for order in MX.ORDERS:
+        assert torch.equal(MX.pair_reduce(g, y, order=order),
+                           MX.pair_reduce_plain(g, y))
+    x = _t(np.linspace(1, 2, 64, dtype=np.float32))
+    for a, b in zip(PT.run(x), PT.run_plain(x)):
+        assert torch.equal(a, b)
+    assert cuda_build.launches == before  # no kernel launched on the CPU
+    with pytest.raises(ValueError, match="prec"):
+        MX.onehot_dot(vals, 128, prec="fast")
+    with pytest.raises(ValueError, match="order"):
+        MX.pair_reduce(g, y, order="rows")
+
+
+@pytest.mark.parametrize("module,argv,keys", [
+    (PT, [], [f"{r[0]}.{op}" for r in PT.RANGES for op in PT.OPS]),
+    (BG, ["--w", "64", "--s", "16", "--g", "2"],
+     ["kernel", "take_along_dim", "flat_gather"]),
+    (MX, ["--scale", str(MX.NB_FULL)], list(MX.CASES)),
+], ids=["probe_transcendentals", "bench_gather", "bench_mxu_probes"])
+def test_main_prints_the_script_keys_on_cpu(capsys, module, argv, keys):
+    before = dict(cuda_build.launches)
+    res = module.main(["--device", "cpu", *argv])
+    out = capsys.readouterr().out
+    assert list(res) == keys
+    assert out.startswith("device: cpu")
+    assert all(np.isfinite(v) for v in (
+        res.values() if module is not PT else
+        [x for r in res.values() for x in r.values()]))
+    if module is MX:
+        assert len(keys) == 14
+        assert set(json.loads(out.strip().splitlines()[-1])) == set(keys)
+        for key in keys:
+            assert f"{key}: " in out
+    if module is BG:
+        for label in ("kernel banded:", "torch take_along_dim:",
+                      "torch flat gather:"):
+            assert label in out and "G elem/s" in out
+    if module is PT:
+        assert set(json.loads(out[out.index("{"):])) == set(keys)
+    assert cuda_build.launches == before
+
+
+@pytest.mark.parametrize("call", [
+    lambda: PT.main([]), lambda: BG.main(["--g", "1"]),
+    lambda: MX.main(["--scale", str(MX.NB_FULL)]),
+    lambda: PT.measure(), lambda: BG.make_inputs(64, 16, 1),
+    lambda: MX.case_inputs("pair_reduce_spill", 1),
+], ids=["transcendentals-main", "gather-main", "mxu-main",
+        "transcendentals-measure", "gather-inputs", "mxu-inputs"])
+def test_entry_points_raise_without_a_card(monkeypatch, call):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
