@@ -12,7 +12,10 @@ rejects) and full windows (compact_lists=False).  Phases:
   1. build   compile the CUDA kernels from gpumd_tpu_torch/csrc with nvcc
              (one process per source, all at once); print the build time
              and the card's name and power limit
-  2. kernels at 32,768 atoms jittered by 0.1 A, three pipeline passes:
+  2. kernels at 32,768 atoms jittered by 0.1 A, three pipeline passes
+             (first, what the K1/K2 design acts on: ptxas's registers,
+             stack frame and spills of the model's template instances,
+             their shared memory and resident blocks an SM):
              the default plan (cap 56, compact_windows), the same state on
              a plan made from the unjittered lattice (cap 64,
              compact_rows) and the full-window rung; each kernel against
@@ -29,7 +32,9 @@ rejects) and full windows (compact_lists=False).  Phases:
   4. time    262,144 atoms, 50 steps of each rung after warm-up
              (atom-step/s, the cost of the per-step host sync, a device
              profile of 5 steps): the default rung from the lattice
-             (compact_rows) and from the jittered state (compact_windows),
+             (compact_rows; also its live centre lanes and live pair slots
+             against those inside the cutoffs) and from the jittered state
+             (compact_windows),
              and the full-window rung; every kernel at those shapes against
              its plain version and, where one PyTorch call computes the
              same function, that call (CUDA events); the wall time of one
@@ -131,8 +136,8 @@ PROBES = ("probe_gather", "probe_transcendentals", "probe_onehot_dot",
 KERNELS = ("k1", "k2", "scatter", "fold", "compact_rows", "compact_windows",
            "tersoff", "k1b", "k2b", "dense_k1", "dense_k2") + PROBES
 # Tolerances, relative to max|plain|.  K1 and the fold add the same terms
-# in another order in f32 (descriptor sums of ~100 pairs): 1e-5.  K2 and
-# the scatter also differ by hand-derived vs autograd-free op order and by
+# in another order in f32 (descriptor sums of ~100 pairs): 1e-5.  K2 also
+# differs by hand-derived vs autograd-free op order, the scatter by
 # shared-memory atomics whose order changes from run to run: 1e-4.  The
 # compactions copy: bit for bit.  The tersoff kernel sums the bond-order
 # terms in another order and with CUDA's own powf/expf/sincospif: 1e-4.
@@ -451,6 +456,8 @@ def phase_kernels(results):
         for label, kw in passes:
             sysm = System(16, **kw)
             print(f"[kernels] pass {label}: {sysm.describe()}")
+            if label == "lists":
+                _k_design(sysm.md)
             carry = sysm.md.init_carry(sysm.state)
             if bool(carry.overflow):
                 raise RuntimeError(f"overflow at init ({label})")
@@ -602,13 +609,42 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def _live_pairs(keep, cp):
+def _live_pairs(keep, cp, spec=None):
     """Live (radial, angular) pair slots of this pass: the kernels skip
-    dead slots (self, empty, FAR, parked)."""
+    dead slots (self, empty, FAR, parked).  Given `spec`, also the live
+    slots inside the cutoffs, the only ones that add non-zero terms
+    (radial: 0.5 (rc_r[ti] + rc_r[tj]) or the ZBL outer cutoff; angular:
+    both types valid and 0.5 (rc_a[ti] + rc_a[tj])), and the live centre
+    lanes (not an empty slot or lane padding at FAR with type -1)."""
+    from gpumd_tpu_torch.engine.nep_compact import _by_type
+
     t = keep["tiles"]
     d2 = t[..., 0, :, :] ** 2 + t[..., 1, :, :] ** 2 + t[..., 2, :, :] ** 2
     live = (d2 > 1e-6) & (t[..., 3, :, :] > -0.5)
-    return int(live.sum()), int(live[..., :cp.mn_a, :].sum())
+    counts = (int(live.sum()), int(live[..., :cp.mn_a, :].sum()))
+    if spec is None:
+        return counts
+    nb, mn_r, a_pad = cp.nb, cp.mn_r, cp.a_pad
+    c = keep["centers"].reshape(nb, 4, 1, a_pad)
+    ct, tj = c[:, 3], t.reshape(nb, 4, mn_r, a_pad)[:, 3]
+    d = torch.sqrt(d2.reshape(nb, mn_r, a_pad))
+    live = live.reshape(nb, mn_r, a_pad)
+
+    def valid(x):
+        return ((torch.abs(x - torch.round(x)) < 0.5) & (x > -0.5)
+                & (x < spec.num_types - 0.5))
+
+    in_r = d < 0.5 * (_by_type(ct, spec.rc_radial)
+                      + _by_type(tj, spec.rc_radial))
+    if spec.zbl_mode:
+        in_r = in_r | (d < (spec.zbl_rc_outer if spec.zbl_mode < 3
+                            else float("inf")))
+    in_a = valid(ct) & valid(tj) & (d < 0.5 * (
+        _by_type(ct, spec.rc_angular) + _by_type(tj, spec.rc_angular)))
+    lanes = ~((ct <= -0.5) & (c[:, 0] >= 5e4))
+    return counts + (int((live & in_r).sum()),
+                     int((live & in_a)[:, :cp.mn_a].sum()),
+                     int(lanes.sum()))
 
 
 def _distinct_sources(keep, cp):
@@ -890,6 +926,7 @@ def _time_kernels(sysm, carry, results=None):
             results.setdefault(name, {}).update(
                 ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
                 bound_by=b_by)
+    return keep
 
 
 def phase_time(results):
@@ -898,7 +935,10 @@ def phase_time(results):
         label = "262k default rung"
         carry, aux, step, _ = _time_rung(sysm, label)
         _profile(step, carry, aux)
-        _time_kernels(sysm, carry, results)
+        keep = _time_kernels(sysm, carry, results)
+        _k_design(sysm.md)
+        _live_lines(label, keep, sysm.md.cplan, sysm.md.spec)
+        del keep
         _long_run(sysm, carry, aux, step, _time_rebuild(sysm, label), label)
         del sysm, carry, aux, step
         jit = System(32, jitter=0.1)
@@ -1241,17 +1281,59 @@ def phase_tersoff_time(results, pot_path):
 
 
 def _ptxas_entry(name):
-    """(registers, bytes of spill stores) ptxas reported for the kernel
-    entry `name` in the build's report."""
+    """What ptxas reported for the first kernel entry whose (mangled) name
+    contains `name`, in the build's report: registers, stack frame, spill
+    stores and spill loads (bytes)."""
     from gpumd_tpu_torch.engine import cuda_build
 
     report = (Path(cuda_build.build_info["path"]).parent
               / "ptxas.txt").read_text()
-    rest = report[report.find(f"Compiling entry function '{name}'"):]
-    regs = re.search(r"Used (\d+) registers", rest)
-    spill = re.search(r"(\d+) bytes spill stores", rest)
-    return (int(regs.group(1)) if regs else None,
-            int(spill.group(1)) if spill else None)
+    hit = re.search(rf"Compiling entry function '[^']*{re.escape(name)}",
+                    report)
+    rest = report[hit.start():] if hit else ""
+    keys = {"regs": r"Used (\d+) registers",
+            "stack": r"(\d+) bytes stack frame",
+            "spill_stores": r"(\d+) bytes spill stores",
+            "spill_loads": r"(\d+) bytes spill loads"}
+    out = {}
+    for key, pat in keys.items():
+        m = re.search(pat, rest)
+        out[key] = int(m.group(1)) if m else None
+    return out
+
+
+def _k_design(md):
+    """What the K1/K2 design acts on, for the instances the model uses:
+    ptxas's registers, stack frame and spills, the shared memory of a
+    block at this plan and the resident blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    from gpumd_tpu_torch.engine import nep_compact as nc
+
+    for name in ("k1", "k2"):
+        entry = nc.kernel_entry(name, md.spec)
+        px = _ptxas_entry(entry)
+        lay = nc.kernel_layout(name, md.spec, md.cplan)
+        occ = nc.kernel_occupancy(name, md.spec, md.cplan)
+        clean = px["stack"] == 0 and px["spill_stores"] == 0
+        print(f"[design] {name} instance {entry}: {px['regs']} registers, "
+              f"{px['stack']} B stack frame, {px['spill_stores']} B spill "
+              f"stores, {px['spill_loads']} B spill loads "
+              f"({'no local memory' if clean else 'LOCAL MEMORY'}); "
+              f"{lay.smem} B shared memory a block (queue chunks of "
+              f"< {lay.qcap + md.cplan.mn_a} pairs, <= {lay.ccap} centres), "
+              f"{occ} blocks = {8 * occ} warps resident an SM")
+
+
+def _live_lines(label, keep, cp, spec):
+    """Live centre lanes against a_pad, and live pair slots against the
+    slots inside the cutoffs (the pairs the kernels evaluate)."""
+    rad, ang, rad_in, ang_in, lanes = _live_pairs(keep, cp, spec)
+    n = cp.nb * cp.a_pad
+    print(f"[design] {label}: live centre lanes {lanes} of {n} "
+          f"({100 * lanes / n:.1f}%); per live centre {rad / lanes:.2f} "
+          f"live radial slots, {rad_in / lanes:.2f} inside the radial or "
+          f"ZBL cutoff; {ang / lanes:.2f} live angular slots, "
+          f"{ang_in / lanes:.2f} inside the angular cutoff")
 
 
 def _probe_checks(results, failures):
@@ -1405,8 +1487,10 @@ def _probe_time(results):
     g5 = gv.view(nb, 4, 7, 8, 128)
     y5 = yv.view(nb, 4, 24, 8, 128)
     lib = _time_ms(lambda: torch.einsum("bcnra,bcmra->bnma", g5, y5), 10)
-    regs_s, spill_s = _ptxas_entry("probe_reduce_spill_kernel")
-    regs_t, spill_t = _ptxas_entry("probe_reduce_tiled_kernel")
+    px_s = _ptxas_entry("probe_reduce_spill_kernel")
+    px_t = _ptxas_entry("probe_reduce_tiled_kernel")
+    regs_s, spill_s = px_s["regs"], px_s["spill_stores"]
+    regs_t, spill_t = px_t["regs"], px_t["spill_stores"]
     _probe_row(results, "probe_pair_reduce",
                f"probe_pair_reduce (nb {nb}, 7x24 channels, 4 chunks; ms is "
                f"the spill order)", k, p, lib,

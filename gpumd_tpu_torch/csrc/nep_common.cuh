@@ -42,18 +42,26 @@ __device__ __forceinline__ bool gk_type_valid(float code, int T) {
   return t >= 0 && t < T && fabsf(code - (float)t) < 0.5f;
 }
 
-// _cheb: f_0 = fc, f_k = (T_k(x) + 1)/2 fc, and optionally df_k/dd.
+// _cheb: f_0 = fc, f_k = (T_k(x) + 1)/2 fc, and optionally df_k/dd.  KMAX
+// bounds k1 at compile time: with it the caller's f/fp arrays, indexed by
+// unrolled constants, stay in registers.  cos(pi x) and sin(pi x) are
+// cospif/sinpif here and in gk_zbl: their range reduction is exact, where
+// cosf's slow path for huge arguments keeps a 28-byte array on the stack.
+template <int KMAX = GK_MAXK>
 __device__ __forceinline__ void gk_cheb(float d, float rcp, int k1, float* f,
                                         float* fp) {
   const float x_rc = d / rcp;
   const bool in = x_rc < 1.0f;
-  const float fc = in ? 0.5f * cosf(GK_PI * x_rc) + 0.5f : 0.0f;
+  float sn = 0.0f, cs;
+  if (fp) sincospif(x_rc, &sn, &cs);
+  else cs = cospif(x_rc);
+  const float fc = in ? 0.5f * cs + 0.5f : 0.0f;
   const float x = fminf(fmaxf(2.0f * (x_rc - 1.0f) * (x_rc - 1.0f) - 1.0f,
                               -1.0f), 1.0f);
   float fcp = 0.0f, dxdd = 0.0f;
   f[0] = fc;
   if (fp) {
-    fcp = in ? -0.5f * GK_PI / rcp * sinf(GK_PI * x_rc) : 0.0f;
+    fcp = in ? -0.5f * GK_PI / rcp * sn : 0.0f;
     dxdd = 4.0f * (x_rc - 1.0f) / rcp;
     fp[0] = fcp;
   }
@@ -63,7 +71,7 @@ __device__ __forceinline__ void gk_cheb(float d, float rcp, int k1, float* f,
     if (fp) fp[1] = 0.5f * ((t_cur + 1.0f) * fcp + tp_cur * dxdd * fc);
   }
 #pragma unroll
-  for (int k = 2; k < GK_MAXK; ++k) {
+  for (int k = 2; k < KMAX; ++k) {
     if (k < k1) {
       const float t_new = 2.0f * x * t_cur - t_prev;
       const float tp_new = 2.0f * t_cur + 2.0f * x * tp_cur - tp_prev;
@@ -73,6 +81,60 @@ __device__ __forceinline__ void gk_cheb(float d, float rcp, int k1, float* f,
       tp_cur = tp_new;
       f[k] = 0.5f * (t_cur + 1.0f) * fc;
       if (fp) fp[k] = 0.5f * ((t_cur + 1.0f) * fcp + tp_cur * dxdd * fc);
+    }
+  }
+}
+
+// g_n = sum_k cp[n k1 + k] f_k (and g'_n from f'_k when gnp is given), the
+// basis of gk_cheb formed term by term in the same order, so no per-k array
+// is live.  NMAX bounds k1 and n1 at compile time.
+template <int NMAX>
+__device__ __forceinline__ void gk_cheb_gn(float d, float rcp, int k1,
+                                           const float* __restrict__ cp,
+                                           int n1, float* gn, float* gnp) {
+  const float x_rc = d / rcp;
+  const bool in = x_rc < 1.0f;
+  float sn = 0.0f, cs;
+  if (gnp) sincospif(x_rc, &sn, &cs);
+  else cs = cospif(x_rc);
+  const float fc = in ? 0.5f * cs + 0.5f : 0.0f;
+  const float x = fminf(fmaxf(2.0f * (x_rc - 1.0f) * (x_rc - 1.0f) - 1.0f,
+                              -1.0f), 1.0f);
+  float fcp = 0.0f, dxdd = 0.0f;
+  if (gnp) {
+    fcp = in ? -0.5f * GK_PI / rcp * sn : 0.0f;
+    dxdd = 4.0f * (x_rc - 1.0f) / rcp;
+  }
+#pragma unroll
+  for (int n = 0; n < NMAX; ++n) {
+    gn[n] = 0.0f;
+    if (gnp) gnp[n] = 0.0f;
+  }
+  float t_prev = 1.0f, t_cur = x, tp_prev = 0.0f, tp_cur = 1.0f;
+#pragma unroll
+  for (int k = 0; k < NMAX; ++k) {
+    if (k < k1) {
+      float fk = fc, fpk = fcp;
+      if (k >= 2) {
+        const float t_new = 2.0f * x * t_cur - t_prev;
+        const float tp_new = 2.0f * t_cur + 2.0f * x * tp_cur - tp_prev;
+        t_prev = t_cur;
+        t_cur = t_new;
+        tp_prev = tp_cur;
+        tp_cur = tp_new;
+      }
+      if (k >= 1) {
+        fk = 0.5f * (t_cur + 1.0f) * fc;
+        if (gnp) fpk = 0.5f * ((t_cur + 1.0f) * fcp + tp_cur * dxdd * fc);
+      }
+#pragma unroll
+      for (int n = 0; n < NMAX; ++n) {
+        if (n < n1) {
+          const float cc = __ldg(cp + n * k1 + k);
+          gn[n] += cc * fk;
+          if (gnp) gnp[n] += cc * fpk;
+        }
+      }
     }
   }
 }
@@ -121,11 +183,11 @@ __device__ __forceinline__ void gk_zbl(const NepConsts& c, float d,
   const float span = fmaxf(rc2 - rc1, 1e-30f);
   const float frac = (d - rc1) / span;
   const float sw = d < rc1 ? 1.0f
-                 : (d < rc2 ? 0.5f * cosf(GK_PI * frac) + 0.5f : 0.0f);
+                 : (d < rc2 ? 0.5f * cospif(frac) + 0.5f : 0.0f);
   *e_out = pref * inv_d * phi * sw;
   if (dedd_out) {
     const float swp = (d >= rc1 && d < rc2)
-                          ? -0.5f * GK_PI / span * sinf(GK_PI * frac) : 0.0f;
+                          ? -0.5f * GK_PI / span * sinpif(frac) : 0.0f;
     *dedd_out = pref * ((-inv_d * inv_d) * phi * sw +
                         inv_d * phip * a_inv * sw + inv_d * phi * swp);
   }
@@ -220,6 +282,238 @@ __device__ __forceinline__ void gk_ylm_vjp(float ux, float uy, float uz,
   *gx = ax;
   *gy = ay;
   *gz = az;
+}
+
+// gk_ylm_vjp with b_lm = sum_n cot[n, lm] g_n and b'_lm = sum_n cot[n, lm]
+// g'_n formed as each lm is reached (no b/b' arrays): cot[(n NLM + lm) ld]
+// is the centre's column of its cotangent channels in shared memory.
+template <int LMAX, int NMAX>
+__device__ __forceinline__ void gk_ylm_vjp_cot(
+    float ux, float uy, float uz, const float* ztab, const float* cot, int ld,
+    const float* gn, const float* gnp, int n1, float* sval, float* gx,
+    float* gy, float* gz) {
+  constexpr int NLM = LMAX * (LMAX + 2);
+  float zp[LMAX + 1], cr[LMAX + 1], ci[LMAX + 1];
+  zp[0] = 1.0f;
+  cr[0] = 1.0f;
+  ci[0] = 0.0f;
+#pragma unroll
+  for (int k = 1; k <= LMAX; ++k) {
+    zp[k] = zp[k - 1] * uz;
+    cr[k] = cr[k - 1] * ux - ci[k - 1] * uy;
+    ci[k] = cr[k - 1] * uy + ci[k - 1] * ux;
+  }
+  auto contract = [&](int lm, float* b, float* bp) {
+    float v = 0.0f, vp = 0.0f;
+#pragma unroll
+    for (int n = 0; n < NMAX; ++n) {
+      if (n < n1) {
+        const float cc = cot[(n * NLM + lm) * ld];
+        v += cc * gn[n];
+        vp += cc * gnp[n];
+      }
+    }
+    *b = v;
+    *bp = vp;
+  };
+  float s = 0.0f, ax = 0.0f, ay = 0.0f, az = 0.0f;
+  int idx = 0, off = 0;
+#pragma unroll
+  for (int L = 1; L <= LMAX; ++L) {
+#pragma unroll
+    for (int m = 0; m <= L; ++m) {
+      float q = 0.0f, qd = 0.0f;
+#pragma unroll
+      for (int k = 0; k <= L; ++k) {
+        const float cc = ztab[off + m * (L + 1) + k];
+        q += cc * zp[k];
+        if (k > 0) qd += cc * (float)k * zp[k - 1];
+      }
+      float b, bp;
+      contract(idx, &b, &bp);
+      if (m == 0) {
+        s += bp * q;
+        az += b * qd;
+        ++idx;
+      } else {
+        const float mf = (float)m;
+        s += bp * q * cr[m];
+        ax += b * q * mf * cr[m - 1];
+        ay -= b * q * mf * ci[m - 1];
+        az += b * qd * cr[m];
+        ++idx;
+        contract(idx, &b, &bp);
+        s += bp * q * ci[m];
+        ax += b * q * mf * ci[m - 1];
+        ay += b * q * mf * cr[m - 1];
+        az += b * qd * ci[m];
+        ++idx;
+      }
+    }
+    off += (L + 1) * (L + 1);
+  }
+  *sval = s;
+  *gx = ax;
+  *gy = ay;
+  *gz = az;
+}
+
+// ---------------------------------------------------------------------------
+// Live centres and the live-pair queue of one grid block (K1, K2).
+//
+// A block's a_pad centre lanes hold ~half real atoms (the rest are empty
+// cell slots and lane padding at FAR with type -1), and of each live
+// centre's mn_a angular slots only the pairs inside 0.5 (rc_a[ti] +
+// rc_a[tj]) add non-zero terms.  The kernels list the live centres, mark
+// the live angular slots of each in a bit mask, and lay the marked pairs
+// out as one queue ordered by (centre, slot): centre c owns positions
+// off[c] .. off[c+1] - 1.  The queue is cut into chunks of whole centres
+// whose pair count and centre count fit the kernel's shared buffers; each
+// chunk is processed one pair a thread, then each centre sums its own
+// contiguous segment in slot order.  Every step is a prefix sum or a fixed
+// order, so two calls give the same bits.
+// ---------------------------------------------------------------------------
+
+#define GK_FULL 0xffffffffu
+#define GK_BLOCK 256          // threads a block of K1 and K2
+#define GK_BATCH 4            // slots whose loads a thread issues together
+#define GK_FAR_HALF 5.0e4f    // half of grid.FAR, where empty slots sit
+
+// Bookkeeping words in shared memory (int32), laid out by gk_live_views.
+struct GkLive {
+  int* lane_of;    // (a_pad) lane of live centre c
+  int* c_of;       // (a_pad) live index of lane a, -1 for a dead lane
+  unsigned* mask;  // (a_pad, mw) bit m: slot m of centre c is queued
+  int* off;        // (a_pad + 1) first queue position of centre c
+  int* chunk;      // (a_pad + 1) first centre of chunk k, then nlive
+  int* counts;     // [0] live centres, [1] chunks
+};
+
+__device__ __forceinline__ GkLive gk_live_views(int* base, int a_pad,
+                                                int mw) {
+  GkLive s;
+  s.lane_of = base;
+  s.c_of = base + a_pad;
+  s.mask = reinterpret_cast<unsigned*>(base + 2 * a_pad);
+  s.off = base + 2 * a_pad + a_pad * mw;
+  s.chunk = s.off + a_pad + 1;
+  s.counts = s.chunk + a_pad + 1;
+  return s;
+}
+
+// A dead centre lane (empty slot, lane padding) is at FAR with type -1;
+// every pair of it adds exact zeros.
+__device__ __forceinline__ bool gk_centre_live(float cx, float ct) {
+  return !(ct <= -0.5f && cx >= GK_FAR_HALF);
+}
+
+// Warp 0: the live centre list of the block's centres cb (4, a_pad).
+__device__ __forceinline__ void gk_live_lanes(const float* cb, int a_pad,
+                                              GkLive s) {
+  const int lane = threadIdx.x & 31;
+  int carry = 0;
+  for (int a0 = 0; a0 < a_pad; a0 += 32) {
+    const int a = a0 + lane;
+    const bool live = gk_centre_live(cb[a], cb[3 * a_pad + a]);
+    const unsigned bal = __ballot_sync(GK_FULL, live);
+    const int pos = carry + __popc(bal & ((1u << lane) - 1u));
+    s.c_of[a] = live ? pos : -1;
+    if (live) s.lane_of[pos] = a;
+    carry += __popc(bal);
+  }
+  if (lane == 0) s.counts[0] = carry;
+}
+
+// An angular slot that adds non-zero terms: a live pair (d^2 > eps, type
+// code not -1) of valid types inside its cutoff, tested as gk_cheb tests
+// it (every other slot gives fc = f' = 0 exactly).
+__device__ __forceinline__ bool gk_ang_live(const NepConsts& c, float dx,
+                                            float dy, float dz, float tj,
+                                            int ti, bool ti_ok) {
+  const float d2 = dx * dx + dy * dy + dz * dz;
+  if (!(d2 > GK_EPS2 && tj > -0.5f) || !ti_ok || !gk_type_valid(tj, c.T))
+    return false;
+  const float inv_d = rsqrtf(fmaxf(d2, GK_EPS2));
+  const float d = d2 * inv_d;
+  const int tjx = gk_type_index(tj, c.T);
+  return d / (0.5f * (c.rc_a[ti] + c.rc_a[tjx])) < 1.0f;
+}
+
+// Warp 0, once the masks are complete: queue offsets and chunks.  A centre
+// starts a chunk when its first queue position crosses a multiple of qcap
+// or its index a multiple of ccap, so a chunk holds at most ccap centres
+// and fewer than qcap + mn_a pairs.
+__device__ __forceinline__ void gk_queue_offsets(GkLive s, int mw, int qcap,
+                                                 int ccap) {
+  const int lane = threadIdx.x & 31;
+  const int nlive = s.counts[0];
+  int carry = 0, nch = 0, prev_q = -1, prev_c = -1;
+  for (int c0 = 0; c0 < nlive; c0 += 32) {
+    const int c = c0 + lane;
+    const bool in = c < nlive;
+    int cnt = 0;
+    if (in)
+      for (int w = 0; w < mw; ++w) cnt += __popc(s.mask[c * mw + w]);
+    int incl = cnt;
+#pragma unroll
+    for (int sh = 1; sh < 32; sh <<= 1) {
+      const int v = __shfl_up_sync(GK_FULL, incl, sh);
+      if (lane >= sh) incl += v;
+    }
+    const int start = carry + incl - cnt;
+    const int kq = start / qcap, kc = c / ccap;
+    int pq = __shfl_up_sync(GK_FULL, kq, 1);
+    int pc = __shfl_up_sync(GK_FULL, kc, 1);
+    if (lane == 0) {
+      pq = prev_q;
+      pc = prev_c;
+    }
+    const bool first = in && (kq != pq || kc != pc);
+    const unsigned bal = __ballot_sync(GK_FULL, first);
+    if (in) s.off[c] = start;
+    if (first) s.chunk[nch + __popc(bal & ((1u << lane) - 1u))] = c;
+    nch += __popc(bal);
+    carry += __shfl_sync(GK_FULL, incl, 31);
+    prev_q = __shfl_sync(GK_FULL, kq, 31);
+    prev_c = __shfl_sync(GK_FULL, kc, 31);
+  }
+  if (lane == 0) {
+    s.off[nlive] = carry;
+    s.chunk[nch] = nlive;
+    s.counts[1] = nch;
+  }
+}
+
+// The centre that owns queue position q: the largest c in [lo, hi) with
+// off[c] <= q.
+__device__ __forceinline__ int gk_owner(const int* off, int lo, int hi,
+                                        int q) {
+  hi -= 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (off[mid] <= q) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+// The slot of a centre's r-th queued pair: the r-th set bit of its mask.
+__device__ __forceinline__ int gk_nth_slot(const unsigned* mk, int r) {
+  int w = 0;
+  unsigned bits = mk[0];
+  for (int pc = __popc(bits); r >= pc; pc = __popc(bits)) {
+    r -= pc;
+    bits = mk[++w];
+  }
+  for (int i = 0; i < r; ++i) bits &= bits - 1u;
+  return w * 32 + __ffs(bits) - 1;
+}
+
+// Threads a live centre in K2's radial stage: P adjacent threads split its
+// slots (m = part, part + P, ...), so short live lists still fill the
+// block; with nlive <= GK_BLOCK every unit runs in one round.
+__device__ __forceinline__ int gk_parts(int nlive) {
+  return nlive > 0 ? max(1, min(32, GK_BLOCK / nlive)) : 1;
 }
 
 static inline NepConsts gk_consts(const float* rc_r, const float* rc_a,

@@ -44,8 +44,10 @@ F = ctypes.c_float
 
 # C signatures: every pointer and the stream as c_void_p
 _SIGNATURES = {
-    "k1_launch": [P] * 12 + [I] * 13 + [F] * 3 + [P],
-    "k2_launch": [P] * 14 + [I] * 15 + [F] * 3 + [P],
+    "k1_launch": [P] * 12 + [I] * 18 + [F] * 4 + [P],
+    "k2_launch": [P] * 14 + [I] * 22 + [F] * 4 + [P],
+    "k1_occupancy": [I] * 3 + [P],
+    "k2_occupancy": [I] * 3 + [P],
     "scatter_launch": [P] * 4 + [I] * 9 + [P],
     "fold_launch": [P] * 2 + [I] * 10 + [P],
     "compact_rows_launch": [P] * 3 + [I] * 9 + [P],

@@ -31,6 +31,7 @@ constants.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -65,8 +66,12 @@ from gpumd_tpu_torch.units import K_C
 
 _EPS2 = 1.0e-6
 _BIG = 1.0e30
-# shared memory one block may use on Hopper (bytes)
+# shared memory one block may use on Hopper (bytes), and what K1 and K2
+# aim for: two 256-thread blocks an SM (228 KB, 1 KB reserved a block)
 _SMEM_LIMIT = 232448
+_SMEM_TARGET = 112 * 1024
+# compile-time bounds on kr1, ka1, na1 of the K1/K2 template instances
+_NMAX = (8, 20)
 
 
 class CompactPlan(NamedTuple):
@@ -568,14 +573,96 @@ def _f32_tables(spec: CompactSpec, device):
     return out
 
 
-def _check_kernel_sizes(spec: CompactSpec, cplan: CompactPlan,
-                        smem_floats: int, name: str):
-    if not (1 <= spec.l_max <= 8 and spec.kr1 <= 20 and spec.ka1 <= 20
-            and spec.na1 <= 20 and cplan.a_pad <= 1024):
-        raise ValueError(f"{name}: model or plan outside the kernel's sizes")
-    if 4 * smem_floats > _SMEM_LIMIT:
-        raise ValueError(f"{name}: needs {4 * smem_floats} B of shared "
-                         f"memory, above {_SMEM_LIMIT}")
+class KernelLayout(NamedTuple):
+    """Template instance and shared-memory plan of one K1 or K2 launch."""
+
+    nmax: int  # compile-time bound on kr1, ka1, na1 (8 or 20)
+    mw: int  # 32-bit mask words per centre (mn_a slots)
+    qcap: int  # queue positions a chunk may start in
+    ccap: int  # centres a chunk may hold
+    fstride: int  # K1: words a queued pair keeps (g_n, Y_lm), odd
+    region: int  # K2: words of the cot-rows / cot-columns region
+    stage_w: int  # K2: 1 when the cot rows of the radial stage fit it
+    smem: int  # bytes of dynamic shared memory a block
+
+
+def _nmax(spec: CompactSpec, name: str) -> int:
+    top = max(spec.kr1, spec.ka1, spec.na1)
+    if not (1 <= spec.l_max <= 8 and top <= _NMAX[-1]
+            and spec.num_types <= 8):
+        raise ValueError(f"{name}: model outside the kernel's sizes "
+                         f"(l_max 1-8, kr1/ka1/na1 <= {_NMAX[-1]}, <= 8 "
+                         f"types)")
+    return next(n for n in _NMAX if top <= n)
+
+
+def _bookkeeping_words(a_pad: int, mw: int) -> int:
+    """csrc/nep_common.cuh gk_live_views: lane_of, c_of, mask, off, chunk,
+    counts."""
+    return a_pad * (4 + mw) + 4
+
+
+def kernel_layout(name: str, spec: CompactSpec,
+                  cplan: CompactPlan) -> KernelLayout:
+    """Instance and shared-memory plan of K1 ("k1") or K2 ("k2"), in the
+    order the kernels lay their shared memory out.  A block targets
+    _SMEM_TARGET (two 256-thread blocks an SM) and takes up to _SMEM_LIMIT
+    when the target would leave chunks smaller than a block's lanes; a
+    chunk always fits its worst case (every centre with mn_a pairs)."""
+    nmax = _nmax(spec, name)
+    a_pad, mn_a = cplan.a_pad, cplan.mn_a
+    if a_pad > 1024:
+        raise ValueError(f"{name}: a_pad {a_pad} above 1024")
+    mw = -(-mn_a // 32)
+    fixed = spec.ztab.numel() + _bookkeeping_words(a_pad, mw)
+    nang = spec.na1 * spec.nlm
+    for budget in (_SMEM_TARGET, _SMEM_LIMIT):
+        free = budget // 4
+        if name == "k1":  # window, centres, then (qcap + mn_a) pairs
+            fstride, region, stage_w = (spec.na1 + spec.nlm) | 1, 0, 0
+            free -= fixed + 4 * cplan.src_lanes + 4 * a_pad
+            qcap, ccap = free // fstride - mn_a, a_pad
+            # the pair buffer also holds the radial sums of the second
+            # phase of each lane while a_pad < 256 (two threads a lane)
+            red = (2 * nmax + 1) * a_pad if a_pad < 256 else 0
+            words = budget // 4 - free + max((qcap + mn_a) * fstride, red)
+            fits = qcap >= a_pad
+        else:  # region, 6-word pairs, radial sums, centre types
+            fstride, qcap = 0, 4 * a_pad
+            free -= fixed + 13 * a_pad + (qcap + mn_a) * 6
+            ccap = min(a_pad, (free - 3) // nang)
+            rows = (spec.sr + 1) * (cplan.src_lanes + a_pad)
+            stage_w = int(rows <= free - 3)
+            region = round_up(max(ccap * nang, rows * stage_w), 4)
+            words = budget // 4 - free + region
+            fits = ccap >= min(a_pad, 16)
+        if fits:
+            break
+    if qcap < 1 or ccap < 1 or 4 * words > _SMEM_LIMIT:
+        raise ValueError(f"{name}: the plan's windows and model need more "
+                         f"than {_SMEM_LIMIT} B of shared memory a block")
+    return KernelLayout(nmax=nmax, mw=mw, qcap=qcap, ccap=ccap,
+                        fstride=fstride, region=region, stage_w=stage_w,
+                        smem=4 * words)
+
+
+def kernel_occupancy(name: str, spec: CompactSpec,
+                     cplan: CompactPlan) -> int:
+    """Resident blocks an SM of K1 or K2's instance for this plan
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lay = kernel_layout(name, spec, cplan)
+    blocks = ctypes.c_int(0)
+    lib = cuda_build.library()
+    fn = lib.k1_occupancy if name == "k1" else lib.k2_occupancy
+    cuda_build.check(fn(spec.l_max, lay.nmax, lay.smem,
+                        ctypes.addressof(blocks)), f"{name}_occupancy")
+    return blocks.value
+
+
+def kernel_entry(name: str, spec: CompactSpec) -> str:
+    """The mangled-name fragment of K1 or K2's instance for `spec` (the
+    ptxas report names template instances so)."""
+    return f"{name}_kernelILi{spec.l_max}ELi{_nmax(spec, name)}E"
 
 
 def _consts_args(spec: CompactSpec):
@@ -584,7 +671,12 @@ def _consts_args(spec: CompactSpec):
 
 
 def _zbl_floats(spec: CompactSpec):
-    return (spec.zbl_rc_inner, spec.zbl_rc_outer, spec.zbl_typewise_factor)
+    """rc_inner, rc_outer, the typewise factor, and the distance beyond
+    which every ZBL pair adds exact zeros (flexible ZBL: none)."""
+    zcut = {0: 0.0, 1: spec.zbl_rc_outer, 2: spec.zbl_rc_outer}.get(
+        spec.zbl_mode, float("inf"))
+    return (spec.zbl_rc_inner, spec.zbl_rc_outer, spec.zbl_typewise_factor,
+            zcut)
 
 
 # --------------------------------------------------------------------------
@@ -649,9 +741,7 @@ def _k1_cuda(centers, cand, idx, cplan: CompactPlan, spec: CompactSpec,
                        dev)
     cuda_build.require(idx, "idx", torch.int32,
                        (nz, ny, nxb, cplan.mn_r, a_pad), dev)
-    ch_used = spec.sr + 1 + spec.na1 * spec.nlm
-    _check_kernel_sizes(spec, cplan, 4 * src + ch_used * a_pad
-                        + spec.ztab.numel(), "k1")
+    lay = kernel_layout("k1", spec, cplan)
     out = torch.empty((spec.ch, nb * a_pad), dtype=torch.float32, device=dev)
     tiles = (torch.empty((nz, ny, nxb, 4, cplan.mn_r, a_pad),
                          dtype=torch.float32, device=dev)
@@ -662,7 +752,8 @@ def _k1_cuda(centers, cand, idx, cplan: CompactPlan, spec: CompactSpec,
         cuda_build.ptr(out),
         cuda_build.ptr(tiles) if save_tiles else cuda_build.P(None),
         *_f32_tables(spec, dev), nb, a_pad, src, cplan.mn_r, cplan.mn_a,
-        spec.ch, *_consts_args(spec), *_zbl_floats(spec), cuda_build.stream())
+        spec.ch, *_consts_args(spec), lay.mw, lay.qcap, lay.fstride,
+        lay.nmax, lay.smem, *_zbl_floats(spec), cuda_build.stream())
     cuda_build.check(rc, "k1_launch")
     cuda_build.launches["k1"] += 1
     return out, tiles
@@ -779,9 +870,7 @@ def _k2_cuda(centers, tiles, idx, cotc, cotw, cplan: CompactPlan,
                        dev)
     cuda_build.require(cotw, "cotw", torch.float32,
                        (nz, ny, nxb, spec.wch, src), dev)
-    ch_used = spec.sr + 1 + spec.na1 * spec.nlm
-    _check_kernel_sizes(spec, cplan, ch_used * a_pad + spec.ztab.numel(),
-                        "k2")
+    lay = kernel_layout("k2", spec, cplan)
     pch = _pch(per_atom_virial)
     out = torch.empty((16, nb * a_pad), dtype=torch.float32, device=dev)
     pvals = torch.empty((nz, ny, nxb, pch, mn_a, a_pad), dtype=torch.float32,
@@ -792,7 +881,8 @@ def _k2_cuda(centers, tiles, idx, cotc, cotw, cplan: CompactPlan,
         cuda_build.ptr(cotc), cuda_build.ptr(cotw), cuda_build.ptr(out),
         cuda_build.ptr(pvals), *_f32_tables(spec, dev), nb, a_pad, src, mn_r,
         mn_a, spec.wch, pch, int(per_atom_virial), *_consts_args(spec),
-        *_zbl_floats(spec), cuda_build.stream())
+        lay.mw, lay.qcap, lay.ccap, lay.region, lay.stage_w, lay.nmax,
+        lay.smem, *_zbl_floats(spec), cuda_build.stream())
     cuda_build.check(rc, "k2_launch")
     cuda_build.launches["k2"] += 1
     return out, pvals

@@ -5,8 +5,11 @@ not import JAX (the GPU machine has none), so run them there with:
 
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q
 
-They cover what chip_smoke.py does not: every ZBL variant, two l_max
-template instances, fold plans with bx = 1, odd caps and free axes, the
+They cover what chip_smoke.py does not: every ZBL variant, K1 and K2 on
+every class of their template instances (l_max 1 to 8, kr1/ka1/na1 up to
+20, 2, 3 and 8 types, both rungs, blocks without a live centre, centres
+that fill mn_a, equal bits from two calls), fold plans with bx = 1, odd
+caps and free axes, the
 compact-list rung on both compactions at CPU-test sizes, the Tersoff
 kernel on the 512-atom CPU-test plan, with two types (SiC) and at 32k
 atoms, and the four dense-window kernels (K1b, K2b, round-1 K1 and K2) on
@@ -134,6 +137,129 @@ def test_kernels_match_plain(dev, zbl, l_max):
             for g, r in zip(got, ref):
                 assert torch.isfinite(g).all()
                 assert _rel(g, r) <= TOL[name], (name, pav, _rel(g, r))
+
+
+ELEMENTS = (("Te", 52), ("Pb", 82), ("Ge", 32), ("Si", 14), ("C", 6),
+            ("O", 8), ("N", 7), ("Sn", 50))
+# case: (types, l_max, ZBL, n_max = basis, compact lists, special)
+INSTANCES = {
+    "trained-lists": (None, None, None, None, True, None),
+    "trained-windows": (None, None, None, None, False, None),
+    "l1-universal": (2, 1, "universal", 3, False, None),
+    "l6-typewise": (2, 6, "typewise", 3, True, None),
+    "l8-flexible": (2, 8, "flexible", 4, False, None),
+    "t3": (3, 4, "none", 4, True, None),
+    "t8": (8, 2, "universal", 3, False, None),
+    "n20": (2, 4, "none", 19, True, None),
+    "empty-blocks": (2, 3, "none", 3, True, "slab"),
+    "mn_a-full": (2, 4, "typewise", 3, False, "mn_a"),
+}
+
+
+def _instance(dev, case):
+    """One K1/K2 input set: the trained model on jittered PbTe, or a
+    random NEP4 model (n_max = basis = `nb`) on jittered rocksalt (a0 5.2
+    A, random types, 0.25 A: pairs reach into the ZBL switch), planned on
+    either
+    rung.  "slab" keeps the atoms below z = 0.45 L, so whole blocks hold
+    no live centre; "mn_a" caps mn_a at 8 on the distance-sorted
+    full-window rung, so centres fill every angular slot."""
+    t, l_max, zbl, nb, lists, special = INSTANCES[case]
+    a0, jitter = 5.2, 0.25
+    if t is None:  # the PbTe lattice of tests/test_torch_compact_lists.py
+        nep = NEP.from_file(MODEL, device=dev)
+        model, params = nep.model, nep.params
+        t, a0, jitter = model.num_types, 6.57, 0.1
+    else:
+        model = NepModel(
+            version=4, model_type=0, num_types=t,
+            symbols=tuple(e for e, _ in ELEMENTS[:t]),
+            atomic_numbers=tuple(z for _, z in ELEMENTS[:t]),
+            rc_radial=tuple(6.0 + 0.1 * i for i in range(t)),
+            rc_angular=tuple(4.0 - 0.1 * i for i in range(t)),
+            mn_radial=96, mn_angular=24, n_max_radial=nb, n_max_angular=nb,
+            basis_size_radial=nb, basis_size_angular=nb, l_max=l_max,
+            neurons=8, zbl=zbl != "none",
+            zbl_rc_inner=1.0 if zbl == "universal" else 0.0,
+            zbl_rc_outer=2.5 if zbl != "none" else 0.0,
+            zbl_flexible=zbl == "flexible",
+            zbl_typewise_factor=0.8 if zbl == "typewise" else 0.0)
+        params = random_params(model, seed=5, dtype=torch.float32,
+                               device=dev)
+    pos, _, lengths = _pbte(6, jitter, seed=1, a0=a0)
+    types = np.random.default_rng(2).integers(0, t, len(pos))
+    if special == "slab":
+        keep = pos[:, 2] % lengths[2] < 0.45 * lengths[2]
+        pos, types = pos[keep], types[keep]
+    box = Box.orthogonal(lengths, dtype=torch.float32, device=dev)
+    p = box.wrap(torch.as_tensor(pos, dtype=torch.float32, device=dev))
+    pw = p.cpu().numpy()
+    n = len(pos)
+    plan = TC.plan_grid_compact(box, model.rc_radial_max, 1.0, n,
+                                position=pw)
+    cplan = TC.make_compact_plan(plan, position=pw, box=box,
+                                 rc_angular=model.rc_angular_max,
+                                 mn_a=8 if special == "mn_a" else None,
+                                 compact_lists=lists)
+    assert bool(cplan.cl) == lists
+    perm, smask, _ = TG.bin_dense(p, box, torch.ones(n, device=dev), plan)
+    ps = TG.apply_perm(p, perm, 1e5)
+    ts = TG.apply_perm(torch.as_tensor(types, dtype=torch.int32,
+                                       device=dev), perm, 0)
+    garr = TG.pack_ghost(ps, ts, smask, box, plan)
+    if lists:
+        idx, _ = TC.build_compact_neighbors(garr, box, cplan,
+                                            model.rc_angular_max)
+    else:
+        idx, _ = TC.build_indices(
+            TC.block_centers(garr, cplan),
+            TG.pack_block_windows(garr, plan, cplan.bx, cplan.wl), cplan,
+            model.rc_angular_max)
+    return garr, ts, smask, cplan, idx, model, params
+
+
+@pytest.mark.parametrize("case", list(INSTANCES))
+def test_k1_k2_instances_match_plain(dev, case):
+    """K1 and K2 against their plain versions on every template instance
+    class (l_max 1-8, the size bound 8 and 20, 2/3/8 types, every ZBL
+    mode), both rungs, both per-atom virial settings, blocks without a
+    live centre and centres that fill mn_a; two calls give equal bits."""
+    garr, ts, smask, cp, idx, model, params = _instance(dev, case)
+    spec = TC.CompactSpec.from_model(model, params)
+    for pav in (False, True):
+        k = {}
+        TC.compact_pipeline(garr, ts, smask, cp, idx, model, params, pav,
+                            spec=spec, keep=k)
+        before = dict(cuda_build.launches)
+        got = {"k1": (TC.k1_call(k["centers"], k["cand"], k["idx"], cp,
+                                 spec),
+                      TC.k1_call(k["centers"], k["cand"], k["idx"], cp,
+                                 spec)),
+               "k2": tuple(TC.k2_call(k["centers"], k["tiles"], k["idx"],
+                                      k["cotc"], k["cotw"], cp, spec, pav)
+                           for _ in range(2))}
+        assert cuda_build.launches["k1"] == before["k1"] + 2
+        assert cuda_build.launches["k2"] == before["k2"] + 2
+        ref = {"k1": TC.k1_plain(k["centers"], k["cand"], k["idx"], cp,
+                                 spec),
+               "k2": TC.k2_plain(k["centers"], k["tiles"], k["idx"],
+                                 k["cotc"], k["cotw"], cp, spec, pav)}
+        for name in ("k1", "k2"):
+            first, second = got[name]
+            for g, g2, r in zip(first, second, ref[name]):
+                assert g.shape == r.shape
+                assert torch.isfinite(g).all()
+                assert torch.equal(g, g2), (name, "two calls differ")
+                assert _rel(g, r) <= TOL[name], (case, name, pav,
+                                                 _rel(g, r))
+    if INSTANCES[case][5] == "slab":
+        live = (k["centers"][..., 3, :] > -0.5).reshape(cp.nb, -1).any(1)
+        assert not bool(live.all())
+    if INSTANCES[case][5] == "mn_a":
+        # some centre has a non-zero pair cotangent in every angular slot
+        p = ref["k2"][1].reshape(cp.nb, -1, cp.mn_a, cp.a_pad)[:, :3]
+        full = (p.abs().sum(1) > 0).sum(1) == cp.mn_a
+        assert bool(full.any())
 
 
 @pytest.mark.parametrize("bx,cap,grid,pbc", [
