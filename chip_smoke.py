@@ -97,7 +97,11 @@ Last, the probes' path: the port's counterparts of the three probe scripts
              main() at the scripts' geometry (the probes' path, which
              prints the scripts' keys); the transcendental gate (every
              kernel op within 1e-6 of f64); every probe timed beside its
-             plain version, library call and bound
+             plain version, library call and bound (the one-hot dot's f32
+             path also beside torch.matmul in full f32); for the two TF32
+             kernels (wgmma fed by a ring of asynchronous copies) a
+             [design] line: ptxas's registers, stack and spill, shared
+             memory, blocks an SM, the ring and its bytes in flight, TB/s
 
 Usage: python3 chip_smoke.py [--phases build,kernels,md,time,
        dense-kernels,dense-md,dense-time,tersoff-kernels,tersoff-md,
@@ -413,7 +417,7 @@ def phase_build():
     cuda_build.library()
     print(f"[build] kernels built and loaded in {time.time() - t0:.1f} s "
           f"(nvcc {cuda_build.build_info.get('seconds', 0.0):.1f} s)")
-    report = cuda_build.build_info.get("ptxas", "")
+    report = _ptxas_report()
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
     spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", report)]
     print(f"[build] ptxas: {len(regs)} kernels, max {max(regs, default=0)} "
@@ -1280,21 +1284,28 @@ def phase_tersoff_time(results, pot_path):
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
 
 
+def _ptxas_report():
+    """The build's nvcc/ptxas report, saved beside the library (also when
+    the library came from the cache)."""
+    from gpumd_tpu_torch.engine import cuda_build
+
+    return (Path(cuda_build.build_info["path"]).parent
+            / "ptxas.txt").read_text()
+
+
 def _ptxas_entry(name):
     """What ptxas reported for the first kernel entry whose (mangled) name
     contains `name`, in the build's report: registers, stack frame, spill
-    stores and spill loads (bytes)."""
-    from gpumd_tpu_torch.engine import cuda_build
-
-    report = (Path(cuda_build.build_info["path"]).parent
-              / "ptxas.txt").read_text()
+    stores and spill loads, static shared memory (bytes)."""
+    report = _ptxas_report()
     hit = re.search(rf"Compiling entry function '[^']*{re.escape(name)}",
                     report)
     rest = report[hit.start():] if hit else ""
     keys = {"regs": r"Used (\d+) registers",
             "stack": r"(\d+) bytes stack frame",
             "spill_stores": r"(\d+) bytes spill stores",
-            "spill_loads": r"(\d+) bytes spill loads"}
+            "spill_loads": r"(\d+) bytes spill loads",
+            "smem": r"(\d+) bytes smem"}
     out = {}
     for key, pat in keys.items():
         m = re.search(pat, rest)
@@ -1418,6 +1429,43 @@ def _sectors(keys):
     return int(torch.unique(keys.reshape(-1) // 8).numel())
 
 
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _wgmma_design(results, name, plan, nbytes, ms):
+    """What the TF32 probe kernels' design acts on: ptxas's registers,
+    stack and spill of the plan's instance (and whether ptxas serialised its
+    wgmmas, warning C7520), shared memory, resident blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the ring, the bytes in
+    flight an SM and the rate reached.  Only the rate goes into the
+    results: the rest is the plan's or the compiler's, not measured."""
+    from gpumd_tpu_torch.probes import bench_mxu_probes as MX
+
+    px = _ptxas_entry(plan.entry)
+    smem, occ = MX.wgmma_occupancy(plan)
+    serial = any("C7520" in line and plan.entry in line
+                 for line in _ptxas_report().splitlines())
+    flight = plan.stages * plan.stage_bytes
+    rate = nbytes / ms / 1e9
+    print(f"[design] {name} instance {plan.entry}: {px['regs']} registers, "
+          f"{px['stack']} B stack frame, {px['spill_stores']} B spill "
+          f"stores, {px['spill_loads']} B spill loads; wgmma "
+          f"m{plan.mma[0]}n{plan.mma[1]}k{plan.mma[2]} TF32 "
+          f"{'SERIALISED by ptxas' if serial else 'not serialised'}; "
+          f"{smem} B shared memory a block, {occ} block(s) an SM "
+          f"({9 * occ} warps); ring of {plan.stages} stages x "
+          f"{plan.stage_bytes} B = {flight} B in flight an SM at most; "
+          f"{plan.units} units over {plan.blocks} persistent blocks; "
+          f"{rate:.3f} TB/s reached")
+    if (serial or px["stack"] or px["spill_stores"] or occ < 1
+            or smem != plan.smem):
+        raise RuntimeError(f"{plan.entry}: serialised wgmma, local memory, "
+                           f"no resident block or shared memory {smem} B "
+                           f"against the plan's {plan.smem} B")
+    results.setdefault(name, {}).update(tb_per_s=rate)
+
+
 def _probe_time(results):
     """Every probe at its script's geometry (bench_mxu_probes at scale 8:
     1,734 blocks): kernel, plain version and library call with CUDA
@@ -1454,30 +1502,44 @@ def _probe_time(results):
     p, k = _in_turns(lambda: MX.onehot_dot_plain(vals, 128),
                      lambda: MX.onehot_dot(vals, 128), 3, 10)
     k_hi = _time_ms(lambda: MX.onehot_dot(vals, 128, prec="highest"), 5)
+    k4 = _time_ms(lambda: MX.onehot_dot(vals, 128, 4), 10)
+    lib_hi = _time_ms(lambda: torch.matmul(vals, r), 5)  # full f32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         lib = _time_ms(lambda: torch.matmul(vals, r), 10)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+    nbytes = _nbytes(vals) + 4 * nb * m * 128
     _probe_row(results, "probe_onehot_dot",
                f"probe_onehot_dot (nb {nb}, {m}x{kk}x128, TF32)", k, p, lib,
-               _nbytes(vals) + 4 * nb * m * 128, 2 * nb * m * kk * 128,
-               TF32_FLOP_PER_S, ms_highest=k_hi)
+               nbytes, 2 * nb * m * kk * 128, TF32_FLOP_PER_S,
+               ms_ksplit4=k4, ms_highest=k_hi, library_ms_highest=lib_hi)
+    _wgmma_design(results, "probe_onehot_dot",
+                  MX.onehot_plan(nb, m, kk, 128, sms=_sms()), nbytes, k)
+    px = _ptxas_entry("probe_onehot_ffma_kernel")
+    print(f"[design] probe_onehot_dot f32 path probe_onehot_ffma_kernel: "
+          f"{px['regs']} registers, {px['stack']} B stack frame, "
+          f"{px['spill_stores']} B spill stores, {px['smem']} B static "
+          f"shared memory (ptxas)")
     del vals
 
     (vals,) = MX.case_inputs("feature_matmul_mn32_k8_ch168", nb, dev)
     full = MX.feature_table(168, 8, device=dev).repeat(1, 32 // 8)
     p, k = _in_turns(lambda: MX.feature_matmul_plain(vals, 168),
                      lambda: MX.feature_matmul(vals, 168), 5, 20)
+    k24 = _time_ms(lambda: MX.feature_matmul(vals, 24), 20)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         lib = _time_ms(lambda: torch.matmul(full, vals), 20)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+    nbytes = _nbytes(vals) + 4 * nb * 168 * 128
     _probe_row(results, "probe_feature_matmul",
                f"probe_feature_matmul (nb {nb}, mn 32, k 8, ch 168, TF32)",
-               k, p, lib, _nbytes(vals) + 4 * nb * 168 * 128,
-               2 * nb * 168 * vals.shape[1] * 128, TF32_FLOP_PER_S)
+               k, p, lib, nbytes, 2 * nb * 168 * vals.shape[1] * 128,
+               TF32_FLOP_PER_S, ms_ch24=k24)
+    _wgmma_design(results, "probe_feature_matmul",
+                  MX.feature_plan(nb, 32, 8, 168, sms=_sms()), nbytes, k)
     del vals
 
     gv, yv = MX.case_inputs("pair_reduce_spill", nb, dev)

@@ -3,9 +3,9 @@
 //
 //   probe_gather_kernel        scripts/bench_gather.py:kern (pallas_gather)
 //   probe_trans_kernel         scripts/probe_transcendentals.py:kernel (run)
-//   probe_onehot_kernel        scripts/bench_mxu_probes.py:_dot_kernel
-//                              (onehot_dot)
-//   probe_feature_kernel       scripts/bench_mxu_probes.py:_feat_kernel
+//   probe_onehot_tf32_kernel,  scripts/bench_mxu_probes.py:_dot_kernel
+//   probe_onehot_ffma_kernel   (onehot_dot: Precision.DEFAULT, HIGHEST)
+//   probe_feature_tf32_kernel  scripts/bench_mxu_probes.py:_feat_kernel
 //                              (feature_matmul)
 //   probe_reduce_{spill,tiled} scripts/bench_mxu_probes.py:
 //                              _reduce_spill_kernel, _reduce_tiled_kernel
@@ -15,12 +15,12 @@
 //
 // Every kernel is bound by bytes on the H100 at the scripts' shapes (the
 // transcendentals by its launch); each note says what its design does.
+#include <cuda.h>  // CUtensorMap (the encoder is found at run time)
 #include <cuda_runtime.h>
-#include <mma.h>
 
-#include <algorithm>
+#include <cstdint>
 
-using namespace nvcuda;
+#include "wgmma_tf32.cuh"
 
 // ---------------------------------------------------------------------------
 // gather: out[g, s, l] = table[g, idx[g, s, l], l]
@@ -81,75 +81,83 @@ extern "C" int probe_trans_launch(const float* x, float* r, float* c,
 }
 
 // ---------------------------------------------------------------------------
-// Shared by the two matrix-product probes: eight warps, each owning one
-// 16-column tile of the output; TF32 tensor-core tiles m16n16k8 with f32
-// accumulation (the counterpart of the MXU's Precision.DEFAULT); leading
-// dimensions padded by 4 floats (wmma's tf32 loads need multiples of 4 and
-// 32-byte aligned tiles, which these offsets keep).
-// ---------------------------------------------------------------------------
-
-namespace {
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxN = 16 * kWarps;  // output columns a block covers
-constexpr int kNLd = kMaxN + 4;
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 8,
-                             wmma::precision::tf32, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 8,
-                             wmma::precision::tf32, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 8, float>;
-
-template <class Frag>
-__device__ __forceinline__ void load_tf32(Frag& f, const float* p, int ld) {
-  wmma::load_matrix_sync(f, p, ld);
-#pragma unroll
-  for (int e = 0; e < f.num_elements; ++e) f.x[e] = wmma::__float_to_tf32(f.x[e]);
-}
-
-// Store a 16x16 accumulator tile through the warp's 256-float scratch:
-// rows at or past `m_valid` are padding and are not written.
-__device__ __forceinline__ void store_tile(const FragC& acc, float* scratch,
-                                           float* out, int ld_out,
-                                           int m_valid, int lane) {
-  wmma::store_matrix_sync(scratch, acc, 16, wmma::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 256; e += 32)
-    if (e / 16 < m_valid) out[(size_t)(e / 16) * ld_out + e % 16] = scratch[e];
-  __syncwarp();
-}
-}  // namespace
-
-// ---------------------------------------------------------------------------
 // one-hot dot: out[b] = vals[b] (m x k) @ R (k x n), R[i, j] = 1 where
 // (7919 j) mod n == j, the same column mask for every row i; k is summed in
 // `ksplit` parts, each in its own accumulator, added at the end.
 //
 // Bound: bytes (vals read once: at (144, 4096, 128) the product is 64 FLOP
-// per byte read, under the TF32 ridge of ~148).  Design: a block takes
-// kOhMT 16-row tiles of one b, so vals is read exactly once; each step
-// stages a (48 x 32) slab of vals in shared memory, zero-filled past m and
-// past the part's end, so m 72, 88, 108 and any k pad to whole tiles; R's
-// (32 x n) tile is built once in shared memory (its rows are all alike).
-// TF32: each warp runs its column tile against the block's row tiles.
-// F32 (Precision.HIGHEST): thread (warp, lane) keeps 6 rows x 4 columns of
-// FFMA accumulators fed from the same shared tiles.
+// per byte read; the bytes set the pace while the tensor cores sustain ~42%
+// of the TF32 peak, which only wgmma reaches).
+//
+// TF32 (Precision.DEFAULT): R is the same for every b, so vals is one
+// (nb m) x k matrix and out one (nb m) x n matrix, cut into 128-row tiles
+// across b boundaries (no padding of m).  A persistent block an SM walks
+// the tiles.  One producer warp keeps a ring of 32 KB stages full, each two
+// TMA tile loads (128 rows x 32 f32, 128-byte swizzle; rows past nb m and
+// columns past k arrive as zeros), completed on `full` mbarriers; two
+// consumer warpgroups each run wgmma m64nNk8 on their 64 rows of a stage,
+// all eight k8 steps back to back (no step is skipped: a branch between
+// them makes ptxas serialise the wgmmas), A and B read from shared memory
+// by descriptor, and release the stage on its `empty` mbarrier once the
+// next stage's products are issued (one wgmma group in flight).  B = R^T
+// (N x 32, K-major, swizzled alike) is built once a block: R's rows are all
+// alike, so one tile serves every box.  N is the smallest of 16, 64, 128
+// not below n; columns past n are zero and not stored.  k-split parts
+// are whole stages: a stage that starts a part waits for the products,
+// adds the part into the total and starts the sum again with scale-d 0.
+// The epilogue stores 8-byte pairs from the accumulators, whole 32-byte
+// sectors a row, while the producer already loads the next tile.
+//
+// F32 (Precision.HIGHEST): a block takes 48 rows of one b; each step stages
+// a (48 x 32) slab of vals in shared memory, zero-filled past m and past the
+// part's end, and thread (warp, lane) keeps 6 rows x 4 columns of FFMA
+// accumulators fed from it and from R's (32 x n) tile.
 // ---------------------------------------------------------------------------
 
 namespace {
-constexpr int kOhMT = 3;            // 16-row tiles a block
-constexpr int kOhRows = 16 * kOhMT;
-constexpr int kOhKC = 32;           // k columns staged a step
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxN = 128;          // output columns a block covers
+constexpr int kNLd = kMaxN + 4;
+constexpr int kOhRows = 48;         // rows a block (f32 path)
+constexpr int kOhKC = 32;           // k columns a step (f32) or TMA box (TF32)
 constexpr int kOhALd = kOhKC + 4;
+
+// the TF32 kernels: two consumer warpgroups and one producer warp
+constexpr int kWgThreads = 2 * 128 + 32;
+constexpr int kOhTileM = 128;                      // rows a tile
+constexpr int kOhBoxBytes = kOhTileM * kOhKC * 4;  // a TMA box: 16 KB
+constexpr int kOhBoxes = 2;                        // boxes a stage
+// feature matmul: a staged row of vals, 128 lanes + 8 floats, so that the
+// 8-byte fragment loads of a half warp fall in 32 distinct banks
+constexpr int kFtLd = 136;
+
+// Dynamic shared memory of the TF32 kernels: 1024 bytes of slack for the
+// swizzle's alignment, the constant operand (R^T: N rows of 128 B; big^T:
+// N x 8k f32), and the ring, each stage with two 8-byte mbarriers.  The
+// wrapper's plans (bench_mxu_probes.onehot_plan / feature_plan) lay out
+// the same; a card test holds them equal.
+long onehot_smem(int n_mma, int stages) {
+  return 1024L + (long)n_mma * kOhKC * 4 +
+         (long)stages * (kOhBoxes * kOhBoxBytes + 16);
+}
+long feature_smem(int n_mma, int k, int stages) {
+  return 1024L + 8L * k * n_mma * 4 +
+         (long)stages * (8L * k * kFtLd * 4 + 16);
+}
 }  // namespace
 
-template <bool TF32>
+// The wgmma N instances of the TF32 kernels (bench_mxu_probes.ONEHOT_N and
+// FEATURE_N); a width takes the smallest not below it.
+#define GK_ONEHOT_N(X) X(16) X(64) X(128)
+#define GK_FEATURE_N(X) X(32) X(192) X(256)
+
 __global__ void __launch_bounds__(kThreads)
-probe_onehot_kernel(const float* __restrict__ vals, float* __restrict__ out,
-                    int m, int k, int n, int ksplit, int mgroups) {
+probe_onehot_ffma_kernel(const float* __restrict__ vals,
+                         float* __restrict__ out, int m, int k, int n,
+                         int ksplit, int mgroups) {
   __shared__ __align__(32) float As[kOhRows * kOhALd];
   __shared__ __align__(32) float Rs[kOhKC * kNLd];
-  __shared__ __align__(32) float scratch[kWarps * 256];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.x / mgroups;
   const int m0 = (blockIdx.x % mgroups) * kOhRows;
@@ -161,27 +169,16 @@ probe_onehot_kernel(const float* __restrict__ vals, float* __restrict__ out,
   }
   const int kp = k / ksplit;
 
-  FragC tot[kOhMT], acc[kOhMT];
   float ftot[6][4], facc[6][4];
-  if (TF32) {
 #pragma unroll
-    for (int t = 0; t < kOhMT; ++t) wmma::fill_fragment(tot[t], 0.0f);
-  } else {
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ftot[i][j] = 0.0f;
+  for (int p = 0; p < ksplit; ++p) {
 #pragma unroll
     for (int i = 0; i < 6; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ftot[i][j] = 0.0f;
-  }
-  for (int p = 0; p < ksplit; ++p) {
-    if (TF32) {
-#pragma unroll
-      for (int t = 0; t < kOhMT; ++t) wmma::fill_fragment(acc[t], 0.0f);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 6; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) facc[i][j] = 0.0f;
-    }
+      for (int j = 0; j < 4; ++j) facc[i][j] = 0.0f;
     const int kend = (p + 1) * kp;
     for (int k0 = p * kp; k0 < kend; k0 += kOhKC) {
       __syncthreads();  // the last step's reads of As are done
@@ -194,85 +191,243 @@ probe_onehot_kernel(const float* __restrict__ vals, float* __restrict__ out,
                                  : 0.0f;
       }
       __syncthreads();
-      if (TF32) {
-        if (warp * 16 < n) {
-#pragma unroll
-          for (int kk = 0; kk < kOhKC; kk += 8) {
-            FragB bf;
-            load_tf32(bf, Rs + kk * kNLd + warp * 16, kNLd);
-#pragma unroll
-            for (int t = 0; t < kOhMT; ++t) {
-              if (t * 16 < rows) {
-                FragA af;
-                load_tf32(af, As + t * 16 * kOhALd + kk, kOhALd);
-                wmma::mma_sync(acc[t], af, bf, acc[t]);
-              }
-            }
-          }
-        }
-      } else {
 #pragma unroll 4
-        for (int kk = 0; kk < kOhKC; ++kk) {
-          float a[6], bv[4];
+      for (int kk = 0; kk < kOhKC; ++kk) {
+        float a[6], bv[4];
 #pragma unroll
-          for (int i = 0; i < 6; ++i) a[i] = As[(warp + 8 * i) * kOhALd + kk];
+        for (int i = 0; i < 6; ++i) a[i] = As[(warp + 8 * i) * kOhALd + kk];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) bv[j] = Rs[kk * kNLd + lane + 32 * j];
+        for (int j = 0; j < 4; ++j) bv[j] = Rs[kk * kNLd + lane + 32 * j];
 #pragma unroll
-          for (int i = 0; i < 6; ++i)
+        for (int i = 0; i < 6; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) facc[i][j] = fmaf(a[i], bv[j], facc[i][j]);
-        }
+          for (int j = 0; j < 4; ++j) facc[i][j] = fmaf(a[i], bv[j], facc[i][j]);
       }
     }
-    if (TF32) {
-#pragma unroll
-      for (int t = 0; t < kOhMT; ++t)
-#pragma unroll
-        for (int e = 0; e < tot[t].num_elements; ++e) tot[t].x[e] += acc[t].x[e];
-    } else {
-#pragma unroll
-      for (int i = 0; i < 6; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ftot[i][j] += facc[i][j];
-    }
-  }
-
-  float* ob = out + ((size_t)b * m + m0) * n;
-  if (TF32) {
-    if (warp * 16 < n) {
-#pragma unroll
-      for (int t = 0; t < kOhMT; ++t)
-        if (t * 16 < rows)
-          store_tile(tot[t], scratch + warp * 256,
-                     ob + (size_t)t * 16 * n + warp * 16, n, rows - t * 16,
-                     lane);
-    }
-  } else {
 #pragma unroll
     for (int i = 0; i < 6; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = warp + 8 * i, c = lane + 32 * j;
-        if (r < rows && c < n) ob[(size_t)r * n + c] = ftot[i][j];
+      for (int j = 0; j < 4; ++j) ftot[i][j] += facc[i][j];
+  }
+
+  float* ob = out + ((size_t)b * m + m0) * n;
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = warp + 8 * i, c = lane + 32 * j;
+      if (r < rows && c < n) ob[(size_t)r * n + c] = ftot[i][j];
+    }
+}
+
+namespace {
+// The dynamic shared memory of a TF32 kernel, from a 1024-byte aligned base
+// (the 128-byte swizzle repeats every 1024 bytes).
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  const uint32_t a = gk::smem_u32(raw);
+  return raw + ((1024u - (a & 1023u)) & 1023u);
+}
+}  // namespace
+
+template <int N, bool SPLIT>
+__global__ void __launch_bounds__(kWgThreads, 1)
+probe_onehot_tf32_kernel(const __grid_constant__ CUtensorMap vmap,
+                         float* __restrict__ out, int rows, int k, int n,
+                         int kp, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr int kbs = kOhBoxes;
+  constexpr int stage_k = kbs * kOhKC, stage_bytes = kbs * kOhBoxBytes;
+  uint8_t* ring = aligned_smem(smem_raw);
+  uint8_t* rt = ring + (size_t)stages * stage_bytes;  // R^T: N x 128 B
+  uint64_t* full = reinterpret_cast<uint64_t*>(rt + N * 128);
+  uint64_t* empty = full + stages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tiles = (rows + kOhTileM - 1) / kOhTileM;
+  const int ksteps = (k + stage_k - 1) / stage_k;
+
+  // R^T, K-major: row j is column j of R (1 where (7919 j) mod n == j, for
+  // every k), rows from n to N zero
+  for (int e = tid; e < N * kOhKC; e += kWgThreads) {
+    const int j = e / kOhKC, c = e % kOhKC;
+    *reinterpret_cast<float*>(rt + gk::sw128_offset(j, c)) =
+        (j < n && (j * 7919) % n == j) ? 1.0f : 0.0f;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      gk::mbar_init(&full[s], 1);
+      gk::mbar_init(&empty[s], 2 * 4);  // a lane of each consumer warp
+    }
+    gk::mbar_init_fence();
+  }
+  // R^T's stores are read by wgmma, through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  if (warp == 8) {  // producer
+    if (lane == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+        for (int ks = 0; ks < ksteps; ++ks) {
+          gk::mbar_wait(&empty[s], ph ^ 1);
+          gk::mbar_expect_tx(&full[s], stage_bytes);
+          for (int j = 0; j < kbs; ++j)
+            gk::tma_load_2d(ring + (size_t)s * stage_bytes + j * kOhBoxBytes,
+                            &vmap, &full[s], (ks * kbs + j) * kOhKC,
+                            t * kOhTileM);
+          if (++s == stages) { s = 0; ph ^= 1; }
+        }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg takes rows 64 wg .. 64 wg + 63 of each tile
+  const int wg = warp >> 2;
+  const uint32_t a_base = gk::smem_u32(ring) + wg * 64 * 128;
+  const uint64_t db = gk::sw128_desc(gk::smem_u32(rt));
+  gk::Acc<N> acc, tot;
+  int s = 0;
+  uint32_t ph = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    if (SPLIT) {
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) tot.d[i] = 0.0f;
+    }
+    int prev = -1;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      gk::mbar_wait(&full[s], ph);
+      // a stage that starts a part (parts are whole stages) starts its sum
+      // with scale-d 0, after the last part is added into the total
+      const bool first = ks * stage_k % kp == 0;
+      if (SPLIT && first && ks > 0) {
+        gk::wgmma_wait<0>();
+        gk::acc_fence(acc);
+#pragma unroll
+        for (int e = 0; e < N / 2; ++e) tot.d[e] += acc.d[e];
       }
+      const uint64_t da =
+          gk::sw128_desc(a_base + (uint32_t)(s * stage_bytes));
+      gk::acc_fence(acc);
+      gk::wgmma_fence();
+      // every k8 step of the stage, none skipped (past k the box holds
+      // zeros), so the products are issued back to back: box i / 4, step
+      // i % 4 of it; R^T's one tile serves every box
+#pragma unroll
+      for (int i = 0; i < 4 * kbs; ++i)
+        gk::wgmma_ss(acc, da + (i / 4) * (kOhBoxBytes >> 4) + 2 * (i % 4),
+                     db + 2 * (i % 4), (i == 0 && first) ? 0 : 1);
+      gk::wgmma_commit();
+      gk::wgmma_wait<1>();  // the previous stage's products are done
+      if (prev >= 0 && lane == 0) gk::mbar_arrive(&empty[prev]);
+      prev = s;
+      if (++s == stages) { s = 0; ph ^= 1; }
+    }
+    gk::wgmma_wait<0>();
+    gk::acc_fence(acc);
+    if (lane == 0) gk::mbar_arrive(&empty[prev]);
+    if (SPLIT) {
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) acc.d[e] += tot.d[e];
+    }
+    const int g = lane >> 2, q = lane & 3;
+    const int r0 = t * kOhTileM + wg * 64 + (warp & 3) * 16 + g;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int c = 8 * j + 2 * q;
+      if (c < n) {
+        if (r0 < rows)
+          *reinterpret_cast<float2*>(out + (size_t)r0 * n + c) =
+              make_float2(acc.d[4 * j], acc.d[4 * j + 1]);
+        if (r0 + 8 < rows)
+          *reinterpret_cast<float2*>(out + (size_t)(r0 + 8) * n + c) =
+              make_float2(acc.d[4 * j + 2], acc.d[4 * j + 3]);
+      }
+    }
   }
 }
 
-extern "C" int probe_onehot_launch(const float* vals, float* out, int nb,
-                                   int m, int k, int n, int ksplit, int tf32,
-                                   void* stream) {
+namespace {
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found at run time, so the library
+// needs no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The TF32 kernel instance of (which 0: one-hot, 1: feature, N, split),
+// or nullptr.
+const void* wgmma_kernel(int which, int n_mma, bool split);
+
+int launch_wg(const void* kernel, int smem, int blocks, cudaStream_t stream,
+              void** args) {
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernel(kernel, dim3(blocks), dim3(kWgThreads), args,
+                         (size_t)smem, stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+}  // namespace
+
+extern "C" int probe_onehot_ffma_launch(const float* vals, float* out, int nb,
+                                        int m, int k, int n, int ksplit,
+                                        void* stream) {
   if (n % 16 || n > kMaxN || ksplit < 1 || k % ksplit)
     return (int)cudaErrorInvalidValue;
   const int mgroups = (m + kOhRows - 1) / kOhRows;
-  const unsigned blocks = (unsigned)nb * mgroups;
-  if (tf32)
-    probe_onehot_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        vals, out, m, k, n, ksplit, mgroups);
-  else
-    probe_onehot_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        vals, out, m, k, n, ksplit, mgroups);
+  probe_onehot_ffma_kernel<<<(unsigned)nb * mgroups, kThreads, 0,
+                             (cudaStream_t)stream>>>(vals, out, m, k, n,
+                                                     ksplit, mgroups);
   return (int)cudaGetLastError();
+}
+
+// The plan (n_mma, stages, blocks) comes from the wrapper's onehot_plan;
+// rows = nb m.
+extern "C" int probe_onehot_tf32_launch(const float* vals, float* out,
+                                        int rows, int k, int n, int ksplit,
+                                        int n_mma, int stages, int blocks,
+                                        void* stream) {
+  int kp = k / ksplit;
+  if (n % 16 || n > n_mma || ksplit < 1 || k % ksplit || k % 4 ||
+      (ksplit > 1 && kp % (kOhBoxes * kOhKC)) || stages < 2 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)k * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)kOhKC, (cuuint32_t)kOhTileM};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)vals, dims,
+             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  void* args[] = {(void*)&map, &out, &rows, &k, &n, &kp, &stages};
+  return launch_wg(wgmma_kernel(0, n_mma, ksplit > 1),
+                   (int)onehot_smem(n_mma, stages), blocks,
+                   (cudaStream_t)stream, args);
 }
 
 // ---------------------------------------------------------------------------
@@ -281,89 +436,197 @@ extern "C" int probe_onehot_launch(const float* vals, float* out, int nb,
 // eye(ch, k) repeated 8 times along its columns.
 //
 // Bound: bytes (vals read once, out written once; 19 GFLOP of TF32 at the
-// script's shapes is far under it).  Design: a block per b holds all of its
-// output rows (up to kFtMT 16-row tiles, ch 24 and 168 padded to 32 and
-// 176) as TF32 accumulators; big is built once in dynamic shared memory;
-// each chunk of vals (8k x lanes) is staged with 16-byte loads and every
-// warp runs its 16-lane column tile against the table's row tiles.  Rows
-// past ch are padding and are not stored.
+// script's shapes is far under it), so the design is about the memory
+// pipeline.  A persistent block an SM walks b.  Its producer warp streams
+// each chunk (8k rows of lanes f32, each row one contiguous run) into a
+// ring of stages by 1-D bulk copies (cp.async.bulk, one a row, rows laid
+// kFtLd floats apart), completed on `full` mbarriers, so b + 1's chunks are
+// in flight while b computes and stores.  TF32 wgmma takes no MN-major
+// operand from shared memory, and vals[b] is (K = 8k, lanes) with lanes
+// contiguous, so the product runs transposed: out[b]^T (lanes x ch) =
+// vals[b]^T @ big^T, A = vals[b]^T from registers (each consumer warpgroup
+// 64 lanes; thread fragment rows g and g + 8 are the neighbouring lanes
+// 2g and 2g + 1, so A's loads and out's stores are 8-byte pairs), B = big^T
+// (N x 8k, K-major, 128-byte swizzled) built once a block in shared memory
+// and read by descriptor.  N is the smallest of 32, 192, 256 not below
+// ch; rows of big from ch to N are zero and not stored.  A consumer
+// warp releases a stage once its fragments are in registers, before its
+// products run.  out[b] (ch, lanes) is stored from the accumulators in
+// 8-byte pairs, each warp writing whole 32-byte sectors.
 // ---------------------------------------------------------------------------
 
-namespace {
-constexpr int kFtMT = 12;  // 16-row tiles a block (ch up to 192)
-}  // namespace
-
-__global__ void __launch_bounds__(kThreads)
-probe_feature_kernel(const float* __restrict__ vals, float* __restrict__ out,
-                     int mn, int k, int ch, int lanes, int mgroups,
-                     int ts_rows) {
-  extern __shared__ __align__(32) float smem[];
-  const int kw = 8 * k, tld = kw + 4;
-  float* Ts = smem;                     // (ts_rows, tld): big's rows
-  float* Vs = Ts + (size_t)ts_rows * tld;  // (kw, kNLd): one chunk of vals
-  float* scratch = Vs + (size_t)kw * kNLd;
+template <int N>
+__global__ void __launch_bounds__(kWgThreads, 1)
+probe_feature_tf32_kernel(const float* __restrict__ vals,
+                          float* __restrict__ out, int nb, int mn, int k,
+                          int ch, int lanes, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  const int kw = 8 * k;          // rows of a chunk: the product's K
+  const int kblocks = kw / 32;   // 32-column swizzled blocks of big^T
+  uint8_t* tab = aligned_smem(smem_raw);  // big^T: kblocks x (N x 128 B)
+  float* ring = reinterpret_cast<float*>(tab + (size_t)kblocks * N * 128);
+  const size_t stage_floats = (size_t)kw * kFtLd;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * stage_floats);
+  uint64_t* empty = full + stages;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.x / mgroups;
-  const int r0 = (blockIdx.x % mgroups) * kFtMT * 16;
-  const int rows = min(kFtMT * 16, ch - r0);
-  for (int e = tid; e < ts_rows * kw; e += kThreads) {
-    const int rr = e / kw, q = e % kw;
-    Ts[rr * tld + q] = (rr < rows && r0 + rr == q % k) ? 1.0f : 0.0f;
+  const int chunks = mn / 8;
+
+  for (int e = tid; e < kblocks * N * 32; e += kWgThreads) {
+    const int blk = e / (N * 32), c = (e / 32) % N, col = e % 32;
+    const int qq = 32 * blk + col;
+    *reinterpret_cast<float*>(tab + (size_t)blk * N * 128 +
+                              gk::sw128_offset(c, col)) =
+        (c < ch && c == qq % k) ? 1.0f : 0.0f;
   }
-  FragC acc[kFtMT];
-#pragma unroll
-  for (int t = 0; t < kFtMT; ++t) wmma::fill_fragment(acc[t], 0.0f);
-  const float4* vb = reinterpret_cast<const float4*>(
-      vals + (size_t)b * mn * k * lanes);
-  const int l4 = lanes / 4;
-  for (int c = 0; c < mn / 8; ++c) {
-    __syncthreads();  // the last chunk's reads of Vs are done
-    for (int e = tid; e < kw * l4; e += kThreads) {
-      const float4 v = __ldg(vb + (size_t)c * kw * l4 + e);
-      *reinterpret_cast<float4*>(Vs + (e / l4) * kNLd + 4 * (e % l4)) = v;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      gk::mbar_init(&full[s], 1);
+      gk::mbar_init(&empty[s], 2 * 4);
     }
-    __syncthreads();
-    if (warp * 16 < lanes) {
-      for (int kk = 0; kk < kw; kk += 8) {
-        FragB bf;
-        load_tf32(bf, Vs + kk * kNLd + warp * 16, kNLd);
-#pragma unroll
-        for (int t = 0; t < kFtMT; ++t) {
-          if (t * 16 < rows) {
-            FragA af;
-            load_tf32(af, Ts + t * 16 * tld + kk, tld);
-            wmma::mma_sync(acc[t], af, bf, acc[t]);
-          }
+    gk::mbar_init_fence();
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  if (warp == 8) {  // producer: one bulk copy a row, spread over the warp
+    const uint32_t row_bytes = (uint32_t)lanes * 4;
+    int s = 0;
+    uint32_t ph = 0;
+    for (int b = blockIdx.x; b < nb; b += gridDim.x)
+      for (int c = 0; c < chunks; ++c) {
+        if (lane == 0) {
+          gk::mbar_wait(&empty[s], ph ^ 1);
+          gk::mbar_expect_tx(&full[s], row_bytes * kw);
         }
+        __syncwarp();
+        const float* src =
+            vals + ((size_t)b * mn * k + (size_t)c * kw) * lanes;
+        float* dst = ring + s * stage_floats;
+        for (int r = lane; r < kw; r += 32)
+          gk::bulk_load(dst + (size_t)r * kFtLd, src + (size_t)r * lanes,
+                        row_bytes, &full[s]);
+        if (++s == stages) { s = 0; ph ^= 1; }
+      }
+    return;
+  }
+
+  // consumers: warpgroup wg takes lanes 64 wg .. 64 wg + 63
+  const int g = lane >> 2, q = lane & 3;
+  const int l0 = (warp >> 2) * 64 + (warp & 3) * 16 + 2 * g;
+  const bool live = l0 < lanes;
+  const uint64_t db = gk::sw128_desc(gk::smem_u32(tab));
+  gk::Acc<N> acc;
+  int s = 0;
+  uint32_t ph = 0;
+  for (int b = blockIdx.x; b < nb; b += gridDim.x) {
+    for (int c = 0; c < chunks; ++c) {
+      gk::mbar_wait(&full[s], ph);
+      const float* S = ring + s * stage_floats + l0;
+      // A fragments of kFtSteps k8 steps at a time (two at N 256, where
+      // the 128 accumulators leave no room for four): rows 8i + q and
+      // 8i + q + 4 of the chunk, lanes l0 and l0 + 1
+      constexpr int kFtSteps = N > 192 ? 2 : 4;
+      for (int i0 = 0; i0 < k; i0 += kFtSteps) {
+        uint32_t a[kFtSteps][4];
+#pragma unroll
+        for (int i = 0; i < kFtSteps; ++i) {
+          const int r = 8 * (i0 + i) + q;
+          float2 lo = make_float2(0.0f, 0.0f), hi = lo;
+          if (live) {
+            lo = *reinterpret_cast<const float2*>(S + (size_t)r * kFtLd);
+            hi = *reinterpret_cast<const float2*>(S + (size_t)(r + 4) * kFtLd);
+          }
+          a[i][0] = __float_as_uint(lo.x);
+          a[i][1] = __float_as_uint(lo.y);
+          a[i][2] = __float_as_uint(hi.x);
+          a[i][3] = __float_as_uint(hi.y);
+        }
+        if (i0 + kFtSteps >= k) {  // the stage is in registers: release it
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          __syncwarp();
+          if (lane == 0) gk::mbar_arrive(&empty[s]);
+        }
+        gk::acc_fence(acc);
+        gk::wgmma_fence();
+#pragma unroll
+        for (int i = 0; i < kFtSteps; ++i) {
+          // k8 step i0 + i: column block (i0 + i) / 4 of big^T, step
+          // (i0 + i) % 4 in it
+          const int st = i0 + i;
+          gk::wgmma_rs(acc, a[i],
+                       db + (uint64_t)(((st >> 2) * N * 128) >> 4) +
+                           2 * (st & 3),
+                       (c > 0 || st > 0) ? 1 : 0);
+        }
+        gk::wgmma_commit();
+        gk::wgmma_wait<0>();
+        gk::acc_fence(acc);
+      }
+      if (++s == stages) { s = 0; ph ^= 1; }
+    }
+    if (live) {
+      float* ob = out + (size_t)b * ch * lanes + l0;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int c = 8 * j + 2 * q;
+        if (c < ch)
+          *reinterpret_cast<float2*>(ob + (size_t)c * lanes) =
+              make_float2(acc.d[4 * j], acc.d[4 * j + 2]);
+        if (c + 1 < ch)
+          *reinterpret_cast<float2*>(ob + (size_t)(c + 1) * lanes) =
+              make_float2(acc.d[4 * j + 1], acc.d[4 * j + 3]);
       }
     }
   }
-  if (warp * 16 < lanes) {
-    float* ob = out + ((size_t)b * ch + r0) * lanes + warp * 16;
-#pragma unroll
-    for (int t = 0; t < kFtMT; ++t)
-      if (t * 16 < rows)
-        store_tile(acc[t], scratch + warp * 256, ob + (size_t)t * 16 * lanes,
-                   lanes, rows - t * 16, lane);
-  }
 }
 
+namespace {
+const void* wgmma_kernel(int which, int n_mma, bool split) {
+#define GK_OH(NN)                                                    \
+  if (n_mma == NN)                                                   \
+    return split ? (const void*)probe_onehot_tf32_kernel<NN, true>   \
+                 : (const void*)probe_onehot_tf32_kernel<NN, false>;
+#define GK_FT(NN) \
+  if (n_mma == NN) return (const void*)probe_feature_tf32_kernel<NN>;
+  if (which == 0) {
+    GK_ONEHOT_N(GK_OH)
+  } else if (!split) {
+    GK_FEATURE_N(GK_FT)
+  }
+#undef GK_OH
+#undef GK_FT
+  return nullptr;
+}
+}  // namespace
+
+// The plan (n_mma, stages, blocks) comes from the wrapper's feature_plan.
 extern "C" int probe_feature_launch(const float* vals, float* out, int nb,
                                     int mn, int k, int ch, int lanes,
+                                    int n_mma, int stages, int blocks,
                                     void* stream) {
-  if (lanes % 16 || lanes > kMaxN || mn % 8) return (int)cudaErrorInvalidValue;
-  const int mgroups = (ch + kFtMT * 16 - 1) / (kFtMT * 16);
-  const int ts_rows = std::min(kFtMT * 16, (ch + 15) / 16 * 16);
-  const size_t smem = sizeof(float) * ((size_t)ts_rows * (8 * k + 4)
-                                       + (size_t)8 * k * kNLd + kWarps * 256);
+  if (lanes % 16 || lanes > 128 || mn % 8 || k % 4 || ch < 1 || ch > n_mma ||
+      stages < 2 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  void* args[] = {&vals, &out, &nb, &mn, &k, &ch, &lanes, &stages};
+  return launch_wg(wgmma_kernel(1, n_mma, false),
+                   (int)feature_smem(n_mma, k, stages), blocks,
+                   (cudaStream_t)stream, args);
+}
+
+// A TF32 kernel's dynamic shared memory at (which 0: one-hot, 1: feature,
+// N, split, k, stages) and its resident blocks an SM there
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int probe_wgmma_occupancy(int which, int n_mma, int split, int k,
+                                     int stages, int* smem, int* blocks) {
+  const void* kernel = wgmma_kernel(which, n_mma, split != 0);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  *smem = (int)(which == 0 ? onehot_smem(n_mma, stages)
+                           : feature_smem(n_mma, k, stages));
   cudaError_t err = cudaFuncSetAttribute(
-      probe_feature_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
   if (err != cudaSuccess) return (int)err;
-  probe_feature_kernel<<<(unsigned)nb * mgroups, kThreads, smem,
-                         (cudaStream_t)stream>>>(vals, out, mn, k, ch, lanes,
-                                                 mgroups, ts_rows);
-  return (int)cudaGetLastError();
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, kWgThreads, (size_t)*smem);
 }
 
 // ---------------------------------------------------------------------------

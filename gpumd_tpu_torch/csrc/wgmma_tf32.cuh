@@ -1,0 +1,256 @@
+// Hopper building blocks for the probes' TF32 products (csrc/probes.cu):
+// warpgroup MMA (wgmma) in TF32 with f32 accumulators, shared-memory matrix
+// descriptors for the 128-byte swizzled K-major layout, mbarriers, and the
+// asynchronous copies (TMA tile loads, 1-D bulk copies) that fill a ring of
+// stages.  Inline PTX for sm_90a; nothing here allocates or launches.
+//
+// wgmma.m64nNk8.f32.tf32.tf32 takes both operands K-major: A (64 x 8) from
+// shared memory through a descriptor (wgmma_ss) or from four registers a
+// thread (wgmma_rs), B (N x 8, K contiguous) from shared memory.  The f32
+// bits are read as TF32 (the low 13 mantissa bits are ignored), as cuBLAS's
+// TF32 mode does.  The accumulator of thread t of the warpgroup (warp w =
+// t / 32, g = (t % 32) / 4, q = t % 4) holds, for each 8-column group j,
+//   d[4j]     = (row 16w + g,     column 8j + 2q)
+//   d[4j + 1] = (row 16w + g,     column 8j + 2q + 1)
+//   d[4j + 2] = (row 16w + g + 8, column 8j + 2q)
+//   d[4j + 3] = (row 16w + g + 8, column 8j + 2q + 1)
+// and a register A fragment a[0..3] = (row 16w + g, k q), (row 16w + g + 8,
+// k q), (row 16w + g, k q + 4), (row 16w + g + 8, k q + 4).
+#pragma once
+
+#include <cstdint>
+
+namespace gk {
+
+template <int N>
+struct Acc {
+  float d[N / 2];
+};
+
+// The 128-byte swizzle of TMA and wgmma: in each 1024-byte atom of 8 rows
+// of 128 bytes, the 16-byte chunk c of row r sits at chunk c ^ r.  Byte
+// offset of element (row, col) of a K-major tile of 32 f32 columns whose
+// base is 1024-byte aligned.
+__host__ __device__ __forceinline__ uint32_t sw128_offset(int row, int col) {
+  return (uint32_t)(row * 128 + ((((col >> 2) ^ row) & 7) << 4) +
+                    ((col & 3) << 2));
+}
+
+// Descriptor of a K-major, 128-byte swizzled operand at shared address
+// `addr` (1024-byte aligned atoms, 8-row groups 1024 bytes apart).  A k8
+// step of TF32 is 32 bytes: add 2 to the descriptor per step.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accumulator reads or writes across a
+// wgmma fence or wait.
+template <int N>
+__device__ __forceinline__ void acc_fence(Acc<N>& acc) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(acc.d[i])::"memory");
+}
+
+// ---- mbarriers --------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait until the phase of parity `parity` has completed.  A wait that
+// fails 2^26 tries (seconds; a healthy ring waits microseconds) traps, so a
+// broken pipeline ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
+  }
+}
+
+// ---- asynchronous copies ----------------------------------------------------
+
+// A 2-D TMA tile load (coordinates innermost first) into shared memory,
+// completing `bytes` on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- wgmma, TF32 ------------------------------------------------------------
+
+#define GK_D8(i)                                                       \
+  "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), \
+      "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+#define GK_D16(i) GK_D8(i), GK_D8((i) + 8)
+#define GK_D32(i) GK_D16(i), GK_D16((i) + 16)
+#define GK_D64(i) GK_D32(i), GK_D32((i) + 32)
+#define GK_D128(i) GK_D64(i), GK_D64((i) + 64)
+
+__device__ __forceinline__ void wgmma_ss(Acc<16>& acc, uint64_t da,
+    uint64_t db, int scale_d) {
+  float* d = acc.d;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1;\n}\n"
+      : GK_D8(0)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(Acc<64>& acc, uint64_t da,
+    uint64_t db, int scale_d) {
+  float* d = acc.d;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : GK_D32(0)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(Acc<128>& acc, uint64_t da,
+    uint64_t db, int scale_d) {
+  float* d = acc.d;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : GK_D64(0)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(Acc<32>& acc, const uint32_t (&a)[4],
+    uint64_t db, int scale_d) {
+  float* d = acc.d;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : GK_D16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(Acc<192>& acc, const uint32_t (&a)[4],
+    uint64_t db, int scale_d) {
+  float* d = acc.d;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1;\n}\n"
+      : GK_D64(0), GK_D32(64)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(Acc<256>& acc, const uint32_t (&a)[4],
+    uint64_t db, int scale_d) {
+  float* d = acc.d;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : GK_D128(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+
+#undef GK_D8
+#undef GK_D16
+#undef GK_D32
+#undef GK_D64
+#undef GK_D128
+
+}  // namespace gk

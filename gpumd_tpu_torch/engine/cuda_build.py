@@ -59,8 +59,10 @@ _SIGNATURES = {
     "dense_k2_launch": [P] * 8 + [I] * 10 + [F] * 2 + [P],
     "probe_gather_launch": [P] * 3 + [I] * 4 + [P],
     "probe_trans_launch": [P] * 4 + [I] + [P],
-    "probe_onehot_launch": [P] * 2 + [I] * 6 + [P],
-    "probe_feature_launch": [P] * 2 + [I] * 5 + [P],
+    "probe_onehot_ffma_launch": [P] * 2 + [I] * 5 + [P],
+    "probe_onehot_tf32_launch": [P] * 2 + [I] * 7 + [P],
+    "probe_feature_launch": [P] * 2 + [I] * 8 + [P],
+    "probe_wgmma_occupancy": [I] * 5 + [P] * 2,
     "probe_reduce_launch": [P] * 3 + [I] * 6 + [P],
     "probe_bgather_launch": [P] * 3 + [I] * 5 + [P],
     "gk_error_string": [I],

@@ -30,7 +30,9 @@ On the CPU:       ... --device cpu --scale 13872  (plain versions)
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+from dataclasses import dataclass
 
 import torch
 
@@ -68,18 +70,159 @@ def onehot_dot_plain(vals, n, ksplit=1):
     return out
 
 
-def _onehot_cuda(vals, n, ksplit, prec):
-    nb, m, k = vals.shape
-    cuda_build.require(vals, "vals", torch.float32)
+# ---------------------------------------------------------------------------
+# launch plans of the TF32 kernels (csrc/probes.cu): two consumer
+# warpgroups, each issuing wgmma m64nNk8, fed by one producer warp through
+# a ring of stages in shared memory; a persistent block an SM
+# ---------------------------------------------------------------------------
+
+# wgmma N instances of the one-hot dot and of the feature matmul
+# (GK_ONEHOT_N, GK_FEATURE_N in probes.cu); a width takes the smallest not
+# below it
+ONEHOT_N = (16, 64, 128)
+FEATURE_N = (32, 192, 256)
+TILE_M = 128        # output rows (lanes) a unit: two warpgroups of m64
+ONEHOT_KC = 32      # k columns a TMA box: 128 B of f32, the swizzle's width
+ONEHOT_BOXES = 2    # TMA boxes a stage (kOhBoxes in probes.cu)
+FEATURE_LD = 136    # floats a staged row of vals (128 lanes + 8)
+MAX_STAGES = {"onehot": 4, "feature": 6}
+ALIGN = 1024        # the 128-byte swizzle's atom; dynamic smem is padded to it
+# The shared-memory layout below is the one onehot_smem / feature_smem in
+# probes.cu compute at launch; a card test holds the two equal.
+
+
+@dataclass(frozen=True)
+class WgmmaPlan:
+    """How a TF32 probe kernel runs a call: `mma` is the wgmma shape (M, N,
+    K); a unit is a 128-row tile of the (nb m, k) matrix (one-hot) or one
+    b (feature); each of `blocks` blocks walks units blockIdx.x, + blocks,
+    ...; a stage holds `stage_k` k columns (one-hot: in TMA boxes of 32)
+    or chunk rows (feature) of vals, `stage_bytes` bytes, `stages` of them
+    in the ring; `smem` is the block's dynamic shared memory (the
+    launcher computes the same from N, k and stages)."""
+
+    kernel: str
+    mma: tuple
+    split: bool
+    stage_k: int
+    stage_bytes: int
+    stages: int
+    smem: int
+    units: int
+    blocks: int
+
+    @property
+    def entry(self) -> str:
+        """The kernel instance's (mangled) name, as ptxas reports it."""
+        n = self.mma[1]
+        if self.kernel == "onehot":
+            return f"probe_onehot_tf32_kernelILi{n}ELb{int(self.split)}E"
+        return f"probe_feature_tf32_kernelILi{n}E"
+
+
+def _mma_n(width, choices):
+    return next(n for n in choices if n >= width)
+
+
+def _ring(kind, fixed, stage_bytes):
+    """Stages that fit beside `fixed` bytes (with two 8-byte mbarriers a
+    stage), at most MAX_STAGES[kind]; raises below two."""
+    stages = min(MAX_STAGES[kind],
+                 (_SMEM_LIMIT - ALIGN - fixed) // (stage_bytes + 16))
+    if stages < 2:
+        raise ValueError(f"{kind}: a stage of {stage_bytes} B beside "
+                         f"{fixed} B leaves no ring of two stages in "
+                         f"{_SMEM_LIMIT} B of shared memory")
+    return stages, ALIGN + fixed + stages * (stage_bytes + 16)
+
+
+def _check_onehot(n, k, ksplit):
+    """What both one-hot kernels take."""
     if n % 16 or not 0 < n <= 128 or ksplit < 1 or k % ksplit:
         raise ValueError(f"onehot_dot: n {n} must be a multiple of 16 up to "
                          f"128, and k {k} a multiple of ksplit {ksplit}")
+
+
+def onehot_plan(nb, m, k, n, ksplit=1, sms=132) -> WgmmaPlan:
+    """The TF32 one-hot dot's plan, or ValueError for a shape it does not
+    take: n a multiple of 16 up to 128, k a multiple of ksplit and of 4 (the
+    TMA row stride, 4k bytes, is a multiple of 16), and with ksplit > 1 the
+    part k / ksplit a multiple of the stage's k columns (parts are whole
+    stages)."""
+    _check_onehot(n, k, ksplit)
+    stage_k = ONEHOT_BOXES * ONEHOT_KC
+    if k % 4 or (ksplit > 1 and (k // ksplit) % stage_k):
+        raise ValueError(f"onehot_dot: TF32 needs k {k} a multiple of 4 and "
+                         f"each of the {ksplit} parts a multiple of "
+                         f"{stage_k}")
+    nn = _mma_n(n, ONEHOT_N)
+    stage = TILE_M * stage_k * 4
+    stages, smem = _ring("onehot", nn * ONEHOT_KC * 4, stage)
+    units = -(-nb * m // TILE_M)
+    return WgmmaPlan("onehot", (64, nn, 8), ksplit > 1, stage_k, stage,
+                     stages, smem, units, max(1, min(units, sms)))
+
+
+def feature_plan(nb, mn, k, ch, lanes=A, sms=132) -> WgmmaPlan:
+    """The feature matmul's plan, or ValueError: mn whole 8-slot chunks,
+    lanes a multiple of 16 up to 128, k a multiple of 4 (big^T is laid in
+    32-column blocks) and ch at most 256 (one wgmma N)."""
+    if mn % 8 or lanes % 16 or not 0 < lanes <= 128:
+        raise ValueError(f"feature_matmul: rows {mn * k} must be whole "
+                         f"8-slot chunks of {8 * k}, lanes {lanes} a "
+                         f"multiple of 16 up to 128")
+    if k % 4 or not 0 < ch <= FEATURE_N[-1]:
+        raise ValueError(f"feature_matmul: k {k} must be a multiple of 4 "
+                         f"and ch {ch} at most {FEATURE_N[-1]}")
+    nn = _mma_n(ch, FEATURE_N)
+    stage = 8 * k * FEATURE_LD * 4
+    stages, smem = _ring("feature", 8 * k * nn * 4, stage)
+    return WgmmaPlan("feature", (64, nn, 8), False, 8 * k, stage, stages,
+                     smem, nb, max(1, min(nb, sms)))
+
+
+def wgmma_occupancy(plan: WgmmaPlan) -> tuple:
+    """(shared memory, resident blocks an SM) of the plan's kernel
+    instance, the shared memory as its launcher sizes it and the blocks
+    from cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    feature = plan.kernel == "feature"
+    rc = cuda_build.library().probe_wgmma_occupancy(
+        int(feature), plan.mma[1], int(plan.split),
+        plan.stage_k // 8 if feature else 0, plan.stages,
+        ctypes.addressof(smem), ctypes.addressof(blocks))
+    cuda_build.check(rc, "probe_wgmma_occupancy")
+    return smem.value, blocks.value
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _aligned(t, name):
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the TF32 kernels' copies need a 16-byte "
+                         f"aligned base")
+
+
+def _onehot_cuda(vals, n, ksplit, prec):
+    nb, m, k = vals.shape
+    cuda_build.require(vals, "vals", torch.float32)
+    _check_onehot(n, k, ksplit)
     out = torch.empty((nb, m, n), dtype=vals.dtype, device=vals.device)
     lib = cuda_build.library()
-    rc = lib.probe_onehot_launch(cuda_build.ptr(vals), cuda_build.ptr(out),
-                                 nb, m, k, n, ksplit,
-                                 int(prec == "default"), cuda_build.stream())
-    cuda_build.check(rc, "probe_onehot_launch")
+    if prec == "default":
+        plan = onehot_plan(nb, m, k, n, ksplit, _sms(vals.device))
+        _aligned(vals, "vals")
+        rc = lib.probe_onehot_tf32_launch(
+            cuda_build.ptr(vals), cuda_build.ptr(out), nb * m, k, n, ksplit,
+            plan.mma[1], plan.stages, plan.blocks, cuda_build.stream())
+        cuda_build.check(rc, "probe_onehot_tf32_launch")
+    else:
+        rc = lib.probe_onehot_ffma_launch(
+            cuda_build.ptr(vals), cuda_build.ptr(out), nb, m, k, n, ksplit,
+            cuda_build.stream())
+        cuda_build.check(rc, "probe_onehot_ffma_launch")
     cuda_build.launches["probe_onehot_dot"] += 1
     return out
 
@@ -115,14 +258,17 @@ def feature_matmul_plain(vals, ch, k=8):
 def _feature_cuda(vals, ch, k):
     nb, mk, a = vals.shape
     cuda_build.require(vals, "vals", torch.float32)
-    if mk % (8 * k) or a % 16 or a > 128:
+    if mk % k:
         raise ValueError(f"feature_matmul: rows {mk} must be whole 8-slot "
-                         f"chunks of {8 * k}, lanes {a} a multiple of 16 "
-                         f"up to 128")
+                         f"chunks of {8 * k}")
+    plan = feature_plan(nb, mk // k, k, ch, a, _sms(vals.device))
+    _aligned(vals, "vals")
     out = torch.empty((nb, ch, a), dtype=vals.dtype, device=vals.device)
     lib = cuda_build.library()
     rc = lib.probe_feature_launch(cuda_build.ptr(vals), cuda_build.ptr(out),
-                                  nb, mk // k, k, ch, a, cuda_build.stream())
+                                  nb, mk // k, k, ch, a, plan.mma[1],
+                                  plan.stages, plan.blocks,
+                                  cuda_build.stream())
     cuda_build.check(rc, "probe_feature_launch")
     cuda_build.launches["probe_feature_matmul"] += 1
     return out

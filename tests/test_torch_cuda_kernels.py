@@ -15,8 +15,10 @@ kernel on the 512-atom CPU-test plan, with two types (SiC) and at 32k
 atoms, and the four dense-window kernels (K1b, K2b, round-1 K1 and K2) on
 random solids with close pairs inside the ZBL switch, empty slots and an
 open axis; and the six probe kernels of csrc/probes.cu (the one-hot dot
-at m 72/88/108 and ksplit 4 in TF32 and f32, the feature matmul at ch 24
-and 168, both pair-reduce orders, the blocked gather at nblk 11 and 18 with
+in TF32 and f32 on tiles across b boundaries, part-full tiles, n 16 to
+128, k 100 and ksplit 4, the feature matmul at ch 24, 168 and 200, nb 1
+to 300, equal bits from two calls, the shapes the TF32 kernels refuse;
+both pair-reduce orders, the blocked gather at nblk 11 and 18 with
 indices out of range, the gather bit for bit, the transcendental gate).
 Tolerances are relative to max|plain| in f32: 1e-5 for the
 K1s and the fold (summation order), 1e-4 for the K2s, the scatter and the
@@ -513,28 +515,56 @@ def _gen(dev, seed):
     return torch.Generator(dev).manual_seed(seed)
 
 
+# The TF32 one-hot dot tiles the (nb m, k) matrix in 128 rows across b
+# boundaries (nb 3 x m 88 and 72, 108, 96: tiles that straddle b; nb 1 x m
+# 20: one part-full tile), at wgmma N 16, 64 and 128 (n 16, 48, 64, 96,
+# 128), each with and without a k split, with k past the last whole stage
+# (k 100) and ksplit 4 on k 3072 and 4096; at nb 300 the 132 persistent
+# blocks walk two or three tiles each.  The launcher's shared memory is
+# the plan's.  The f32 path runs the same cases.
 @pytest.mark.parametrize("prec", PM.PRECISIONS)
-@pytest.mark.parametrize("m,k,n,ksplit", [
-    (144, 4096, 128, 1), (144, 4096, 128, 4), (72, 4096, 128, 1),
-    (88, 3072, 128, 1), (108, 4096, 128, 1), (96, 3072, 128, 4),
-    (20, 100, 64, 1)])
-def test_probe_onehot_matches_plain(dev, prec, m, k, n, ksplit):
-    vals = torch.randn((3, m, k), device=dev, generator=_gen(dev, m + k))
+@pytest.mark.parametrize("nb,m,k,n,ksplit", [
+    (3, 144, 4096, 128, 1), (3, 144, 4096, 128, 4), (3, 72, 4096, 128, 1),
+    (3, 88, 3072, 128, 1), (3, 108, 4096, 128, 1), (3, 96, 3072, 128, 4),
+    (1, 20, 100, 64, 1), (1, 20, 100, 16, 1), (3, 88, 3072, 16, 1),
+    (7, 144, 3072, 128, 4), (7, 88, 256, 48, 1), (2, 40, 512, 96, 2),
+    (300, 144, 256, 128, 1), (300, 96, 512, 128, 4), (3, 88, 3072, 16, 4),
+    (1, 20, 256, 64, 2)])
+def test_probe_onehot_matches_plain(dev, prec, nb, m, k, n, ksplit):
+    vals = torch.randn((nb, m, k), device=dev, generator=_gen(dev, m + k))
+    if prec == "default":
+        plan = PM.onehot_plan(nb, m, k, n, ksplit)
+        smem, blocks = PM.wgmma_occupancy(plan)
+        assert smem == plan.smem and blocks >= 1
     before = cuda_build.launches["probe_onehot_dot"]
     got = PM.onehot_dot(vals, n, ksplit, prec)
     assert cuda_build.launches["probe_onehot_dot"] == before + 1
     ref = PM.onehot_dot_plain(vals, n, ksplit)
     assert got.shape == ref.shape and torch.isfinite(got).all()
     assert _rel(got, ref) <= (2e-3 if prec == "default" else 1e-5)
+    assert torch.equal(PM.onehot_dot(vals, n, ksplit, prec), got)
+    assert cuda_build.launches["probe_onehot_dot"] == before + 2
 
 
-@pytest.mark.parametrize("ch", [24, 168, 200])
-def test_probe_feature_matches_plain(dev, ch):
-    vals = torch.randn((5, 32 * 8, 128), device=dev, generator=_gen(dev, ch))
+# The feature matmul at wgmma N 32, 192 and 256 (ch 24, 168, 200), at nb 1
+# and 7 (a block a b) and nb 300, where each of the 132 persistent blocks
+# walks two or three b through the ring.  The launcher's shared memory is
+# the plan's.
+@pytest.mark.parametrize("nb,ch", [(5, 24), (5, 168), (5, 200), (1, 168),
+                                   (7, 200), (7, 24), (300, 168)])
+def test_probe_feature_matches_plain(dev, nb, ch):
+    vals = torch.randn((nb, 32 * 8, 128), device=dev,
+                       generator=_gen(dev, ch + nb))
+    plan = PM.feature_plan(nb, 32, 8, ch)
+    smem, blocks = PM.wgmma_occupancy(plan)
+    assert smem == plan.smem and blocks >= 1
+    before = cuda_build.launches["probe_feature_matmul"]
     got = PM.feature_matmul(vals, ch)
+    assert cuda_build.launches["probe_feature_matmul"] == before + 1
     ref = PM.feature_matmul_plain(vals, ch)
     assert got.shape == ref.shape and torch.isfinite(got).all()
     assert _rel(got, ref) <= 2e-3
+    assert torch.equal(PM.feature_matmul(vals, ch), got)
 
 
 @pytest.mark.parametrize("order", PM.ORDERS)
@@ -587,3 +617,25 @@ def test_probe_wrappers_reject_wrong_inputs(dev):
     with pytest.raises(ValueError, match="na 7"):
         PM.pair_reduce(torch.zeros((1, 48, 128), device=dev),
                        torch.zeros((1, 96, 128), device=dev), na=6, nlm=12)
+    # what the TF32 kernels cannot take: a TMA row stride that is no
+    # multiple of 16 bytes, k-split parts that are not whole stages, a
+    # table wider than one wgmma N, an unaligned base; the f32 path takes
+    # the first two
+    before = dict(cuda_build.launches)
+    odd = torch.randn((2, 16, 98), device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        PM.onehot_dot(odd, 128)
+    with pytest.raises(ValueError, match="parts"):
+        PM.onehot_dot(torch.zeros((1, 16, 256), device=dev), 128, 8)
+    with pytest.raises(ValueError, match="at most 256"):
+        PM.feature_matmul(torch.zeros((1, 256, 128), device=dev), 300)
+    flat = torch.zeros(16 * 64 + 1, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        PM.onehot_dot(flat[1:].view(1, 16, 64), 128)
+    assert cuda_build.launches == before
+    assert _rel(PM.onehot_dot(odd, 128, 1, "highest"),
+                PM.onehot_dot_plain(odd, 128)) <= 1e-5
+    assert _rel(PM.onehot_dot(odd[:, :, :96].contiguous(), 128, 3,
+                              "highest"),
+                PM.onehot_dot_plain(odd[:, :, :96].contiguous(), 128,
+                                    3)) <= 1e-5

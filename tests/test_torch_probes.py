@@ -29,6 +29,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from gpumd_tpu_torch.engine import cuda_build
+from gpumd_tpu_torch.probes import ab_onehot_f32 as AB
 from gpumd_tpu_torch.probes import bench_gather as BG
 from gpumd_tpu_torch.probes import bench_mxu_probes as MX
 from gpumd_tpu_torch.probes import probe_transcendentals as PT
@@ -195,6 +196,92 @@ def test_feature_plain_matches_pallas(scripts):
 
 
 # ---------------------------------------------------------------------------
+# launch plans of the TF32 kernels: every shape of the probes' path and of
+# the card tests fits the card (232,448 B of shared memory a block, legal
+# wgmma shapes, the TMA stride rule) or is refused by the wrapper's rule
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232448
+NB = MX.NB_FULL // 8
+ONEHOT_SHAPES = sorted(
+    {(NB, p["m"], p["k"], p["n"], p.get("ksplit", 1))
+     for kind, p in MX.CASES.values() if kind == "onehot"}
+    | {(3, 144, 4096, 128, 1), (3, 144, 4096, 128, 4), (3, 72, 4096, 128, 1),
+       (3, 88, 3072, 128, 1), (3, 108, 4096, 128, 1), (3, 96, 3072, 128, 4),
+       (1, 20, 100, 64, 1), (1, 20, 100, 16, 1), (3, 88, 3072, 16, 1),
+       (7, 144, 3072, 128, 4), (7, 88, 256, 48, 1), (2, 40, 512, 96, 2),
+       (300, 144, 256, 128, 1), (300, 96, 512, 128, 4), (3, 88, 3072, 16, 4),
+       (1, 20, 256, 64, 2)}
+    # refused: TMA stride, parts not whole stages, n, k % ksplit
+    | {(2, 16, 98, 128, 1), (1, 16, 256, 128, 8), (1, 16, 64, 100, 1),
+       (1, 16, 100, 128, 3)})
+FEATURE_SHAPES = sorted(
+    {(NB, p["mn"], p["k"], p["ch"], MX.A)
+     for kind, p in MX.CASES.values() if kind == "feature"}
+    | {(5, 32, 8, 24, 128), (5, 32, 8, 168, 128), (5, 32, 8, 200, 128),
+       (1, 32, 8, 168, 128), (7, 32, 8, 200, 128), (300, 32, 8, 168, 128),
+       (2, 8, 8, 64, 64)}
+    # refused: ch past one wgmma N, k not whole 32-column blocks, lanes,
+    # part chunks, a chunk too large for a ring of two stages
+    | {(1, 32, 8, 300, 128), (1, 32, 2, 24, 128), (1, 32, 8, 24, 136),
+       (1, 12, 8, 24, 128), (1, 8, 64, 24, 128)})
+
+
+def _legal_mma(plan, width):
+    m, n, k = plan.mma
+    return m == 64 and k == 8 and n % 8 == 0 and width <= n <= 256
+
+
+@pytest.mark.parametrize("nb,m,k,n,ksplit", ONEHOT_SHAPES)
+def test_onehot_plan_fits_the_card_or_is_refused(nb, m, k, n, ksplit):
+    stage_k = MX.ONEHOT_BOXES * MX.ONEHOT_KC
+    takes = (n % 16 == 0 and 0 < n <= 128 and k % ksplit == 0
+             and 4 * k % 16 == 0
+             and (ksplit == 1 or (k // ksplit) % stage_k == 0))
+    if not takes:
+        with pytest.raises(ValueError):
+            MX.onehot_plan(nb, m, k, n, ksplit)
+        return
+    plan = MX.onehot_plan(nb, m, k, n, ksplit)
+    assert _legal_mma(plan, n) and plan.mma[1] in MX.ONEHOT_N
+    assert plan.split == (ksplit > 1)
+    assert plan.stage_bytes == MX.TILE_M * plan.stage_k * 4
+    assert plan.stage_k % MX.ONEHOT_KC == 0
+    assert 2 <= plan.stages <= MX.MAX_STAGES["onehot"]
+    # ring, R^T (N rows of 128 B), two mbarriers a stage, alignment slack
+    need = (plan.stages * (plan.stage_bytes + 16) + plan.mma[1] * 128
+            + MX.ALIGN)
+    assert need <= plan.smem <= SMEM_LIMIT
+    assert plan.units * MX.TILE_M >= nb * m > (plan.units - 1) * MX.TILE_M
+    assert plan.blocks == min(plan.units, 132)
+    assert plan.entry == (f"probe_onehot_tf32_kernelILi{plan.mma[1]}ELb"
+                          f"{int(ksplit > 1)}E")
+
+
+@pytest.mark.parametrize("nb,mn,k,ch,lanes", FEATURE_SHAPES)
+def test_feature_plan_fits_the_card_or_is_refused(nb, mn, k, ch, lanes):
+    stage = 8 * k * MX.FEATURE_LD * 4
+    table = 8 * k * 4 * next((n for n in MX.FEATURE_N if n >= ch), 0)
+    takes = (mn % 8 == 0 and lanes % 16 == 0 and 0 < lanes <= 128
+             and k % 4 == 0 and 0 < ch <= 256
+             and MX.ALIGN + table + 2 * (stage + 16) <= SMEM_LIMIT)
+    if not takes:
+        with pytest.raises(ValueError):
+            MX.feature_plan(nb, mn, k, ch, lanes)
+        return
+    plan = MX.feature_plan(nb, mn, k, ch, lanes)
+    assert _legal_mma(plan, ch) and plan.mma[1] in MX.FEATURE_N
+    assert (plan.stage_k, plan.stage_bytes) == (8 * k, stage)
+    assert 2 <= plan.stages <= MX.MAX_STAGES["feature"]
+    # each staged row is one bulk copy: 16-byte sizes and offsets
+    assert lanes * 4 % 16 == 0 and MX.FEATURE_LD * 4 % 16 == 0
+    need = plan.stages * (stage + 16) + table + MX.ALIGN
+    assert need <= plan.smem <= SMEM_LIMIT
+    assert (plan.units, plan.blocks) == (nb, min(nb, 132))
+    assert plan.entry == f"probe_feature_tf32_kernelILi{plan.mma[1]}E"
+
+
+# ---------------------------------------------------------------------------
 # pair reduce and blocked gather
 # ---------------------------------------------------------------------------
 
@@ -307,8 +394,10 @@ def test_main_prints_the_script_keys_on_cpu(capsys, module, argv, keys):
     lambda: MX.main(["--scale", str(MX.NB_FULL)]),
     lambda: PT.measure(), lambda: BG.make_inputs(64, 16, 1),
     lambda: MX.case_inputs("pair_reduce_spill", 1),
+    lambda: AB.main(["a.so:f", "b.so:g"]),
 ], ids=["transcendentals-main", "gather-main", "mxu-main",
-        "transcendentals-measure", "gather-inputs", "mxu-inputs"])
+        "transcendentals-measure", "gather-inputs", "mxu-inputs",
+        "ab-onehot-f32-main"])
 def test_entry_points_raise_without_a_card(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
