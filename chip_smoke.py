@@ -91,17 +91,22 @@ Last, the probes' path: the port's counterparts of the three probe scripts
              at the shapes the probes' path gives it (the gather at G 256,
              bit for bit; bench_mxu_probes at 1,734 blocks: every one-hot
              case, ksplit 1 and 4, TF32 and f32; the feature matmul at ch
-             24 and 168; both pair-reduce orders; the blocked gather at
+             24 and 168; both pair-reduce orders, and the two equal bit
+             for bit; the blocked gather at
              nblk 18 and 11 with indices out of range); then, counts from
              0, the three entry points'
              main() at the scripts' geometry (the probes' path, which
              prints the scripts' keys); the transcendental gate (every
              kernel op within 1e-6 of f64); every probe timed beside its
              plain version, library call and bound (the one-hot dot's f32
-             path also beside torch.matmul in full f32); for the two TF32
+             path also beside torch.matmul in full f32 and its own f32
+             bound); for the two TF32
              kernels (wgmma fed by a ring of asynchronous copies) a
              [design] line: ptxas's registers, stack and spill, shared
-             memory, blocks an SM, the ring and its bytes in flight, TB/s
+             memory, blocks an SM, the ring and its bytes in flight, TB/s;
+             for the pair reduce's tiled order (a shared-memory slab a
+             lane tile) one too: ptxas, shared memory, blocks an SM, lane
+             tile, slab row stride, TB/s
 
 Usage: python3 chip_smoke.py [--phases build,kernels,md,time,
        dense-kernels,dense-md,dense-time,tersoff-kernels,tersoff-md,
@@ -1393,10 +1398,18 @@ def _probe_checks(results, failures):
     del vals
     g, y = randn(nb, 4 * 8 * 7, 128), randn(nb, 4 * 8 * 24, 128)
     ref = MX.pair_reduce_plain(g, y)
+    got = {}
     for order in MX.ORDERS:
+        got[order] = MX.pair_reduce(g, y, order=order)
         _compare(f"probe_pair_reduce[nb {nb}, {order}]", "probe_pair_reduce",
-                 MX.pair_reduce(g, y, order=order), ref, results, failures)
-    del g, y, ref
+                 got[order], ref, results, failures)
+    # both orders sum a channel in chunk, then row order with fmaf
+    same = torch.equal(got["tiled"], got["spill"])
+    print(f"[check] probe_pair_reduce[nb {nb}]: tiled "
+          f"{'equals' if same else 'DIFFERS FROM'} spill bit for bit")
+    if not same:
+        failures.append("probe_pair_reduce tiled != spill")
+    del g, y, ref, got
     for nblk, chunks in ((18, 14), (11, 14), (11, 12)):
         width = 128 * nblk
         src = randn(nb, 17, width)
@@ -1466,6 +1479,38 @@ def _wgmma_design(results, name, plan, nbytes, ms):
     results.setdefault(name, {}).update(tb_per_s=rate)
 
 
+def _reduce_design(nb, chunks, lanes, rate):
+    """What the pair reduce's design acts on: ptxas's registers, stack and
+    spill of both orders' kernels; for the tiled order its shared memory a
+    block, resident blocks an SM (the occupancy query), lane tile, slab
+    row stride and the rate reached.  Fails on local memory in the tiled
+    kernel or a launch other than the plan's."""
+    from gpumd_tpu_torch.probes import bench_mxu_probes as MX
+
+    px_s = _ptxas_entry("probe_reduce_spill_kernel")
+    print(f"[design] probe_pair_reduce spill order "
+          f"probe_reduce_spill_kernel: {px_s['regs']} registers, "
+          f"{px_s['stack']} B stack frame, {px_s['spill_stores']} B spill "
+          f"stores (ptxas)")
+    px = _ptxas_entry("probe_reduce_tiled_kernel")
+    plan = MX.reduce_plan(nb, chunks, lanes, _sms())
+    occ = MX.reduce_occupancy(nb, chunks, lanes)
+    print(f"[design] probe_pair_reduce tiled order "
+          f"probe_reduce_tiled_kernel: {px['regs']} registers, "
+          f"{px['stack']} B stack frame, {px['spill_stores']} B spill "
+          f"stores, {px['spill_loads']} B spill loads; lane tile "
+          f"{occ['tile']}, {occ['threads']} threads (m, lane); slab "
+          f"{occ['smem']} B shared memory a block, 8-row groups "
+          f"{plan.group} floats apart (16 floats of padding a group); "
+          f"{occ['blocks_per_sm']} blocks an SM; {occ['units']} blocks, "
+          f"{plan.waves:.1f} waves; {rate:.3f} TB/s reached")
+    want = dict(smem=plan.smem, threads=plan.threads, tile=plan.tile,
+                units=plan.units, blocks_per_sm=plan.blocks_per_sm)
+    if px["stack"] or px["spill_stores"] or occ != want:
+        raise RuntimeError(f"probe_reduce_tiled_kernel: local memory, or "
+                           f"launch {occ} against the plan's {want}")
+
+
 def _probe_time(results):
     """Every probe at its script's geometry (bench_mxu_probes at scale 8:
     1,734 blocks): kernel, plain version and library call with CUDA
@@ -1510,10 +1555,16 @@ def _probe_time(results):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     nbytes = _nbytes(vals) + 4 * nb * m * 128
+    # the f32 path's own bound: the same bytes, its FLOP at the f32 peak
+    b_hi, by_hi = bound(nbytes, 2 * nb * m * kk * 128)
     _probe_row(results, "probe_onehot_dot",
                f"probe_onehot_dot (nb {nb}, {m}x{kk}x128, TF32)", k, p, lib,
                nbytes, 2 * nb * m * kk * 128, TF32_FLOP_PER_S,
-               ms_ksplit4=k4, ms_highest=k_hi, library_ms_highest=lib_hi)
+               ms_ksplit4=k4, ms_highest=k_hi, library_ms_highest=lib_hi,
+               bound_ms_highest=b_hi)
+    print(f"[time] probe_onehot_dot f32 path: {k_hi:.4f} ms, f32 "
+          f"torch.matmul {lib_hi:.4f} ms, bound {b_hi:.4f} ms by {by_hi} "
+          f"({100 * b_hi / k_hi:.1f}% of bound)")
     _wgmma_design(results, "probe_onehot_dot",
                   MX.onehot_plan(nb, m, kk, 128, sms=_sms()), nbytes, k)
     px = _ptxas_entry("probe_onehot_ffma_kernel")
@@ -1549,17 +1600,18 @@ def _probe_time(results):
     g5 = gv.view(nb, 4, 7, 8, 128)
     y5 = yv.view(nb, 4, 24, 8, 128)
     lib = _time_ms(lambda: torch.einsum("bcnra,bcmra->bnma", g5, y5), 10)
-    px_s = _ptxas_entry("probe_reduce_spill_kernel")
-    px_t = _ptxas_entry("probe_reduce_tiled_kernel")
-    regs_s, spill_s = px_s["regs"], px_s["spill_stores"]
-    regs_t, spill_t = px_t["regs"], px_t["spill_stores"]
+    nbytes = _nbytes(gv, yv) + 4 * nb * 168 * 128
+    rate = nbytes / k_tiled / 1e9
     _probe_row(results, "probe_pair_reduce",
                f"probe_pair_reduce (nb {nb}, 7x24 channels, 4 chunks; ms is "
-               f"the spill order)", k, p, lib,
-               _nbytes(gv, yv) + 4 * nb * 168 * 128,
+               f"the spill order)", k, p, lib, nbytes,
                2 * nb * 168 * 4 * 8 * 128, ms_tiled=k_tiled,
-               ptxas_spill=f"{regs_s} registers, {spill_s} B spill stores",
-               ptxas_tiled=f"{regs_t} registers, {spill_t} B spill stores")
+               tb_per_s_tiled=rate)
+    b_ms = results["probe_pair_reduce"]["bound_ms"]
+    print(f"[time] probe_pair_reduce tiled order: {k_tiled:.4f} ms, "
+          f"{100 * b_ms / k_tiled:.1f}% of bound, einsum {lib:.4f} ms "
+          f"({lib / k_tiled:.2f}x)")
+    _reduce_design(nb, 4, 128, rate)
     del gv, yv
 
     src, bidx = MX.case_inputs("bgather_17ch_nblk18", nb, dev)

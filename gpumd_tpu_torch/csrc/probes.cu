@@ -633,82 +633,130 @@ extern "C" int probe_wgmma_occupancy(int which, int n_mma, int split, int k,
 // pair reduce: out[b, n nlm + m, a] =
 //   sum over c < chunks, r < 8 of g[b, 8 (c na + n) + r, a] * y[b, 8 (c nlm + m) + r, a]
 //
-// Bound: bytes (g, y read once, out written once; 2 FLOP per 8 bytes).  A
-// thread per lane a, a block per b, so every load and store coalesces
-// across lanes.  Two loop orders, as the TPU probe has:
-//   spill  chunk-outer: all na x nlm = 168 accumulators stay live across
-//          the chunks (on the TPU they spilled to VMEM; here they are
-//          registers while ptxas can hold them: see its -v report for
-//          probe_reduce_spill_kernel);
-//   tiled  channel-outer: one accumulator, g and y re-read per channel
-//          (from L1/L2: each (n, m) pass reads 8 chunks x 2 rows).
+// Bound: bytes (g, y read once, out written once; 2 FLOP per 8 bytes).  Two
+// loop orders, as the TPU probe has.  Both sum a channel in c, then r order
+// with fmaf, so they give equal bits.
+//   spill  chunk-outer: a thread per lane a, a block per b, so every load
+//          and store coalesces across lanes; all na x nlm = 168
+//          accumulators stay live across the chunks (on the TPU they
+//          spilled to VMEM; here they are registers while ptxas can hold
+//          them: see its -v report for probe_reduce_spill_kernel);
+//   tiled  channel-outer: a block takes one (b, tile of kRtL lanes) and
+//          stages the tile's whole g and y slab in shared memory with
+//          16-byte cp.async, so every device byte is read once; then
+//          thread (m, lane a) computes channels (0, m) .. (6, m) one at a
+//          time, one accumulator each, re-reading its g and y rows from
+//          shared memory for every channel, as the TPU kernel re-reads its
+//          tiles from VMEM.  The slab keeps rows in 8-row groups (one
+//          (c, n) of g or (c, m) of y) kRtGS = 9 x 16 floats apart: a warp
+//          holds m and m + 1, whose y rows are one group apart, and the
+//          extra 16 floats put the two in different halves of the 32 banks
+//          (a warp's g reads are one word a lane, broadcast to both).  At 4
+//          chunks a block takes 71,424 B, 3 blocks an SM, so one block's
+//          copy overlaps another's sums.  A part-full last tile (lanes a
+//          multiple of 4) is masked.
 // ---------------------------------------------------------------------------
 
 namespace {
 constexpr int kNA = 7;
 constexpr int kNLM = 24;
+constexpr int kRtL = 16;                 // lanes a tile (tiled order)
+constexpr int kRtGS = 9 * kRtL;          // floats an 8-row group in the slab
+constexpr int kRtThreads = kNLM * kRtL;  // thread (m, lane)
 
-template <bool SPILL>
-__device__ __forceinline__ void reduce_body(const float* __restrict__ g,
-                                            const float* __restrict__ y,
-                                            float* __restrict__ out,
-                                            int chunks) {
+__device__ __forceinline__ void reduce_spill_body(const float* __restrict__ g,
+                                                  const float* __restrict__ y,
+                                                  float* __restrict__ out,
+                                                  int chunks) {
   const int b = blockIdx.x, a = threadIdx.x, lanes = blockDim.x;
   const float* gb = g + (size_t)b * chunks * 8 * kNA * lanes + a;
   const float* yb = y + (size_t)b * chunks * 8 * kNLM * lanes + a;
   float* ob = out + (size_t)b * kNA * kNLM * lanes + a;
-  if (SPILL) {
-    float acc[kNA][kNLM];
+  float acc[kNA][kNLM];
 #pragma unroll
-    for (int n = 0; n < kNA; ++n)
+  for (int n = 0; n < kNA; ++n)
 #pragma unroll
-      for (int m = 0; m < kNLM; ++m) acc[n][m] = 0.0f;
-    for (int c = 0; c < chunks; ++c) {
-      for (int r = 0; r < 8; ++r) {
-        float gv[kNA];
+    for (int m = 0; m < kNLM; ++m) acc[n][m] = 0.0f;
+  for (int c = 0; c < chunks; ++c) {
+    for (int r = 0; r < 8; ++r) {
+      float gv[kNA];
 #pragma unroll
-        for (int n = 0; n < kNA; ++n)
-          gv[n] = __ldg(gb + (size_t)(8 * (c * kNA + n) + r) * lanes);
+      for (int n = 0; n < kNA; ++n)
+        gv[n] = __ldg(gb + (size_t)(8 * (c * kNA + n) + r) * lanes);
 #pragma unroll
-        for (int m = 0; m < kNLM; ++m) {
-          const float yv = __ldg(yb + (size_t)(8 * (c * kNLM + m) + r) * lanes);
-#pragma unroll
-          for (int n = 0; n < kNA; ++n) acc[n][m] = fmaf(gv[n], yv, acc[n][m]);
-        }
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kNA; ++n)
-#pragma unroll
-      for (int m = 0; m < kNLM; ++m)
-        ob[(size_t)(n * kNLM + m) * lanes] = acc[n][m];
-  } else {
-    for (int n = 0; n < kNA; ++n) {
       for (int m = 0; m < kNLM; ++m) {
-        float acc = 0.0f;
-        for (int c = 0; c < chunks; ++c)
+        const float yv = __ldg(yb + (size_t)(8 * (c * kNLM + m) + r) * lanes);
 #pragma unroll
-          for (int r = 0; r < 8; ++r)
-            acc = fmaf(__ldg(gb + (size_t)(8 * (c * kNA + n) + r) * lanes),
-                       __ldg(yb + (size_t)(8 * (c * kNLM + m) + r) * lanes),
-                       acc);
-        ob[(size_t)(n * kNLM + m) * lanes] = acc;
+        for (int n = 0; n < kNA; ++n) acc[n][m] = fmaf(gv[n], yv, acc[n][m]);
       }
     }
   }
+#pragma unroll
+  for (int n = 0; n < kNA; ++n)
+#pragma unroll
+    for (int m = 0; m < kNLM; ++m)
+      ob[(size_t)(n * kNLM + m) * lanes] = acc[n][m];
 }
+
+// The tiled order's slab and grid (bench_mxu_probes.reduce_plan computes
+// the same; a card test holds them equal).
+long reduce_tiled_smem(int chunks) {
+  return 4L * (kNA + kNLM) * chunks * kRtGS;
+}
+int reduce_tiles(int lanes) { return (lanes + kRtL - 1) / kRtL; }
 }  // namespace
 
 extern "C" __global__ void probe_reduce_spill_kernel(const float* g,
                                                      const float* y,
                                                      float* out, int chunks) {
-  reduce_body<true>(g, y, out, chunks);
+  reduce_spill_body(g, y, out, chunks);
 }
 
-extern "C" __global__ void probe_reduce_tiled_kernel(const float* g,
-                                                     const float* y,
-                                                     float* out, int chunks) {
-  reduce_body<false>(g, y, out, chunks);
+extern "C" __global__ void __launch_bounds__(kRtThreads)
+probe_reduce_tiled_kernel(const float* __restrict__ g,
+                          const float* __restrict__ y,
+                          float* __restrict__ out, int chunks, int lanes,
+                          int tiles) {
+  extern __shared__ __align__(16) float slab[];
+  float* sg = slab;                                  // 7 chunks groups
+  float* sy = slab + (size_t)kNA * chunks * kRtGS;   // 24 chunks groups
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / tiles;
+  const int a0 = (blockIdx.x - b * tiles) * kRtL;
+  const int width = min(kRtL, lanes - a0);  // live lanes, a multiple of 4
+  const float* gb = g + (size_t)b * chunks * 8 * kNA * lanes + a0;
+  const float* yb = y + (size_t)b * chunks * 8 * kNLM * lanes + a0;
+  // row i of g (then of y) goes to group i / 8, row i % 8 of it; a row is
+  // kRtL / 4 pieces of 16 bytes
+  const int grows = 8 * kNA * chunks, rows = 8 * (kNA + kNLM) * chunks;
+  for (int e = tid; e < rows * (kRtL / 4); e += kRtThreads) {
+    const int row = e / (kRtL / 4), p = 4 * (e % (kRtL / 4));
+    if (p < width) {
+      const bool in_g = row < grows;
+      const int i = in_g ? row : row - grows;
+      const float* src = (in_g ? gb : yb) + (size_t)i * lanes + p;
+      float* dst = (in_g ? sg : sy) + (i >> 3) * kRtGS + (i & 7) * kRtL + p;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       gk::smem_u32(dst)),
+                   "l"(src)
+                   : "memory");
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int a = tid % kRtL, m = tid / kRtL;
+  float* ob = out + (size_t)b * kNA * kNLM * lanes + a0 + a;
+  for (int n = 0; n < kNA; ++n) {
+    float acc = 0.0f;
+    for (int c = 0; c < chunks; ++c) {
+      const float* gp = sg + (c * kNA + n) * kRtGS + a;
+      const float* yp = sy + (c * kNLM + m) * kRtGS + a;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) acc = fmaf(gp[r * kRtL], yp[r * kRtL], acc);
+    }
+    if (a < width) ob[(size_t)(n * kNLM + m) * lanes] = acc;
+  }
 }
 
 extern "C" int probe_reduce_launch(const float* g, const float* y, float* out,
@@ -716,13 +764,41 @@ extern "C" int probe_reduce_launch(const float* g, const float* y, float* out,
                                    int lanes, int spill, void* stream) {
   if (na != kNA || nlm != kNLM || lanes < 1 || lanes > 1024)
     return (int)cudaErrorInvalidValue;
-  if (spill)
+  if (spill) {
     probe_reduce_spill_kernel<<<nb, lanes, 0, (cudaStream_t)stream>>>(
         g, y, out, chunks);
-  else
-    probe_reduce_tiled_kernel<<<nb, lanes, 0, (cudaStream_t)stream>>>(
-        g, y, out, chunks);
+    return (int)cudaGetLastError();
+  }
+  // the slab's rows are 16-byte pieces of lanes
+  if (lanes % 4 || chunks < 1) return (int)cudaErrorInvalidValue;
+  const int smem = (int)reduce_tiled_smem(chunks);
+  cudaError_t err = cudaFuncSetAttribute(
+      probe_reduce_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = reduce_tiles(lanes);
+  probe_reduce_tiled_kernel<<<(unsigned)nb * tiles, kRtThreads, smem,
+                              (cudaStream_t)stream>>>(g, y, out, chunks,
+                                                      lanes, tiles);
   return (int)cudaGetLastError();
+}
+
+// The tiled order's launch at (nb, chunks, lanes): its dynamic shared
+// memory, threads, lanes a tile, blocks (units) and resident blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int probe_reduce_occupancy(int nb, int chunks, int lanes,
+                                      int* smem, int* threads, int* tile,
+                                      int* units, int* blocks) {
+  *smem = (int)reduce_tiled_smem(chunks);
+  *threads = kRtThreads;
+  *tile = kRtL;
+  *units = nb * reduce_tiles(lanes);
+  cudaError_t err = cudaFuncSetAttribute(
+      probe_reduce_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      *smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, probe_reduce_tiled_kernel, kRtThreads, (size_t)*smem);
 }
 
 // ---------------------------------------------------------------------------

@@ -64,6 +64,7 @@ _SIGNATURES = {
     "probe_feature_launch": [P] * 2 + [I] * 8 + [P],
     "probe_wgmma_occupancy": [I] * 5 + [P] * 2,
     "probe_reduce_launch": [P] * 3 + [I] * 6 + [P],
+    "probe_reduce_occupancy": [I] * 3 + [P] * 5,
     "probe_bgather_launch": [P] * 3 + [I] * 5 + [P],
     "gk_error_string": [I],
 }

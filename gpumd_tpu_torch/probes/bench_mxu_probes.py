@@ -201,8 +201,8 @@ def _sms(dev):
 
 def _aligned(t, name):
     if t.data_ptr() % 16:
-        raise ValueError(f"{name}: the TF32 kernels' copies need a 16-byte "
-                         f"aligned base")
+        raise ValueError(f"{name}: the kernel's 16-byte copies need a "
+                         f"16-byte aligned base")
 
 
 def _onehot_cuda(vals, n, ksplit, prec):
@@ -286,6 +286,67 @@ def feature_matmul(vals, ch, k=8):
 # ---------------------------------------------------------------------------
 
 
+# The tiled order's launch (csrc/probes.cu, probe_reduce_tiled_kernel): a
+# block a (b, tile of lanes), thread (m, lane), the tile's g and y slab in
+# shared memory in 8-row groups; the launcher sizes the same, and a card
+# test holds the two equal.
+REDUCE_TILE = 16                 # lanes a tile (kRtL)
+REDUCE_GROUP = 9 * REDUCE_TILE   # floats an 8-row group in the slab (kRtGS)
+SM_SMEM = 233472                 # shared memory an H100 SM gives its blocks
+SM_THREADS = 2048
+BLOCK_RESERVE = 1024             # shared memory the system keeps a block
+
+
+@dataclass(frozen=True)
+class ReducePlan:
+    """How the tiled order runs a call: `units` blocks of `threads`, one a
+    (b, tile of `tile` lanes), each with `smem` bytes of dynamic shared
+    memory (the slab, 8-row groups `group` floats apart); `blocks_per_sm`
+    fit an SM by shared memory and threads, so `units` take `waves` rounds
+    of `sms` SMs."""
+
+    tile: int
+    threads: int
+    group: int
+    smem: int
+    blocks_per_sm: int
+    units: int
+    waves: float
+
+
+def reduce_plan(nb, chunks, lanes=A, sms=132) -> ReducePlan:
+    """The tiled order's plan, or ValueError for a shape it does not take:
+    lanes a multiple of 4 up to 1024 (a slab row is 16-byte pieces), chunks
+    from 1 to as many as one tile's slab holds in shared memory (13)."""
+    if lanes % 4 or not 0 < lanes <= 1024:
+        raise ValueError(f"pair_reduce: the tiled order needs lanes {lanes} "
+                         f"a multiple of 4 up to 1024")
+    per_chunk = 4 * (7 + 24) * REDUCE_GROUP
+    if not 0 < chunks <= _SMEM_LIMIT // per_chunk:
+        raise ValueError(f"pair_reduce: the tiled order's slab of "
+                         f"{chunks} chunks ({chunks * per_chunk} B) must "
+                         f"fit {_SMEM_LIMIT} B of shared memory: 1 to "
+                         f"{_SMEM_LIMIT // per_chunk} chunks")
+    smem = chunks * per_chunk
+    threads = 24 * REDUCE_TILE
+    per_sm = min(SM_SMEM // (smem + BLOCK_RESERVE), SM_THREADS // threads)
+    units = nb * -(-lanes // REDUCE_TILE)
+    return ReducePlan(REDUCE_TILE, threads, REDUCE_GROUP, smem, per_sm,
+                      units, units / (sms * per_sm))
+
+
+def reduce_occupancy(nb, chunks, lanes=A) -> dict:
+    """The tiled order's launch as its launcher sizes it (smem, threads,
+    tile, units) and its resident blocks an SM there (blocks_per_sm, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    vals = [ctypes.c_int(0) for _ in range(5)]
+    rc = cuda_build.library().probe_reduce_occupancy(
+        nb, chunks, lanes, *(ctypes.addressof(v) for v in vals))
+    cuda_build.check(rc, "probe_reduce_occupancy")
+    return dict(zip(("smem", "threads", "tile", "units", "blocks_per_sm"),
+                    (v.value for v in vals)))
+
+
 def pair_reduce_plain(g, y, na=7, nlm=24):
     """The broadcast product summed over (chunk, row)."""
     nb, rows, a = g.shape
@@ -304,6 +365,10 @@ def _reduce_cuda(g, y, na, nlm, order):
     cuda_build.require(g, "g", torch.float32)
     cuda_build.require(y, "y", torch.float32, (nb, 8 * nlm * chunks, a),
                        device=g.device)
+    if order == "tiled":
+        reduce_plan(nb, chunks, a)
+        _aligned(g, "g")
+        _aligned(y, "y")
     out = torch.empty((nb, na * nlm, a), dtype=g.dtype, device=g.device)
     lib = cuda_build.library()
     rc = lib.probe_reduce_launch(cuda_build.ptr(g), cuda_build.ptr(y),
@@ -315,7 +380,9 @@ def _reduce_cuda(g, y, na, nlm, order):
 
 
 def pair_reduce(g, y, na=7, nlm=24, order="spill"):
-    """g (nb, 8 na chunks, A), y (nb, 8 nlm chunks, A) -> (nb, na nlm, A)."""
+    """g (nb, 8 na chunks, A), y (nb, 8 nlm chunks, A) -> (nb, na nlm, A).
+    order "spill": all channels' sums live across the chunks; "tiled":
+    channel-outer from a shared-memory slab.  Both give the same bits."""
     if order not in ORDERS:
         raise ValueError(f"order {order!r} not in {ORDERS}")
     if g.is_cuda:

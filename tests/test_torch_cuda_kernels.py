@@ -18,7 +18,9 @@ open axis; and the six probe kernels of csrc/probes.cu (the one-hot dot
 in TF32 and f32 on tiles across b boundaries, part-full tiles, n 16 to
 128, k 100 and ksplit 4, the feature matmul at ch 24, 168 and 200, nb 1
 to 300, equal bits from two calls, the shapes the TF32 kernels refuse;
-both pair-reduce orders, the blocked gather at nblk 11 and 18 with
+both pair-reduce orders at chunks 1 to 13, part-full lane tiles and nb 1
+and 9, the tiled order equal to the spill order bit for bit, the shapes
+it refuses; the blocked gather at nblk 11 and 18 with
 indices out of range, the gather bit for bit, the transcendental gate).
 Tolerances are relative to max|plain| in f32: 1e-5 for the
 K1s and the fold (summation order), 1e-4 for the K2s, the scatter and the
@@ -567,15 +569,43 @@ def test_probe_feature_matches_plain(dev, nb, ch):
     assert torch.equal(PM.feature_matmul(vals, ch), got)
 
 
-@pytest.mark.parametrize("order", PM.ORDERS)
-def test_probe_pair_reduce_matches_plain(dev, order):
-    gen = _gen(dev, 7)
-    g = torch.randn((9, 4 * 8 * 7, 128), device=dev, generator=gen)
-    y = torch.randn((9, 4 * 8 * 24, 128), device=dev, generator=gen)
+# The pair reduce, both orders against the plain version at chunks 1, 2,
+# 4 and 13 (the most one lane tile's slab holds), nb 1 and 9, 128 lanes,
+# 100 and 36 (a part-full last tile of 16 lanes) and, tiled only, 1024
+# (the spill order's 168 accumulators take 254 registers a thread, too many
+# for 1024 threads).  Each call moves the counter by one, two calls give
+# equal bits, and the tiled order equals the spill order bit for bit: both
+# sum a channel in chunk, then row order with fmaf.  The tiled launcher's
+# shared memory, threads, tile and blocks are the plan's.
+REDUCE_CASES = [(9, 4, 128), (1, 4, 128), (9, 1, 128), (9, 2, 128),
+                (1, 13, 128), (9, 4, 100), (3, 3, 36)]
+
+
+@pytest.mark.parametrize(
+    "order,nb,chunks,lanes",
+    [(o, *c) for o in PM.ORDERS for c in REDUCE_CASES]
+    + [("tiled", 2, 4, 1024)])
+def test_probe_pair_reduce_matches_plain(dev, order, nb, chunks, lanes):
+    gen = _gen(dev, 7 + chunks)
+    g = torch.randn((nb, chunks * 8 * 7, lanes), device=dev, generator=gen)
+    y = torch.randn((nb, chunks * 8 * 24, lanes), device=dev, generator=gen)
+    if order == "tiled":
+        plan = PM.reduce_plan(nb, chunks, lanes)
+        occ = PM.reduce_occupancy(nb, chunks, lanes)
+        assert occ == dict(smem=plan.smem, threads=plan.threads,
+                           tile=plan.tile, units=plan.units,
+                           blocks_per_sm=plan.blocks_per_sm)
     before = cuda_build.launches["probe_pair_reduce"]
     got = PM.pair_reduce(g, y, order=order)
     assert cuda_build.launches["probe_pair_reduce"] == before + 1
-    assert _rel(got, PM.pair_reduce_plain(g, y)) <= 1e-5
+    ref = PM.pair_reduce_plain(g, y)
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert _rel(got, ref) <= 1e-5
+    assert torch.equal(PM.pair_reduce(g, y, order=order), got)
+    if order == "tiled" and lanes <= 256:
+        assert torch.equal(got, PM.pair_reduce(g, y, order="spill"))
+    assert cuda_build.launches["probe_pair_reduce"] == before + (
+        3 if order == "tiled" and lanes <= 256 else 2)
 
 
 @pytest.mark.parametrize("nblk,chunks", [(18, 14), (11, 14), (11, 12),
@@ -617,6 +647,27 @@ def test_probe_wrappers_reject_wrong_inputs(dev):
     with pytest.raises(ValueError, match="na 7"):
         PM.pair_reduce(torch.zeros((1, 48, 128), device=dev),
                        torch.zeros((1, 96, 128), device=dev), na=6, nlm=12)
+    # what the tiled reduce cannot take: a slab past shared memory (14
+    # chunks), lanes that are not whole 16-byte pieces, an unaligned base;
+    # the spill order takes the first two
+    before = dict(cuda_build.launches)
+    g14 = torch.randn((1, 14 * 56, 128), device=dev)
+    y14 = torch.randn((1, 14 * 192, 128), device=dev)
+    with pytest.raises(ValueError, match="1 to 13 chunks"):
+        PM.pair_reduce(g14, y14, order="tiled")
+    g98 = torch.randn((2, 4 * 56, 98), device=dev)
+    y98 = torch.randn((2, 4 * 192, 98), device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        PM.pair_reduce(g98, y98, order="tiled")
+    gf = torch.zeros(4 * 56 * 128 + 1, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        PM.pair_reduce(gf[1:].view(1, 4 * 56, 128),
+                       torch.zeros((1, 4 * 192, 128), device=dev),
+                       order="tiled")
+    assert cuda_build.launches == before
+    for gg, yy in ((g14, y14), (g98, y98)):
+        assert _rel(PM.pair_reduce(gg, yy, order="spill"),
+                    PM.pair_reduce_plain(gg, yy)) <= 1e-5
     # what the TF32 kernels cannot take: a TMA row stride that is no
     # multiple of 16 bytes, k-split parts that are not whole stages, a
     # table wider than one wgmma N, an unaligned base; the f32 path takes

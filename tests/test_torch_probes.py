@@ -281,6 +281,44 @@ def test_feature_plan_fits_the_card_or_is_refused(nb, mn, k, ch, lanes):
     assert plan.entry == f"probe_feature_tf32_kernelILi{plan.mma[1]}E"
 
 
+# The tiled pair reduce: the probes' timed shape, every card-test shape,
+# and the shapes it refuses (a slab past shared memory at 14 chunks, no
+# chunk, lanes that are not whole 16-byte pieces or past 1024).
+REDUCE_SHAPES = sorted(
+    {(NB, 4, MX.A), (9, 4, 128), (1, 4, 128), (9, 1, 128), (9, 2, 128),
+     (1, 13, 128), (9, 4, 100), (3, 3, 36), (2, 4, 1024)}
+    | {(1, 14, 128), (1, 0, 128), (2, 4, 98), (1, 4, 1028)})
+
+
+@pytest.mark.parametrize("nb,chunks,lanes", REDUCE_SHAPES)
+def test_reduce_plan_fits_the_card_or_is_refused(nb, chunks, lanes):
+    slab = 4 * (7 + 24) * chunks * 9 * 16
+    takes = (lanes % 4 == 0 and 0 < lanes <= 1024 and chunks > 0
+             and slab <= SMEM_LIMIT)
+    if not takes:
+        with pytest.raises(ValueError):
+            MX.reduce_plan(nb, chunks, lanes)
+        return
+    plan = MX.reduce_plan(nb, chunks, lanes)
+    assert plan.smem == slab <= SMEM_LIMIT
+    assert plan.threads == 24 * plan.tile <= 1024
+    # 16-byte copies: a device row, a slab row and an 8-row group each
+    # start on 16 bytes
+    assert lanes * 4 % 16 == 0 and plan.tile * 4 % 16 == 0
+    assert plan.group * 4 % 16 == 0
+    # the y rows a warp reads (m and m + 1, one group apart) fall in the
+    # two halves of the 32 banks
+    assert plan.group % 32 == plan.tile == 16
+    assert plan.units == nb * -(-lanes // plan.tile)
+    assert plan.blocks_per_sm >= 1
+    assert plan.blocks_per_sm * (plan.smem + 1024) <= 233472
+    assert plan.blocks_per_sm * plan.threads <= 2048
+    if (nb, chunks, lanes) == (NB, 4, MX.A):
+        # the timed shape: 71,424 B a block, 3 blocks an SM
+        assert (plan.smem, plan.blocks_per_sm) == (71424, 3)
+        assert plan.waves == pytest.approx(NB * 8 / (132 * 3))
+
+
 # ---------------------------------------------------------------------------
 # pair reduce and blocked gather
 # ---------------------------------------------------------------------------
