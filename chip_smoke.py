@@ -37,7 +37,9 @@ rejects) and full windows (compact_lists=False).  Phases:
              (compact_windows),
              and the full-window rung; every kernel at those shapes against
              its plain version and, where one PyTorch call computes the
-             same function, that call (CUDA events); the wall time of one
+             same function, that call (CUDA events), and for the fold a
+             [design] line (ptxas, unit width, threads, rows, resident
+             blocks an SM against the plan, TB/s); the wall time of one
              rebuild on each, and 500 more steps of the lattice-start runs
              with their rebuilds counted and included; then 1,000,000
              atoms on the default rung, 20 steps (atom-step/s, peak memory)
@@ -81,8 +83,8 @@ temporary file and read by Tersoff1989.from_file, in float32:
              1.0): 50 steps after warm-up under NVE and under NVT-NHC
              (atom-step/s, the host-sync cost of each), a device profile
              of 5 NVE steps, the tersoff, scatter and fold times at that
-             shape beside their plain versions and bounds, one rebuild,
-             peak memory
+             shape beside their plain versions and bounds (the fold's
+             [design] line too), one rebuild, peak memory
 
 Last, the probes' path: the port's counterparts of the three probe scripts
 (gpumd_tpu_torch/probes, kernels in csrc/probes.cu):
@@ -90,18 +92,21 @@ Last, the probes' path: the port's counterparts of the three probe scripts
  11. probes   each probe kernel against its plain version on random inputs
              at the shapes the probes' path gives it (the gather at G 256,
              bit for bit; bench_mxu_probes at 1,734 blocks: every one-hot
-             case, ksplit 1 and 4, TF32 and f32; the feature matmul at ch
-             24 and 168; both pair-reduce orders, and the two equal bit
-             for bit; the blocked gather at
+             case, ksplit 1 and 4, TF32 and f32, and the f32 path's
+             error against f64 at most twice f32 torch.matmul's; the
+             feature matmul at ch 24 and 168; both pair-reduce orders,
+             and the two equal bit for bit, also at 1024 and 300 lanes
+             (the spill order in tiles of 256); the blocked gather at
              nblk 18 and 11 with indices out of range); then, counts from
              0, the three entry points'
              main() at the scripts' geometry (the probes' path, which
              prints the scripts' keys); the transcendental gate (every
              kernel op within 1e-6 of f64); every probe timed beside its
              plain version, library call and bound (the one-hot dot's f32
-             path also beside torch.matmul in full f32 and its own f32
-             bound); for the two TF32
-             kernels (wgmma fed by a ring of asynchronous copies) a
+             path also beside torch.matmul in full f32 and its own bound,
+             three TF32 passes, beside the f32 FFMA formulation's); for
+             the three wgmma kernels (the two TF32 products and the f32
+             path, fed by a ring of asynchronous copies) a
              [design] line: ptxas's registers, stack and spill, shared
              memory, blocks an SM, the ring and its bytes in flight, TB/s;
              for the pair reduce's tiled order (a shared-memory slab a
@@ -164,6 +169,10 @@ TOL = {"k1": 1e-5, "fold": 1e-5, "k2": 1e-4, "scatter": 1e-4,
        "probe_onehot_dot": 2e-3, "probe_feature_matmul": 2e-3,
        "probe_pair_reduce": 1e-5, "probe_bgather": 1e-5}
 TOL_F32_PRODUCT = 1e-5
+# The f32 path's products are exact (three TF32 terms against a 0/1 R) and
+# only its sums round, so its error against f64 stays near f32
+# torch.matmul's (TF32 off) on random normal inputs: at most twice it.
+F32_ERROR_RATIO = 2.0
 # The transcendental gate: the kernels' max relative error against f64 on
 # the probe's ranges (rsqrtf, cosf, sinf are within 2 ulp, ~2.4e-7;
 # __cosf-class fast math reads ~4e-4 there).
@@ -935,6 +944,8 @@ def _time_kernels(sysm, carry, results=None):
             results.setdefault(name, {}).update(
                 ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
                 bound_by=b_by)
+        if name == "fold":
+            _fold_design(sysm.describe(), keep, md.cplan, nbytes, k_ms)
     return keep
 
 
@@ -1276,6 +1287,11 @@ def phase_tersoff_time(results, pot_path):
                 results.setdefault(name, {}).update(
                     ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                     bound_ms=b_ms, bound_by=b_by)
+            if name == "fold":
+                results.setdefault(name, {}).update(
+                    ms_si1m=k_ms, plain_ms_si1m=p_ms, library_ms_si1m=lib_ms,
+                    bound_ms_si1m=b_ms)
+                _fold_design(label, keep, md.cplan, nbytes, k_ms)
         del keep
         _time_rebuild(big, label)
         del carry, aux, step
@@ -1306,6 +1322,10 @@ def _ptxas_entry(name):
     hit = re.search(rf"Compiling entry function '[^']*{re.escape(name)}",
                     report)
     rest = report[hit.start():] if hit else ""
+    # the entry's own lines: up to the next entry (a kernel without
+    # shared memory prints no smem line of its own)
+    nxt = rest.find("Compiling entry function", 1)
+    rest = rest if nxt < 0 else rest[:nxt]
     keys = {"regs": r"Used (\d+) registers",
             "stack": r"(\d+) bytes stack frame",
             "spill_stores": r"(\d+) bytes spill stores",
@@ -1316,6 +1336,30 @@ def _ptxas_entry(name):
         m = re.search(pat, rest)
         out[key] = int(m.group(1)) if m else None
     return out
+
+
+def _fold_design(label, keep, cp, nbytes, ms):
+    """What the fold's design acts on at this plan: ptxas's registers,
+    stack and spill of the plan's instance, its shared memory (none), the
+    plan (unit width, threads, rows), the resident blocks an SM by the
+    occupancy query, and the rate reached.  Fails on local memory or no
+    resident block."""
+    from gpumd_tpu_torch.engine import fold_kernel as fk
+
+    dcand = keep["dcand"]
+    fp = fk.fold_plan(cp.base, cp.bx, dcand.shape[2], dcand.shape[4])
+    px = _ptxas_entry(fp.entry)
+    occ = fk.fold_occupancy(fp)
+    waves = fp.blocks / (_sms() * max(occ, 1))
+    print(f"[design] fold {label}: instance {fp.entry}: {px['regs']} "
+          f"registers, {px['stack']} B stack frame, {px['spill_stores']} B "
+          f"spill stores, {px['smem'] or 0} B shared memory; units of "
+          f"{fp.vec} floats, {fp.units} a row, {fp.threads} threads a block, "
+          f"{fp.blocks} blocks (rows), {occ} blocks an SM by the occupancy "
+          f"query, {waves:.2f} waves; "
+          f"{nbytes / ms / 1e9:.3f} TB/s reached")
+    if px["stack"] or px["spill_stores"] or occ < 1:
+        raise RuntimeError(f"{fp.entry}: local memory or no resident block")
 
 
 def _k_design(md):
@@ -1383,13 +1427,33 @@ def _probe_checks(results, failures):
         for ksplit in ((1, 4) if (m, k) == (144, 4096) else (1,)):
             ref = MX.onehot_dot_plain(vals, 128, ksplit)
             for prec in MX.PRECISIONS:
-                _compare(f"probe_onehot_dot[nb {nb}, {m}x{k}x128, ksplit "
-                         f"{ksplit}, {prec}]", "probe_onehot_dot",
-                         MX.onehot_dot(vals, 128, ksplit, prec), ref,
-                         results, failures,
+                got = MX.onehot_dot(vals, 128, ksplit, prec)
+                label = (f"probe_onehot_dot[nb {nb}, {m}x{k}x128, ksplit "
+                         f"{ksplit}, {prec}]")
+                _compare(label, "probe_onehot_dot", got, ref, results,
+                         failures,
                          tol=None if prec == "default" else TOL_F32_PRODUCT)
+                if prec == "highest" and (m, k) == (144, 4096):
+                    _f32_error(label, vals, ksplit, got, ref, results,
+                               failures, f"ksplit{ksplit}")
+                del got
             del ref
         del vals
+    # the FFMA kernel, the f32 path's launch for what the ring cannot
+    # take: here the timed shape on a base 4 bytes past 16-byte alignment
+    m, k = 144, 4096
+    vals = randn(nb * m * k + 1)[1:].view(nb, m, k)
+    label = (f"probe_onehot_dot[nb {nb}, {m}x{k}x128, ksplit 1, highest, "
+             f"base + 4 B: FFMA kernel]")
+    if MX.onehot_f32_on_ring(k, vals.data_ptr()):
+        failures.append(f"{label}: the shape chose the ring")
+    ref = MX.onehot_dot_plain(vals, 128)
+    got = MX.onehot_dot(vals, 128, 1, "highest")
+    _compare(label, "probe_onehot_dot", got, ref, results, failures,
+             tol=TOL_F32_PRODUCT)
+    _f32_error(label, vals, 1, got, ref, results, failures, "ffma")
+    del vals, ref, got
+    _f32_exact_rows(nb, gen, results, failures)
     vals = randn(nb, 32 * 8, 128)
     for ch in (24, 168):
         _compare(f"probe_feature_matmul[nb {nb}, mn 32, k 8, ch {ch}]",
@@ -1410,6 +1474,19 @@ def _probe_checks(results, failures):
     if not same:
         failures.append("probe_pair_reduce tiled != spill")
     del g, y, ref, got
+    # the spill order past 256 lanes: several lane tiles a b
+    for lanes in (1024, 300):
+        g, y = randn(9, 4 * 8 * 7, lanes), randn(9, 4 * 8 * 24, lanes)
+        spill = MX.pair_reduce(g, y, order="spill")
+        _compare(f"probe_pair_reduce[nb 9, {lanes} lanes, spill]",
+                 "probe_pair_reduce", spill, MX.pair_reduce_plain(g, y),
+                 results, failures)
+        same = torch.equal(spill, MX.pair_reduce(g, y, order="tiled"))
+        print(f"[check] probe_pair_reduce[nb 9, {lanes} lanes]: spill "
+              f"{'equals' if same else 'DIFFERS FROM'} tiled bit for bit")
+        if not same:
+            failures.append(f"probe_pair_reduce spill != tiled at {lanes}")
+        del g, y, spill
     for nblk, chunks in ((18, 14), (11, 14), (11, 12)):
         width = 128 * nblk
         src = randn(nb, 17, width)
@@ -1419,6 +1496,65 @@ def _probe_checks(results, failures):
                  f"indices out of range]", "probe_bgather",
                  MX.bgather(src, idx), MX.bgather_plain(src, idx), results,
                  failures)
+
+
+def _f32_error(label, vals, ksplit, got, ref, results, failures, key):
+    """The f32 path's error against the product in f64, beside that of f32
+    torch.matmul (TF32 off) on the same random inputs; the kernel's must be
+    at most F32_ERROR_RATIO times the library's."""
+    from gpumd_tpu_torch.probes import bench_mxu_probes as MX
+
+    exact = MX.onehot_dot_plain(vals.double(), 128, ksplit)
+    err = float((got.double() - exact).abs().max())
+    err_lib = float((ref.double() - exact).abs().max())
+    del exact
+    ok = err <= F32_ERROR_RATIO * err_lib
+    print(f"[check] {label} against f64: kernel max abs error {err:.3e}, "
+          f"f32 torch.matmul {err_lib:.3e} ({err / err_lib:.2f}x; limit "
+          f"{F32_ERROR_RATIO:.0f}x): {'ok' if ok else 'FAILED'}")
+    results.setdefault("probe_onehot_dot", {})[
+        f"f64_error_ratio_highest_{key}"] = err / err_lib
+    if not ok:
+        failures.append(f"{label}: error against f64 {err:.3e} above "
+                        f"{F32_ERROR_RATIO} x torch.matmul's {err_lib:.3e}")
+
+
+def _f32_exact_rows(nb, gen, results, failures):
+    """The f32 path on rows of one random normal value each, at a random
+    column: every row sum is exact in f32, so the kernel must give the f64
+    product bit for bit.  A kernel that dropped the mid or lo term of the
+    split (lo is non-zero in about half such values) would not; this is
+    what the f64 error check cannot see, since a lo term is below 2^-21 of
+    its value.  The ring at ksplit 1 and 4, and the FFMA kernel on a base
+    4 bytes past 16-byte alignment."""
+    from gpumd_tpu_torch.probes import bench_mxu_probes as MX
+
+    m, k = 144, 4096
+    dev = torch.device("cuda")
+    for ksplit, offset in ((1, 0), (4, 0), (1, 1)):
+        vals = torch.zeros(nb * m * k + offset, device=dev)[offset:]
+        vals = vals.view(nb, m, k)
+        col = torch.randint(0, k, (nb, m, 1), generator=gen, device=dev)
+        one = torch.randn((nb, m, 1), generator=gen, device=dev)
+        vals.scatter_(2, col, one)
+        lo_terms = int((MX.tf32_split(one)[2] != 0).sum())
+        route = ("ring" if MX.onehot_f32_on_ring(k, vals.data_ptr())
+                 else "ffma")
+        got = MX.onehot_dot(vals, 128, ksplit, "highest")
+        exact = MX.onehot_dot_plain(vals.double(), 128, ksplit).float()
+        bad = int((got != exact).sum())
+        ok = bad == 0 and route == ("ring" if offset == 0 else "ffma")
+        print(f"[check] probe_onehot_dot[nb {nb}, {m}x{k}x128, ksplit "
+              f"{ksplit}, highest, one value a row, {route}]: {bad} of "
+              f"{got.numel()} outputs differ from the f64 product "
+              f"({lo_terms} of {one.numel()} values have a lo term): "
+              f"{'ok' if ok else 'FAILED'}")
+        results.setdefault("probe_onehot_dot", {})[
+            f"exact_rows_differ_{route}_ksplit{ksplit}"] = bad
+        if not ok:
+            failures.append(f"probe_onehot_dot one value a row ({route}, "
+                            f"ksplit {ksplit}): {bad} outputs differ")
+        del vals, col, one, got, exact
 
 
 def _probe_row(results, name, label, k_ms, p_ms, lib_ms, nbytes, nops,
@@ -1446,7 +1582,7 @@ def _sms():
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
-def _wgmma_design(results, name, plan, nbytes, ms):
+def _wgmma_design(results, name, plan, nbytes, ms, key="tb_per_s"):
     """What the TF32 probe kernels' design acts on: ptxas's registers,
     stack and spill of the plan's instance (and whether ptxas serialised its
     wgmmas, warning C7520), shared memory, resident blocks an SM
@@ -1461,13 +1597,15 @@ def _wgmma_design(results, name, plan, nbytes, ms):
                  for line in _ptxas_report().splitlines())
     flight = plan.stages * plan.stage_bytes
     rate = nbytes / ms / 1e9
+    passes = (" (three passes: hi, mid, lo)"
+              if plan.kernel == "onehot_f32" else "")
     print(f"[design] {name} instance {plan.entry}: {px['regs']} registers, "
           f"{px['stack']} B stack frame, {px['spill_stores']} B spill "
           f"stores, {px['spill_loads']} B spill loads; wgmma "
-          f"m{plan.mma[0]}n{plan.mma[1]}k{plan.mma[2]} TF32 "
+          f"m{plan.mma[0]}n{plan.mma[1]}k{plan.mma[2]} TF32{passes} "
           f"{'SERIALISED by ptxas' if serial else 'not serialised'}; "
           f"{smem} B shared memory a block, {occ} block(s) an SM "
-          f"({9 * occ} warps); ring of {plan.stages} stages x "
+          f"({plan.warps * occ} warps); ring of {plan.stages} stages x "
           f"{plan.stage_bytes} B = {flight} B in flight an SM at most; "
           f"{plan.units} units over {plan.blocks} persistent blocks; "
           f"{rate:.3f} TB/s reached")
@@ -1476,7 +1614,7 @@ def _wgmma_design(results, name, plan, nbytes, ms):
         raise RuntimeError(f"{plan.entry}: serialised wgmma, local memory, "
                            f"no resident block or shared memory {smem} B "
                            f"against the plan's {plan.smem} B")
-    results.setdefault(name, {}).update(tb_per_s=rate)
+    results.setdefault(name, {})[key] = rate
 
 
 def _reduce_design(nb, chunks, lanes, rate):
@@ -1555,23 +1693,33 @@ def _probe_time(results):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     nbytes = _nbytes(vals) + 4 * nb * m * 128
-    # the f32 path's own bound: the same bytes, its FLOP at the f32 peak
-    b_hi, by_hi = bound(nbytes, 2 * nb * m * kk * 128)
+    # the f32 path's bound: the same bytes, and its operations as it does
+    # them, three TF32 products (hi, mid, lo) at the TF32 peak; beside it
+    # the bound of the same product in f32 FFMA, by the f32 peak
+    flop = 2 * nb * m * kk * 128
+    b_hi, by_hi = bound(nbytes, 3 * flop, TF32_FLOP_PER_S)
+    b_ffma, _ = bound(nbytes, flop)
     _probe_row(results, "probe_onehot_dot",
                f"probe_onehot_dot (nb {nb}, {m}x{kk}x128, TF32)", k, p, lib,
-               nbytes, 2 * nb * m * kk * 128, TF32_FLOP_PER_S,
+               nbytes, flop, TF32_FLOP_PER_S,
                ms_ksplit4=k4, ms_highest=k_hi, library_ms_highest=lib_hi,
-               bound_ms_highest=b_hi)
+               bound_ms_highest=b_hi, bound_by_highest=by_hi,
+               bound_ms_highest_ffma=b_ffma)
     print(f"[time] probe_onehot_dot f32 path: {k_hi:.4f} ms, f32 "
-          f"torch.matmul {lib_hi:.4f} ms, bound {b_hi:.4f} ms by {by_hi} "
-          f"({100 * b_hi / k_hi:.1f}% of bound)")
+          f"torch.matmul {lib_hi:.4f} ms ({lib_hi / k_hi:.2f}x), bound "
+          f"{b_hi:.4f} ms by {by_hi} in three TF32 passes "
+          f"({100 * b_hi / k_hi:.1f}% of bound; the f32 FFMA formulation's "
+          f"bound {b_ffma:.4f} ms)")
     _wgmma_design(results, "probe_onehot_dot",
                   MX.onehot_plan(nb, m, kk, 128, sms=_sms()), nbytes, k)
+    _wgmma_design(results, "probe_onehot_dot",
+                  MX.onehot_f32_plan(nb, m, kk, 128, sms=_sms()), nbytes,
+                  k_hi, key="tb_per_s_highest")
     px = _ptxas_entry("probe_onehot_ffma_kernel")
-    print(f"[design] probe_onehot_dot f32 path probe_onehot_ffma_kernel: "
-          f"{px['regs']} registers, {px['stack']} B stack frame, "
-          f"{px['spill_stores']} B spill stores, {px['smem']} B static "
-          f"shared memory (ptxas)")
+    print(f"[design] probe_onehot_dot f32 path, k not a multiple of 4 or an "
+          f"unaligned base: probe_onehot_ffma_kernel: {px['regs']} "
+          f"registers, {px['stack']} B stack frame, {px['spill_stores']} B "
+          f"spill stores, {px['smem']} B static shared memory (ptxas)")
     del vals
 
     (vals,) = MX.case_inputs("feature_matmul_mn32_k8_ch168", nb, dev)

@@ -8,73 +8,148 @@
 // periodic images, and are dropped on non-periodic axes.
 //
 // What bounds it on the H100: bytes.  Each dw element is read once and
-// each output written once, ~ (1 + (bx+2)/bx) * 4 B per output element.
-// Design: one thread per output element, which gathers its 9 (dz, dy)
-// groups and their x-halo cells with the periodic wrap in the index
-// arithmetic; the (at most two) window cells that hold a ghost x-cell are
-// computed, not searched over all bx + 2 (at bx 14 the search made the
-// kernel bound by its integer divisions).  Neighbouring threads hold neighbouring slots of a cell, so
-// reads and writes coalesce.  Unlike the TPU kernel it needs no 128-lane
-// alignment, so it serves every plan.
+// each output written once, ~ (1 + 9 (bx+2)/bx) * 4 B per output element.
+//
+// Design, after the TPU kernel's own structure (one unit of work an output
+// row, the halo cells rolled onto their neighbours): a block takes one
+// output row (z, y, c).  Each thread resolves the row's 9 source rows
+// ((z - dz + 1) mod nz, (y - dy + 1) mod ny; null on a non-periodic axis
+// past the edge) once, then walks units of V floats (V = 4, 16-byte
+// loads and stores, where cap, wl and both bases allow it; else 1) as
+// (x-block xb, lane l within bx*cap) with 32-bit indices.  For each group
+// it adds the main band (window cells 1..bx, contiguous, onto the block's
+// own cells), window cell 0 of the next x-block onto the last cell, and
+// window cell bx+1 of the previous x-block onto the first cell, with the
+// x wrap at the ends on a periodic x.  No division sits in the group
+// loop: cell edges are compares on l.  The adds run in the order the
+// one-thread-an-element kernel this replaces took (group (dz, dy) order;
+// in a group the next block's cell 0, the main band, the previous block's
+// cell bx+1, then the wrapped cell 0 and cell bx+1), so each output has
+// the same bits.  Needs no 128-lane alignment, so it serves every plan.
 #include <cuda_runtime.h>
 
-__global__ void fold_kernel(const float* __restrict__ dw,
-                            float* __restrict__ out, int nx, int ny, int nz,
-                            int cap, int bx, int C, int wl, int pbcx,
-                            int pbcy, int pbcz) {
-  const size_t total = (size_t)nz * ny * C * nx * cap;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  size_t r = i;
-  const int s = (int)(r % cap); r /= cap;
-  const int x = (int)(r % nx); r /= nx;
-  const int c = (int)(r % C); r /= C;
-  const int y = (int)(r % ny);
-  const int z = (int)(r / ny);
-  const int nxb = nx / bx;
-  // ghost x-cells that fold onto interior cell x
-  int gxs[3];
-  int ng = 0;
-  gxs[ng++] = x + 1;
-  if (pbcx && x == nx - 1) gxs[ng++] = 0;
-  if (pbcx && x == 0) gxs[ng++] = nx + 1;
-  float acc = 0.0f;
-  for (int dz = 0; dz < 3; ++dz) {
-    int zb = z - dz + 1;
-    if (zb < 0 || zb >= nz) {
-      if (!pbcz) continue;
-      zb = (zb + nz) % nz;
-    }
-    for (int dy = 0; dy < 3; ++dy) {
-      int yb = y - dy + 1;
-      if (yb < 0 || yb >= ny) {
-        if (!pbcy) continue;
-        yb = (yb + ny) % ny;
-      }
-      const float* src = dw + (((size_t)zb * ny + yb) * C + c) * nxb * wl;
-      const int grp = (dz * 3 + dy) * (bx + 2);
-      // ghost x-cell g sits at window cell wx of x-block xb when
-      // g = xb*bx + wx: wx = g % bx, or g % bx + bx when that is < bx + 2
-      for (int q = 0; q < ng; ++q) {
-        const int g = gxs[q];
-        for (int wx = g % bx; wx < bx + 2; wx += bx) {
-          const int xb = (g - wx) / bx;
-          if (xb >= 0 && xb < nxb)
-            acc += src[(size_t)xb * wl + (grp + wx) * cap + s];
-        }
-      }
-    }
+namespace {
+
+constexpr int kFoldMaxThreads = 128;
+
+template <int V>
+struct FoldUnit;
+template <>
+struct FoldUnit<4> {
+  using T = float4;
+  static __device__ __forceinline__ T zero() {
+    return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-  out[i] = acc;
+  static __device__ __forceinline__ void add(T& a, const T* p) {
+    const T b = __ldcs(p);  // read once: evict first
+    a.x += b.x;
+    a.y += b.y;
+    a.z += b.z;
+    a.w += b.w;
+  }
+};
+template <>
+struct FoldUnit<1> {
+  using T = float;
+  static __device__ __forceinline__ T zero() { return 0.0f; }
+  static __device__ __forceinline__ void add(T& a, const T* p) {
+    a += __ldcs(p);
+  }
+};
+
+// source row of output row `i` for group offset d (0..2) on an axis of n
+// cells: i - d + 1, wrapped where periodic, -1 where dropped
+__device__ __forceinline__ int fold_source(int i, int d, int n, int pbc) {
+  int s = i - d + 1;
+  if (s < 0) s = pbc ? s + n : -1;
+  if (s >= n) s = pbc ? s - n : -1;
+  return s;
 }
 
+}  // namespace
+
+template <int V>
+__global__ void __launch_bounds__(kFoldMaxThreads)
+fold_rows_kernel(const float* __restrict__ dw, float* __restrict__ out,
+                 int nx, int ny, int nz, int cap, int bx, int C, int wl,
+                 int pbcx, int pbcy, int pbcz) {
+  using U = FoldUnit<V>;
+  using T = typename U::T;
+  const int row = blockIdx.x;  // (z * ny + y) * C + c
+  const int c = row % C, zy = row / C;
+  const int y = zy % ny, z = zy / ny;
+  const int capv = cap / V, w = bx * capv, nxb = nx / bx;
+  const int wlv = wl / V, wgv = (bx + 2) * capv;
+  const int n = nxb * w;  // units of the output row
+  const T* src[9];
+#pragma unroll
+  for (int dz = 0; dz < 3; ++dz) {
+    const int zb = fold_source(z, dz, nz, pbcz);
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      const int yb = fold_source(y, dy, ny, pbcy);
+      src[dz * 3 + dy] =
+          (zb < 0 || yb < 0)
+              ? nullptr
+              : reinterpret_cast<const T*>(dw) +
+                    ((size_t)(zb * ny + yb) * C + c) * nxb * wlv +
+                    (dz * 3 + dy) * wgv;
+    }
+  }
+  T* orow = reinterpret_cast<T*>(out) + (size_t)row * n;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int xb = e / w, l = e - xb * w;
+    const bool first = l < capv, last = l >= w - capv;
+    // the next block's cell 0 lands on the last cell, the previous
+    // block's cell bx+1 on the first; at the ends of x only by the wrap
+    const bool next = last && xb + 1 < nxb, prev = first && xb > 0;
+    const bool next_wrap = pbcx && last && xb + 1 == nxb;
+    const bool prev_wrap = pbcx && first && xb == 0;
+    const int o_main = xb * wlv + capv + l;
+    const int o_next = (xb + 1 == nxb ? 0 : xb + 1) * wlv + l - (w - capv);
+    const int o_prev = (xb == 0 ? nxb - 1 : xb - 1) * wlv + (bx + 1) * capv +
+                       l;
+    T acc = U::zero();
+#pragma unroll
+    for (int g = 0; g < 9; ++g) {
+      const T* s = src[g];
+      if (s == nullptr) continue;
+      if (next) U::add(acc, s + o_next);
+      U::add(acc, s + o_main);
+      if (prev) U::add(acc, s + o_prev);
+      if (next_wrap) U::add(acc, s + o_next);
+      if (prev_wrap) U::add(acc, s + o_prev);
+    }
+    orow[e] = acc;
+  }
+}
+
+// The launch comes from the wrapper's fold_plan: `vec` floats a unit (4 or
+// 1) and `threads` a block; a block a row (z, y, c).
 extern "C" int fold_launch(const float* dw, float* out, int nx, int ny,
                            int nz, int cap, int bx, int C, int wl, int pbcx,
-                           int pbcy, int pbcz, void* stream) {
-  const size_t total = (size_t)nz * ny * C * nx * cap;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  fold_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      dw, out, nx, ny, nz, cap, bx, C, wl, pbcx, pbcy, pbcz);
+                           int pbcy, int pbcz, int vec, int threads,
+                           void* stream) {
+  if (bx < 1 || nx % bx || threads < 1 || threads > kFoldMaxThreads ||
+      (vec != 1 && vec != 4) || cap % vec || wl % vec)
+    return (int)cudaErrorInvalidValue;
+  if (vec == 4 && (((size_t)dw | (size_t)out) & 15))
+    return (int)cudaErrorMisalignedAddress;
+  const unsigned rows = (unsigned)nz * ny * C;
+  if (vec == 4)
+    fold_rows_kernel<4><<<rows, threads, 0, (cudaStream_t)stream>>>(
+        dw, out, nx, ny, nz, cap, bx, C, wl, pbcx, pbcy, pbcz);
+  else
+    fold_rows_kernel<1><<<rows, threads, 0, (cudaStream_t)stream>>>(
+        dw, out, nx, ny, nz, cap, bx, C, wl, pbcx, pbcy, pbcz);
   return (int)cudaGetLastError();
+}
+
+// The resident blocks an SM of the fold kernel at (vec, threads)
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int fold_occupancy(int vec, int threads, int* blocks) {
+  const void* kernel = vec == 4 ? (const void*)fold_rows_kernel<4>
+                                : (const void*)fold_rows_kernel<1>;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, threads, 0);
 }

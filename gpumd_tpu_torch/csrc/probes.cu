@@ -108,8 +108,40 @@ extern "C" int probe_trans_launch(const float* x, float* r, float* c,
 // The epilogue stores 8-byte pairs from the accumulators, whole 32-byte
 // sectors a row, while the producer already loads the next tile.
 //
-// F32 (Precision.HIGHEST): a block takes 48 rows of one b; each step stages
-// a (48 x 32) slab of vals in shared memory, zero-filled past m and past the
+// F32 (Precision.HIGHEST), the TPU's multi-pass product on the matrix unit
+// in its Hopper form: f32-exact products on the TF32 tensor cores in three
+// passes.  Bound: TF32 operations, 3 x 2 (nb m) k N at 495 TFLOP/s (above
+// the bytes, which are the TF32 kernel's).  The TF32 kernel's TMA ring of
+// 128-row tiles, persistent blocks and R^T built once a block, with A
+// from registers: a thread reads its fragments from the swizzled stage
+// with 16-byte loads (thread q of a fragment row takes the 16-byte chunks
+// 2q and 2q + 1 of a box row, whose 128-byte swizzle puts a quarter
+// warp's 8 loads in 8 distinct bank groups) and splits every element a
+// exactly into three TF32 terms: hi = a with its low 13 mantissa bits
+// cleared, mid = the same of a - hi, lo = a - hi - mid (exact for every
+// finite a; TF32 for |a| >= 2^-103).  R is 0/1, so every product is exact
+// and only the sums round.  The tensor core's adds cut (not round) at the
+// accumulator's ulp, so a box (32 columns, 4 k8 steps) is summed in a
+// fresh accumulator, a half box at a time (its 2 lo steps first, then
+// mid, then hi: 6 wgmma m64nNk8 .tf32 against the same R^T descriptor,
+// waited for before the next half's fragments take their registers), and
+// added into a register sum with round-to-nearest: the small terms never
+// meet the large sum inside the tensor core.  The two accumulators and
+// the fragment words need more registers than the 168 a thread that 9
+// warps leave, so the block is two warpgroups without a producer warp:
+// thread 0 fills the ring, `stages` stages ahead, refilling each slot one
+// stage after all 8 warps released it.  Which k column of a box sits at
+// which k position of a fragment is the loads' order, not the natural
+// one: R's rows are all alike, so any order of k gives the same product.
+// k-split parts need not be whole stages: a part starts a stage of its
+// own (its TMA boxes at the part's columns), columns past the part's end
+// are zeroed in the fragment, and each part's sum is added into `out`
+// (stored by part 0, read back and added by the next parts in the same
+// thread), as the plain version adds its parts.  k not a multiple of 4
+// (no TMA row stride) and an unaligned base go to probe_onehot_ffma_kernel,
+// chosen by the wrapper from the shape: a block takes 48 rows of one b;
+// each step stages a
+// (48 x 32) slab of vals in shared memory, zero-filled past m and past the
 // part's end, and thread (warp, lane) keeps 6 rows x 4 columns of FFMA
 // accumulators fed from it and from R's (32 x n) tile.
 // ---------------------------------------------------------------------------
@@ -123,8 +155,11 @@ constexpr int kOhRows = 48;         // rows a block (f32 path)
 constexpr int kOhKC = 32;           // k columns a step (f32) or TMA box (TF32)
 constexpr int kOhALd = kOhKC + 4;
 
-// the TF32 kernels: two consumer warpgroups and one producer warp
+// the TF32 kernels: two consumer warpgroups and one producer warp; the f32
+// path's: two warpgroups, thread 0 also the producer (8 warps: 255
+// registers a thread, where 9 warps leave 168)
 constexpr int kWgThreads = 2 * 128 + 32;
+constexpr int kF32Threads = 2 * 128;
 constexpr int kOhTileM = 128;                      // rows a tile
 constexpr int kOhBoxBytes = kOhTileM * kOhKC * 4;  // a TMA box: 16 KB
 constexpr int kOhBoxes = 2;                        // boxes a stage
@@ -347,6 +382,165 @@ probe_onehot_tf32_kernel(const __grid_constant__ CUtensorMap vmap,
 }
 
 namespace {
+// The f32 path's exact split of a into three TF32 terms (the plain torch
+// version is bench_mxu_probes.tf32_split): hi keeps a's top 11 significant
+// bits, mid those of the rest, lo what remains; both subtractions are exact.
+__device__ __forceinline__ void tf32_split(float a, uint32_t& hi,
+                                           uint32_t& mid, uint32_t& lo) {
+  hi = __float_as_uint(a) & 0xFFFFE000u;
+  const float r = a - __uint_as_float(hi);
+  mid = __float_as_uint(r) & 0xFFFFE000u;
+  lo = __float_as_uint(r - __uint_as_float(mid));
+}
+}  // namespace
+
+template <int N>
+__global__ void __launch_bounds__(kF32Threads, 1)
+probe_onehot_f32_kernel(const __grid_constant__ CUtensorMap vmap,
+                        float* __restrict__ out, int rows, int k, int n,
+                        int kp, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr int kbs = kOhBoxes;
+  constexpr int stage_k = kbs * kOhKC, stage_bytes = kbs * kOhBoxBytes;
+  uint8_t* ring = aligned_smem(smem_raw);
+  uint8_t* rt = ring + (size_t)stages * stage_bytes;  // R^T: N x 128 B
+  uint64_t* full = reinterpret_cast<uint64_t*>(rt + N * 128);
+  uint64_t* empty = full + stages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tiles = (rows + kOhTileM - 1) / kOhTileM;
+  const int parts = k / kp;
+  const int psteps = (kp + stage_k - 1) / stage_k;  // stages a part
+  const int per_tile = parts * psteps;
+  const int my_tiles =
+      blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int total = my_tiles * per_tile;  // stages this block takes
+
+  for (int e = tid; e < N * kOhKC; e += kF32Threads) {
+    const int j = e / kOhKC, c = e % kOhKC;
+    *reinterpret_cast<float*>(rt + gk::sw128_offset(j, c)) =
+        (j < n && (j * 7919) % n == j) ? 1.0f : 0.0f;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      gk::mbar_init(&full[s], 1);
+      gk::mbar_init(&empty[s], kF32Threads / 32);  // a lane of each warp
+    }
+    gk::mbar_init_fence();
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  // Thread 0 is also the producer: stage i of the block (tile, part, step
+  // in that order; a part's stages start at the part's columns) goes to
+  // slot i % stages once the stage that used the slot before is released.
+  auto load = [&](int i) {
+    const int s = i % stages, tl = i / per_tile, rem = i - tl * per_tile;
+    const int p = rem / psteps, ks = rem - p * psteps;
+    if (i >= stages) gk::mbar_wait(&empty[s], (uint32_t)(i / stages - 1) & 1);
+    gk::mbar_expect_tx(&full[s], stage_bytes);
+    for (int j = 0; j < kbs; ++j)
+      gk::tma_load_2d(ring + (size_t)s * stage_bytes + j * kOhBoxBytes, &vmap,
+                      &full[s], p * kp + ks * stage_k + j * kOhKC,
+                      (blockIdx.x + tl * gridDim.x) * kOhTileM);
+  };
+  if (tid == 0)
+    for (int i = 0; i < min(stages, total); ++i) load(i);
+
+  // warpgroup wg takes rows 64 wg .. 64 wg + 63 of each tile; thread
+  // (g, q) holds fragment rows fr and fr + 8 (fr % 8 == g)
+  const int wg = warp >> 2, g = lane >> 2, q = lane & 3;
+  const int fr = wg * 64 + (warp & 3) * 16 + g;
+  const uint64_t db = gk::sw128_desc(gk::smem_u32(rt));
+  gk::Acc<N> acc, sum;
+  int i = 0;  // the block's stage
+  for (int tl = 0; tl < my_tiles; ++tl) {
+    for (int p = 0; p < parts; ++p) {
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) sum.d[e] = 0.0f;
+      for (int ks = 0; ks < psteps; ++ks, ++i) {
+        const int s = i % stages;
+        gk::mbar_wait(&full[s], (uint32_t)(i / stages) & 1);
+        const int lim = kp - ks * stage_k;  // live columns of the stage
+        const uint8_t* st = ring + (size_t)s * stage_bytes;
+#pragma unroll
+        for (int box = 0; box < kbs; ++box) {
+          // the box's sum in a fresh accumulator, a half box (2 k8 steps)
+          // at a time, each half's small terms first: lo, mid, hi
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t a[3][2][4];  // term (lo, mid, hi), k8 step, word
+            const int c = 2 * q + h;  // 16-byte chunk of the box row
+            const uint32_t sw = (uint32_t)((c ^ g) << 4);
+            const float4 v = *reinterpret_cast<const float4*>(
+                st + box * kOhBoxBytes + fr * 128 + sw);
+            const float4 w = *reinterpret_cast<const float4*>(
+                st + box * kOhBoxBytes + (fr + 8) * 128 + sw);
+            const float vr[4] = {v.x, v.y, v.z, v.w};
+            const float wr[4] = {w.x, w.y, w.z, w.w};
+            const int col = box * kOhKC + 4 * c;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              // columns 4c + e of rows fr, fr + 8: k8 step 2h + e / 2,
+              // fragment words (0, 1) for even e, (2, 3) for odd
+              const bool live = col + e < lim;
+              const int j = e / 2, f = 2 * (e % 2);
+              tf32_split(live ? vr[e] : 0.0f, a[2][j][f], a[1][j][f],
+                         a[0][j][f]);
+              tf32_split(live ? wr[e] : 0.0f, a[2][j][f + 1],
+                         a[1][j][f + 1], a[0][j][f + 1]);
+            }
+            if (box == kbs - 1 && h == 1) {  // the stage is in registers
+              asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+              __syncwarp();
+              if (lane == 0) gk::mbar_arrive(&empty[s]);
+            }
+            gk::acc_fence(acc);
+            gk::wgmma_fence();
+#pragma unroll
+            for (int t = 0; t < 3; ++t)
+#pragma unroll
+              for (int j = 0; j < 2; ++j)
+                gk::wgmma_rs(acc, a[t][j], db + 2 * (2 * h + j),
+                             (h | t | j) ? 1 : 0);
+            gk::wgmma_commit();
+            gk::wgmma_wait<0>();
+            gk::acc_fence(acc);
+          }
+#pragma unroll
+          for (int e = 0; e < N / 2; ++e) sum.d[e] += acc.d[e];
+        }
+        // refill the slot of the stage before this one, which every warp
+        // has released by now, `stages` stages ahead
+        if (tid == 0 && i >= 1 && i - 1 + stages < total)
+          load(i - 1 + stages);
+      }
+      // the part's sum into out: stored by part 0, added to by the next
+      const int r0 = (blockIdx.x + tl * gridDim.x) * kOhTileM + fr;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int c = 8 * j + 2 * q;
+        if (c < n) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int r = r0 + 8 * hh;
+            if (r < rows) {
+              float2* o = reinterpret_cast<float2*>(out + (size_t)r * n + c);
+              float2 v = make_float2(sum.d[4 * j + 2 * hh],
+                                     sum.d[4 * j + 2 * hh + 1]);
+              if (p > 0) {
+                const float2 prev = *o;
+                v = make_float2(prev.x + v.x, prev.y + v.y);
+              }
+              *o = v;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+namespace {
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
@@ -374,17 +568,34 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The TF32 kernel instance of (which 0: one-hot, 1: feature, N, split),
-// or nullptr.
+// The wgmma kernel instance of (which 0: one-hot TF32, 1: feature, 2:
+// one-hot f32 in three TF32 passes; N, split), or nullptr.
 const void* wgmma_kernel(int which, int n_mma, bool split);
 
+// The TMA map of vals as a (rows, k) f32 matrix in boxes of 128 rows x 32
+// columns, 128-byte swizzled; past its edges the boxes read zeros.
+int onehot_map(CUtensorMap* map, const float* vals, int rows, int k) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)k * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)kOhKC, (cuuint32_t)kOhTileM};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)vals, dims,
+             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 int launch_wg(const void* kernel, int smem, int blocks, cudaStream_t stream,
-              void** args) {
+              void** args, int threads = kWgThreads) {
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernel(kernel, dim3(blocks), dim3(kWgThreads), args,
+  err = cudaLaunchKernel(kernel, dim3(blocks), dim3(threads), args,
                          (size_t)smem, stream);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
@@ -412,22 +623,34 @@ extern "C" int probe_onehot_tf32_launch(const float* vals, float* out,
   if (n % 16 || n > n_mma || ksplit < 1 || k % ksplit || k % 4 ||
       (ksplit > 1 && kp % (kOhBoxes * kOhKC)) || stages < 2 || blocks < 1)
     return (int)cudaErrorInvalidValue;
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap map;
-  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)k * sizeof(float)};
-  const cuuint32_t box[2] = {(cuuint32_t)kOhKC, (cuuint32_t)kOhTileM};
-  const cuuint32_t unit[2] = {1, 1};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)vals, dims,
-             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
+  const int err = onehot_map(&map, vals, rows, k);
+  if (err) return err;
   void* args[] = {(void*)&map, &out, &rows, &k, &n, &kp, &stages};
   return launch_wg(wgmma_kernel(0, n_mma, ksplit > 1),
                    (int)onehot_smem(n_mma, stages), blocks,
                    (cudaStream_t)stream, args);
+}
+
+// The f32 path on the ring (probe_onehot_f32_kernel); the plan (n_mma,
+// stages, blocks) comes from the wrapper's onehot_f32_plan, which the
+// wrapper takes for k a multiple of 4 and a 16-byte aligned base (else it
+// launches probe_onehot_ffma_launch).
+extern "C" int probe_onehot_f32_launch(const float* vals, float* out, int nb,
+                                       int m, int k, int n, int ksplit,
+                                       int n_mma, int stages, int blocks,
+                                       void* stream) {
+  if (n % 16 || n > n_mma || ksplit < 1 || k % ksplit || k % 4 ||
+      stages < 2 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  int rows = nb * m, kp = k / ksplit;
+  CUtensorMap map;
+  const int err = onehot_map(&map, vals, rows, k);
+  if (err) return err;
+  void* args[] = {(void*)&map, &out, &rows, &k, &n, &kp, &stages};
+  return launch_wg(wgmma_kernel(2, n_mma, false),
+                   (int)onehot_smem(n_mma, stages), blocks,
+                   (cudaStream_t)stream, args, kF32Threads);
 }
 
 // ---------------------------------------------------------------------------
@@ -588,13 +811,18 @@ const void* wgmma_kernel(int which, int n_mma, bool split) {
                  : (const void*)probe_onehot_tf32_kernel<NN, false>;
 #define GK_FT(NN) \
   if (n_mma == NN) return (const void*)probe_feature_tf32_kernel<NN>;
+#define GK_F32(NN) \
+  if (n_mma == NN) return (const void*)probe_onehot_f32_kernel<NN>;
   if (which == 0) {
     GK_ONEHOT_N(GK_OH)
-  } else if (!split) {
+  } else if (which == 1 && !split) {
     GK_FEATURE_N(GK_FT)
+  } else if (which == 2) {
+    GK_ONEHOT_N(GK_F32)
   }
 #undef GK_OH
 #undef GK_FT
+#undef GK_F32
   return nullptr;
 }
 }  // namespace
@@ -613,20 +841,21 @@ extern "C" int probe_feature_launch(const float* vals, float* out, int nb,
                    (cudaStream_t)stream, args);
 }
 
-// A TF32 kernel's dynamic shared memory at (which 0: one-hot, 1: feature,
-// N, split, k, stages) and its resident blocks an SM there
+// A wgmma kernel's dynamic shared memory at (which 0: one-hot TF32, 1:
+// feature, 2: one-hot f32; N, split, k, stages) and its resident blocks an
+// SM there
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 extern "C" int probe_wgmma_occupancy(int which, int n_mma, int split, int k,
                                      int stages, int* smem, int* blocks) {
   const void* kernel = wgmma_kernel(which, n_mma, split != 0);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  *smem = (int)(which == 0 ? onehot_smem(n_mma, stages)
-                           : feature_smem(n_mma, k, stages));
+  *smem = (int)(which == 1 ? feature_smem(n_mma, k, stages)
+                           : onehot_smem(n_mma, stages));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, kernel, kWgThreads, (size_t)*smem);
+      blocks, kernel, which == 2 ? kF32Threads : kWgThreads, (size_t)*smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -636,11 +865,13 @@ extern "C" int probe_wgmma_occupancy(int which, int n_mma, int split, int k,
 // Bound: bytes (g, y read once, out written once; 2 FLOP per 8 bytes).  Two
 // loop orders, as the TPU probe has.  Both sum a channel in c, then r order
 // with fmaf, so they give equal bits.
-//   spill  chunk-outer: a thread per lane a, a block per b, so every load
-//          and store coalesces across lanes; all na x nlm = 168
-//          accumulators stay live across the chunks (on the TPU they
-//          spilled to VMEM; here they are registers while ptxas can hold
-//          them: see its -v report for probe_reduce_spill_kernel);
+//   spill  chunk-outer: a thread per lane a, a block per (b, tile of at
+//          most 256 lanes), so every load and store coalesces across
+//          lanes; all na x nlm = 168 accumulators stay live across the
+//          chunks (on the TPU they spilled to VMEM; here they are
+//          registers while ptxas can hold them: 254 a thread, see its -v
+//          report for probe_reduce_spill_kernel, so 256 threads a block
+//          at most: wider rows take several tiles);
 //   tiled  channel-outer: a block takes one (b, tile of kRtL lanes) and
 //          stages the tile's whole g and y slab in shared memory with
 //          16-byte cp.async, so every device byte is read once; then
@@ -663,12 +894,13 @@ constexpr int kNLM = 24;
 constexpr int kRtL = 16;                 // lanes a tile (tiled order)
 constexpr int kRtGS = 9 * kRtL;          // floats an 8-row group in the slab
 constexpr int kRtThreads = kNLM * kRtL;  // thread (m, lane)
+constexpr int kSpillThreads = 256;       // most lanes a spill-order block
 
 __device__ __forceinline__ void reduce_spill_body(const float* __restrict__ g,
                                                   const float* __restrict__ y,
                                                   float* __restrict__ out,
-                                                  int chunks) {
-  const int b = blockIdx.x, a = threadIdx.x, lanes = blockDim.x;
+                                                  int chunks, int b, int a,
+                                                  int lanes) {
   const float* gb = g + (size_t)b * chunks * 8 * kNA * lanes + a;
   const float* yb = y + (size_t)b * chunks * 8 * kNLM * lanes + a;
   float* ob = out + (size_t)b * kNA * kNLM * lanes + a;
@@ -706,10 +938,15 @@ long reduce_tiled_smem(int chunks) {
 int reduce_tiles(int lanes) { return (lanes + kRtL - 1) / kRtL; }
 }  // namespace
 
+// a block a (b, tile of blockDim.x lanes): the 168 accumulators take 254
+// registers a thread, so a block holds at most kSpillThreads lanes
 extern "C" __global__ void probe_reduce_spill_kernel(const float* g,
                                                      const float* y,
-                                                     float* out, int chunks) {
-  reduce_spill_body(g, y, out, chunks);
+                                                     float* out, int chunks,
+                                                     int lanes, int tiles) {
+  const int b = blockIdx.x / tiles;
+  const int a = (blockIdx.x - b * tiles) * blockDim.x + threadIdx.x;
+  if (a < lanes) reduce_spill_body(g, y, out, chunks, b, a, lanes);
 }
 
 extern "C" __global__ void __launch_bounds__(kRtThreads)
@@ -759,14 +996,19 @@ probe_reduce_tiled_kernel(const float* __restrict__ g,
   }
 }
 
+// spill 1: the spill order, a block a (b, tile of at most kSpillThreads
+// lanes); 0: the tiled order.
 extern "C" int probe_reduce_launch(const float* g, const float* y, float* out,
                                    int nb, int na, int nlm, int chunks,
                                    int lanes, int spill, void* stream) {
   if (na != kNA || nlm != kNLM || lanes < 1 || lanes > 1024)
     return (int)cudaErrorInvalidValue;
   if (spill) {
-    probe_reduce_spill_kernel<<<nb, lanes, 0, (cudaStream_t)stream>>>(
-        g, y, out, chunks);
+    const int tile = min(lanes, kSpillThreads);
+    const int tiles = (lanes + tile - 1) / tile;
+    probe_reduce_spill_kernel<<<(unsigned)nb * tiles, tile, 0,
+                                (cudaStream_t)stream>>>(g, y, out, chunks,
+                                                        lanes, tiles);
     return (int)cudaGetLastError();
   }
   // the slab's rows are 16-byte pieces of lanes

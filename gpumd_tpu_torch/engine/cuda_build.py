@@ -49,7 +49,8 @@ _SIGNATURES = {
     "k1_occupancy": [I] * 3 + [P],
     "k2_occupancy": [I] * 3 + [P],
     "scatter_launch": [P] * 4 + [I] * 9 + [P],
-    "fold_launch": [P] * 2 + [I] * 10 + [P],
+    "fold_launch": [P] * 2 + [I] * 12 + [P],
+    "fold_occupancy": [I] * 2 + [P],
     "compact_rows_launch": [P] * 3 + [I] * 9 + [P],
     "compact_windows_launch": [P] * 3 + [I] * 4 + [P],
     "tersoff_launch": [P] * 6 + [I] * 7 + [P],
@@ -61,6 +62,7 @@ _SIGNATURES = {
     "probe_trans_launch": [P] * 4 + [I] + [P],
     "probe_onehot_ffma_launch": [P] * 2 + [I] * 5 + [P],
     "probe_onehot_tf32_launch": [P] * 2 + [I] * 7 + [P],
+    "probe_onehot_f32_launch": [P] * 2 + [I] * 8 + [P],
     "probe_feature_launch": [P] * 2 + [I] * 8 + [P],
     "probe_wgmma_occupancy": [I] * 5 + [P] * 2,
     "probe_reduce_launch": [P] * 3 + [I] * 6 + [P],

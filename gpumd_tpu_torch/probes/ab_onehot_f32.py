@@ -8,13 +8,15 @@ PATH:SYMBOL[:EXTRA,...], SYMBOL its f32 launcher, called as
 SYMBOL(vals, out, nb, m, k, n, ksplit, *EXTRA, stream) (EXTRA: ints):
 
   python -m gpumd_tpu_torch.probes.ab_onehot_f32 \\
-      old/libgpumd_kernels.so:probe_onehot_launch:0 \\
-      build/kernels-<hash>/libgpumd_kernels.so:probe_onehot_ffma_launch
+      old/libgpumd_kernels.so:probe_onehot_ffma_launch \\
+      build/kernels-<hash>/libgpumd_kernels.so:probe_onehot_f32_launch:128,4,132
 
-prints each round's ms (3 rounds of A, B, B, A, 5 calls a reading), the
-best of each, and max |A - B| of the outputs (the same function, so 0
-when both sum in the same order), at the probes' timed shape (nb 1,734,
-144 x 4096 x 128, ksplit 1).
+(the three-pass launcher's EXTRA is its plan: wgmma N, ring stages,
+persistent blocks; bench_mxu_probes.onehot_f32_plan at this shape) prints
+each round's ms (3 rounds of A, B, B, A, 5 calls a reading), the best of
+each, max |A - B| of the outputs and each one's max |error| against the
+product in f64, on random normal inputs from a seed, at the probes' timed
+shape (nb 1,734, 144 x 4096 x 128, ksplit 1).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import ctypes
 import torch
 
 from gpumd_tpu_torch.probes import probe_device
+from gpumd_tpu_torch.probes.bench_mxu_probes import onehot_dot_plain
 
 SHAPE = (1734, 144, 4096, 128)  # nb, m, k, n: chip_smoke's timed case
 ROUNDS, REPS = 3, 5
@@ -68,7 +71,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     dev = probe_device()
     nb, m, k, n = SHAPE
-    vals = torch.ones((nb, m, k), device=dev)
+    gen = torch.Generator(dev).manual_seed(5)
+    vals = torch.randn((nb, m, k), device=dev, generator=gen)
     outs = {key: torch.empty((nb, m, n), device=dev) for key in "ab"}
     lib = {"a": _launcher(args.a), "b": _launcher(args.b)}
     times = {"a": [], "b": []}
@@ -79,9 +83,14 @@ def main(argv=None) -> dict:
             print(f"round {r} {key.upper()} {ms:.4f} ms")
     res = {f"best_{key}_ms": min(t) for key, t in times.items()}
     res["max_abs_diff"] = float((outs["a"] - outs["b"]).abs().max())
+    exact = onehot_dot_plain(vals.double(), n)
+    for key in "ab":
+        res[f"f64_error_{key}"] = float(
+            (outs[key].double() - exact).abs().max())
     print(f"best A {res['best_a_ms']:.4f} ms, best B {res['best_b_ms']:.4f} "
           f"ms (B/A {res['best_b_ms'] / res['best_a_ms']:.4f}); max |A - B| "
-          f"{res['max_abs_diff']:.3e}")
+          f"{res['max_abs_diff']:.3e}; max |error| against f64: A "
+          f"{res['f64_error_a']:.3e}, B {res['f64_error_b']:.3e}")
     return res
 
 

@@ -8,7 +8,8 @@ the compact engine's pair math would run as matrix-unit products, at the
                   mask: the scatter's one-hot dot in its current shape and
                   variants (k split in 4, 72 rows, k 3072, 88, 108 and 96
                   rows), on the tensor cores in TF32 (the MXU's
-                  Precision.DEFAULT) or in f32 FFMA (Precision.HIGHEST)
+                  Precision.DEFAULT) or f32-exact in three TF32 passes
+                  (Precision.HIGHEST)
   feature_matmul  per 8-slot chunk (ch x 8k) @ (8k x 128) with the table
                   [eye(ch, k)] x 8, summed over the chunks, in TF32
   pair_reduce     out[n nlm + m] = sum over chunks and 8 rows of g[n] y[m]
@@ -93,13 +94,14 @@ ALIGN = 1024        # the 128-byte swizzle's atom; dynamic smem is padded to it
 
 @dataclass(frozen=True)
 class WgmmaPlan:
-    """How a TF32 probe kernel runs a call: `mma` is the wgmma shape (M, N,
-    K); a unit is a 128-row tile of the (nb m, k) matrix (one-hot) or one
-    b (feature); each of `blocks` blocks walks units blockIdx.x, + blocks,
-    ...; a stage holds `stage_k` k columns (one-hot: in TMA boxes of 32)
-    or chunk rows (feature) of vals, `stage_bytes` bytes, `stages` of them
-    in the ring; `smem` is the block's dynamic shared memory (the
-    launcher computes the same from N, k and stages)."""
+    """How a wgmma probe kernel runs a call (`kernel` "onehot", "onehot_f32"
+    or "feature"): `mma` is the wgmma shape (M, N, K); a unit is a 128-row
+    tile of the (nb m, k) matrix (one-hot) or one b (feature); each of
+    `blocks` blocks walks units blockIdx.x, + blocks, ...; a stage holds
+    `stage_k` k columns (one-hot: in TMA boxes of 32) or chunk rows
+    (feature) of vals, `stage_bytes` bytes, `stages` of them in the ring;
+    `smem` is the block's dynamic shared memory (the launcher computes the
+    same from N, k and stages)."""
 
     kernel: str
     mma: tuple
@@ -112,11 +114,19 @@ class WgmmaPlan:
     blocks: int
 
     @property
+    def warps(self) -> int:
+        """Warps a block: two consumer warpgroups and a producer warp; the
+        f32 path's thread 0 is its producer (kF32Threads)."""
+        return 8 if self.kernel == "onehot_f32" else 9
+
+    @property
     def entry(self) -> str:
         """The kernel instance's (mangled) name, as ptxas reports it."""
         n = self.mma[1]
         if self.kernel == "onehot":
             return f"probe_onehot_tf32_kernelILi{n}ELb{int(self.split)}E"
+        if self.kernel == "onehot_f32":
+            return f"probe_onehot_f32_kernelILi{n}E"
         return f"probe_feature_tf32_kernelILi{n}E"
 
 
@@ -155,12 +165,52 @@ def onehot_plan(nb, m, k, n, ksplit=1, sms=132) -> WgmmaPlan:
         raise ValueError(f"onehot_dot: TF32 needs k {k} a multiple of 4 and "
                          f"each of the {ksplit} parts a multiple of "
                          f"{stage_k}")
+    return _onehot_ring("onehot", nb, m, n, ksplit, sms)
+
+
+def onehot_f32_plan(nb, m, k, n, ksplit=1, sms=132) -> WgmmaPlan:
+    """The f32 path's plan on the TF32 kernel's ring (three TF32 passes on
+    the tensor cores), or ValueError for a shape it does not take: n a
+    multiple of 16 up to 128, k a multiple of ksplit and of 4 (the TMA row
+    stride).  Parts need not be whole stages: each starts a stage of its
+    own."""
+    _check_onehot(n, k, ksplit)
+    if k % 4:
+        raise ValueError(f"onehot_dot: the f32 ring needs k {k} a multiple "
+                         f"of 4")
+    return _onehot_ring("onehot_f32", nb, m, n, ksplit, sms)
+
+
+def _onehot_ring(kernel, nb, m, n, ksplit, sms):
+    """The one-hot kernels' ring: 128-row tiles of (nb m) rows, stages of
+    two TMA boxes of 32 k columns, R^T (N x 32) beside them."""
     nn = _mma_n(n, ONEHOT_N)
+    stage_k = ONEHOT_BOXES * ONEHOT_KC
     stage = TILE_M * stage_k * 4
     stages, smem = _ring("onehot", nn * ONEHOT_KC * 4, stage)
     units = -(-nb * m // TILE_M)
-    return WgmmaPlan("onehot", (64, nn, 8), ksplit > 1, stage_k, stage,
+    return WgmmaPlan(kernel, (64, nn, 8), ksplit > 1, stage_k, stage,
                      stages, smem, units, max(1, min(units, sms)))
+
+
+def onehot_f32_on_ring(k, base) -> bool:
+    """Whether the f32 path runs on the ring (probe_onehot_f32_kernel) for
+    k columns at base address `base`: k a multiple of 4 and a 16-byte
+    aligned base, as TMA needs; else the FFMA kernel takes the call."""
+    return k % 4 == 0 and base % 16 == 0
+
+
+def tf32_split(a):
+    """f32 a -> (hi, mid, lo), the f32 path's exact split into three TF32
+    terms (tf32_split in probes.cu): hi is a with its low 13 mantissa bits
+    cleared, mid the same of a - hi, lo = a - hi - mid; hi + mid + lo == a
+    for every finite a, and each term is a TF32 value for |a| >= 2^-103
+    (below, lo holds bits under TF32's smallest step)."""
+    mask = torch.tensor(-8192, dtype=torch.int32)  # 0xFFFFE000
+    hi = (a.view(torch.int32) & mask).view(torch.float32)
+    r = a - hi
+    mid = (r.view(torch.int32) & mask).view(torch.float32)
+    return hi, mid, r - mid
 
 
 def feature_plan(nb, mn, k, ch, lanes=A, sms=132) -> WgmmaPlan:
@@ -187,8 +237,9 @@ def wgmma_occupancy(plan: WgmmaPlan) -> tuple:
     from cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
     feature = plan.kernel == "feature"
+    which = {"onehot": 0, "feature": 1, "onehot_f32": 2}[plan.kernel]
     rc = cuda_build.library().probe_wgmma_occupancy(
-        int(feature), plan.mma[1], int(plan.split),
+        which, plan.mma[1], int(plan.split),
         plan.stage_k // 8 if feature else 0, plan.stages,
         ctypes.addressof(smem), ctypes.addressof(blocks))
     cuda_build.check(rc, "probe_wgmma_occupancy")
@@ -218,6 +269,12 @@ def _onehot_cuda(vals, n, ksplit, prec):
             cuda_build.ptr(vals), cuda_build.ptr(out), nb * m, k, n, ksplit,
             plan.mma[1], plan.stages, plan.blocks, cuda_build.stream())
         cuda_build.check(rc, "probe_onehot_tf32_launch")
+    elif onehot_f32_on_ring(k, vals.data_ptr()):
+        plan = onehot_f32_plan(nb, m, k, n, ksplit, _sms(vals.device))
+        rc = lib.probe_onehot_f32_launch(
+            cuda_build.ptr(vals), cuda_build.ptr(out), nb, m, k, n, ksplit,
+            plan.mma[1], plan.stages, plan.blocks, cuda_build.stream())
+        cuda_build.check(rc, "probe_onehot_f32_launch")
     else:
         rc = lib.probe_onehot_ffma_launch(
             cuda_build.ptr(vals), cuda_build.ptr(out), nb, m, k, n, ksplit,
@@ -229,7 +286,9 @@ def _onehot_cuda(vals, n, ksplit, prec):
 
 def onehot_dot(vals, n, ksplit=1, prec="default"):
     """vals (nb, m, k) f32 -> (nb, m, n).  prec "default": TF32 tensor
-    cores, f32 accumulation; "highest": f32 FFMA."""
+    cores, f32 accumulation; "highest": f32-exact products, on the tensor
+    cores in three TF32 passes (k a multiple of 4, 16-byte aligned base) or
+    in f32 FFMA (other k or bases)."""
     if prec not in PRECISIONS:
         raise ValueError(f"prec {prec!r} not in {PRECISIONS}")
     if vals.is_cuda:
@@ -356,12 +415,23 @@ def pair_reduce_plain(g, y, na=7, nlm=24):
     return (gv * yv).sum(dim=(1, 4)).reshape(nb, na * nlm, a)
 
 
+def reduce_chunks(na, nlm, rows, lanes) -> int:
+    """The chunks of a pair-reduce call on the card, or ValueError for a
+    shape neither order takes: the kernels are built for na 7 and nlm 24,
+    whole 8-row chunks and 1 to 1024 lanes (the spill order runs lane tiles
+    of at most 256 threads, kSpillThreads, since its 168 accumulators take
+    254 registers a thread)."""
+    chunks = rows // (8 * na)
+    if ((na, nlm) != (7, 24) or rows != 8 * na * chunks
+            or not 0 < lanes <= 1024):
+        raise ValueError("pair_reduce: the kernel is built for na 7, nlm 24, "
+                         "whole 8-row chunks and 1 to 1024 lanes")
+    return chunks
+
+
 def _reduce_cuda(g, y, na, nlm, order):
     nb, rows, a = g.shape
-    chunks = rows // (8 * na)
-    if (na, nlm) != (7, 24) or rows != 8 * na * chunks or a > 1024:
-        raise ValueError("pair_reduce: the kernel is built for na 7, nlm 24, "
-                         "whole 8-row chunks and at most 1024 lanes")
+    chunks = reduce_chunks(na, nlm, rows, a)
     cuda_build.require(g, "g", torch.float32)
     cuda_build.require(y, "y", torch.float32, (nb, 8 * nlm * chunks, a),
                        device=g.device)

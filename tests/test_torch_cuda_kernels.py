@@ -9,19 +9,21 @@ They cover what chip_smoke.py does not: every ZBL variant, K1 and K2 on
 every class of their template instances (l_max 1 to 8, kr1/ka1/na1 up to
 20, 2, 3 and 8 types, both rungs, blocks without a live centre, centres
 that fill mn_a, equal bits from two calls), fold plans with bx = 1, odd
-caps and free axes, the
+caps, free axes, an unaligned base and the PbTe 262k and Si 1M plans, the
 compact-list rung on both compactions at CPU-test sizes, the Tersoff
 kernel on the 512-atom CPU-test plan, with two types (SiC) and at 32k
 atoms, and the four dense-window kernels (K1b, K2b, round-1 K1 and K2) on
 random solids with close pairs inside the ZBL switch, empty slots and an
 open axis; and the six probe kernels of csrc/probes.cu (the one-hot dot
 in TF32 and f32 on tiles across b boundaries, part-full tiles, n 16 to
-128, k 100 and ksplit 4, the feature matmul at ch 24, 168 and 200, nb 1
-to 300, equal bits from two calls, the shapes the TF32 kernels refuse;
-both pair-reduce orders at chunks 1 to 13, part-full lane tiles and nb 1
-and 9, the tiled order equal to the spill order bit for bit, the shapes
-it refuses; the blocked gather at nblk 11 and 18 with
-indices out of range, the gather bit for bit, the transcendental gate).
+128, k 100 and ksplit 4, the f32 path's error against f64 within twice
+f32 torch.matmul's and its exact row sums bit for bit, the feature matmul
+at ch 24, 168 and 200, nb 1 to 300, equal bits from two calls, the
+shapes the TF32 kernels refuse; both pair-reduce orders at chunks 1 to
+13, part-full lane tiles, nb 1 and 9 and up to 1024 lanes, the tiled
+order equal to the spill order bit for bit, the shapes it refuses; the
+blocked gather at nblk 11 and 18 with indices out of range, the gather
+bit for bit, the transcendental gate).
 Tolerances are relative to max|plain| in f32: 1e-5 for the
 K1s and the fold (summation order), 1e-4 for the K2s, the scatter and the
 Tersoff kernel (op order, hand-derived vs autograd gradients, shared-memory
@@ -266,22 +268,40 @@ def test_k1_k2_instances_match_plain(dev, case):
         assert bool(full.any())
 
 
-@pytest.mark.parametrize("bx,cap,grid,pbc", [
-    (1, 40, (3, 4, 3), (True, True, True)),
-    (3, 24, (3, 3, 4), (True, False, True)),
-    (2, 48, (4, 3, 1), (True, True, False)),
-    (2, 64, (6, 5, 4), (True, True, True)),
+# The fold on every kind of plan: bx 1 and 3, free y or z, the PbTe 262k
+# default rung's plan (bx 2, cap 64, C 4, wl 2304) and the Si 1M plan (bx
+# 14, cap 8, C 4, wl 1152), both with 16-byte units; caps 6 and 10 (not a
+# multiple of 4) and an unaligned base take 4-byte units.  Each call
+# moves the counter by one; two calls give equal bits; the plan's kernel
+# instance has a resident block an SM.
+@pytest.mark.parametrize("bx,cap,grid,pbc,c,wl,offset", [
+    (1, 40, (3, 4, 3), (True, True, True), 5, None, 0),
+    (3, 24, (3, 3, 4), (True, False, True), 5, None, 0),
+    (2, 48, (4, 3, 1), (True, True, False), 5, None, 0),
+    (2, 64, (6, 5, 4), (True, True, True), 5, None, 0),
+    (2, 64, (16, 22, 22), (True, True, True), 4, 2304, 0),
+    (14, 8, (56, 67, 67), (True, True, True), 4, 1152, 0),
+    (2, 6, (4, 3, 3), (True, False, True), 3, None, 0),
+    (1, 10, (2, 3, 2), (True, True, True), 2, 9 * 3 * 10, 0),
+    (2, 64, (6, 5, 4), (False, True, True), 5, None, 1),
 ])
-def test_fold_matches_plain_every_plan(dev, bx, cap, grid, pbc):
+def test_fold_matches_plain_every_plan(dev, bx, cap, grid, pbc, c, wl,
+                                       offset):
     plan = TG.DenseGridPlan(grid=grid, cap=cap, rc=4.0, skin=1.0, pbc=pbc)
     nx, ny, nz = grid
-    wl = TG.round_up(9 * (bx + 2) * cap, 128)
-    dw = torch.randn((nz, ny, 5, nx // bx, wl), device=dev,
-                     generator=torch.Generator(dev).manual_seed(0))
+    wl = wl or TG.round_up(9 * (bx + 2) * cap, 128)
+    shape = (nz, ny, c, nx // bx, wl)
+    flat = torch.randn(offset + int(np.prod(shape)), device=dev,
+                       generator=torch.Generator(dev).manual_seed(0))
+    dw = flat[offset:].view(shape)
+    fp = TF.fold_plan(plan, bx, c, wl, aligned=dw.data_ptr() % 16 == 0)
+    assert fp.vec == (4 if cap % 4 == 0 and offset == 0 else 1)
+    assert TF.fold_occupancy(fp) >= 1
     before = cuda_build.launches["fold"]
     got = TF.fold_windows_to_rows(dw, plan, bx)
     assert cuda_build.launches["fold"] == before + 1
     assert _rel(got, TF.fold_windows_to_rows_plain(dw, plan, bx)) <= 1e-5
+    assert torch.equal(TF.fold_windows_to_rows(dw, plan, bx), got)
 
 
 def test_wrappers_reject_wrong_dtype(dev):
@@ -534,10 +554,10 @@ def _gen(dev, seed):
     (1, 20, 256, 64, 2)])
 def test_probe_onehot_matches_plain(dev, prec, nb, m, k, n, ksplit):
     vals = torch.randn((nb, m, k), device=dev, generator=_gen(dev, m + k))
-    if prec == "default":
-        plan = PM.onehot_plan(nb, m, k, n, ksplit)
-        smem, blocks = PM.wgmma_occupancy(plan)
-        assert smem == plan.smem and blocks >= 1
+    plan = (PM.onehot_plan if prec == "default" else PM.onehot_f32_plan)(
+        nb, m, k, n, ksplit)
+    smem, blocks = PM.wgmma_occupancy(plan)
+    assert smem == plan.smem and blocks >= 1
     before = cuda_build.launches["probe_onehot_dot"]
     got = PM.onehot_dot(vals, n, ksplit, prec)
     assert cuda_build.launches["probe_onehot_dot"] == before + 1
@@ -546,6 +566,58 @@ def test_probe_onehot_matches_plain(dev, prec, nb, m, k, n, ksplit):
     assert _rel(got, ref) <= (2e-3 if prec == "default" else 1e-5)
     assert torch.equal(PM.onehot_dot(vals, n, ksplit, prec), got)
     assert cuda_build.launches["probe_onehot_dot"] == before + 2
+
+
+# The f32 path against the product in f64 on random normal inputs (with
+# ones, mid and lo would be zero and a dropped term would pass): its error
+# at most twice that of f32 torch.matmul (TF32 off) on the same inputs, at
+# the timed m, k, n and at odd shapes: m 72, 88, 108; n 16, 96, 128; k 96
+# in 3 parts of 32 columns (parts that are not whole 64-column stages, on
+# the ring); k 98, which the ring cannot take (no TMA row stride), so the
+# FFMA kernel does, chosen from the shape.
+@pytest.mark.parametrize("nb,m,k,n,ksplit", [
+    (40, 144, 4096, 128, 1), (40, 144, 4096, 128, 4), (9, 72, 4096, 128, 1),
+    (9, 88, 3072, 96, 1), (9, 108, 4096, 16, 1), (9, 88, 96, 128, 3),
+    (9, 72, 96, 16, 3), (9, 108, 98, 96, 1), (9, 72, 98, 128, 1)])
+def test_probe_onehot_f32_error_against_f64(dev, nb, m, k, n, ksplit):
+    vals = torch.randn((nb, m, k), device=dev, generator=_gen(dev, 3 * k + m))
+    assert PM.onehot_f32_on_ring(k, vals.data_ptr()) == (k % 4 == 0)
+    before = cuda_build.launches["probe_onehot_dot"]
+    got = PM.onehot_dot(vals, n, ksplit, "highest")
+    assert cuda_build.launches["probe_onehot_dot"] == before + 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib = PM.onehot_dot_plain(vals, n, ksplit)
+    exact = PM.onehot_dot_plain(vals.double(), n, ksplit)
+    err = float((got.double() - exact).abs().max())
+    err_lib = float((lib.double() - exact).abs().max())
+    assert err <= 2 * err_lib, (err, err_lib)
+
+
+# The f32 path on rows of one random normal value each, at a random
+# column: every row sum is exact in f32, so the result must be the f64
+# product bit for bit.  This catches a kernel that drops the split's mid or
+# lo term, which the error check above cannot see (a lo term is below
+# 2^-21 of its value).  The ring at ksplit 1 and 4, parts that are not
+# whole stages, n 16 and 96; the FFMA kernel at k 98 and on a base 4 bytes
+# past 16-byte alignment, chosen from the shape.
+@pytest.mark.parametrize("nb,m,k,n,ksplit,offset", [
+    (9, 144, 4096, 128, 1, 0), (9, 144, 4096, 128, 4, 0),
+    (9, 88, 96, 128, 3, 0), (9, 72, 4096, 16, 1, 0), (9, 108, 3072, 96, 1, 0),
+    (9, 108, 98, 96, 1, 0), (9, 144, 4096, 128, 1, 1)])
+def test_probe_onehot_f32_exact_row_sums(dev, nb, m, k, n, ksplit, offset):
+    gen = _gen(dev, 5 * k + m + offset)
+    vals = torch.zeros(nb * m * k + offset, device=dev)[offset:]
+    vals = vals.view(nb, m, k)
+    col = torch.randint(0, k, (nb, m, 1), device=dev, generator=gen)
+    one = torch.randn((nb, m, 1), device=dev, generator=gen)
+    vals.scatter_(2, col, one)
+    # about half the values have a lo term, so a kernel without it fails
+    assert int((PM.tf32_split(one)[2] != 0).sum()) > nb * m // 4
+    assert PM.onehot_f32_on_ring(k, vals.data_ptr()) == (
+        k % 4 == 0 and offset == 0)
+    got = PM.onehot_dot(vals, n, ksplit, "highest")
+    exact = PM.onehot_dot_plain(vals.double(), n, ksplit)
+    assert torch.equal(got, exact.float())
 
 
 # The feature matmul at wgmma N 32, 192 and 256 (ch 24, 168, 200), at nb 1
@@ -571,20 +643,20 @@ def test_probe_feature_matches_plain(dev, nb, ch):
 
 # The pair reduce, both orders against the plain version at chunks 1, 2,
 # 4 and 13 (the most one lane tile's slab holds), nb 1 and 9, 128 lanes,
-# 100 and 36 (a part-full last tile of 16 lanes) and, tiled only, 1024
-# (the spill order's 168 accumulators take 254 registers a thread, too many
-# for 1024 threads).  Each call moves the counter by one, two calls give
-# equal bits, and the tiled order equals the spill order bit for bit: both
-# sum a channel in chunk, then row order with fmaf.  The tiled launcher's
-# shared memory, threads, tile and blocks are the plan's.
+# 100 and 36 (a part-full last tile of 16 lanes), 1024 and 300 (the spill
+# order's 168 accumulators take 254 registers a thread, so it runs 4 and 2
+# tiles of 256 lanes a b).  Each call moves the counter by one, two calls
+# give equal bits, and the tiled order equals the spill order bit for bit:
+# both sum a channel in chunk, then row order with fmaf.  The tiled
+# launcher's shared memory, threads, tile and blocks are the plan's.
 REDUCE_CASES = [(9, 4, 128), (1, 4, 128), (9, 1, 128), (9, 2, 128),
-                (1, 13, 128), (9, 4, 100), (3, 3, 36)]
+                (1, 13, 128), (9, 4, 100), (3, 3, 36), (2, 4, 1024),
+                (3, 2, 300)]
 
 
 @pytest.mark.parametrize(
     "order,nb,chunks,lanes",
-    [(o, *c) for o in PM.ORDERS for c in REDUCE_CASES]
-    + [("tiled", 2, 4, 1024)])
+    [(o, *c) for o in PM.ORDERS for c in REDUCE_CASES])
 def test_probe_pair_reduce_matches_plain(dev, order, nb, chunks, lanes):
     gen = _gen(dev, 7 + chunks)
     g = torch.randn((nb, chunks * 8 * 7, lanes), device=dev, generator=gen)
@@ -602,10 +674,10 @@ def test_probe_pair_reduce_matches_plain(dev, order, nb, chunks, lanes):
     assert got.shape == ref.shape and torch.isfinite(got).all()
     assert _rel(got, ref) <= 1e-5
     assert torch.equal(PM.pair_reduce(g, y, order=order), got)
-    if order == "tiled" and lanes <= 256:
+    if order == "tiled":
         assert torch.equal(got, PM.pair_reduce(g, y, order="spill"))
     assert cuda_build.launches["probe_pair_reduce"] == before + (
-        3 if order == "tiled" and lanes <= 256 else 2)
+        3 if order == "tiled" else 2)
 
 
 @pytest.mark.parametrize("nblk,chunks", [(18, 14), (11, 14), (11, 12),
@@ -671,7 +743,7 @@ def test_probe_wrappers_reject_wrong_inputs(dev):
     # what the TF32 kernels cannot take: a TMA row stride that is no
     # multiple of 16 bytes, k-split parts that are not whole stages, a
     # table wider than one wgmma N, an unaligned base; the f32 path takes
-    # the first two
+    # the first two (k 98 on the FFMA kernel, the parts on the ring)
     before = dict(cuda_build.launches)
     odd = torch.randn((2, 16, 98), device=dev)
     with pytest.raises(ValueError, match="multiple of 4"):

@@ -255,3 +255,39 @@ def test_fold_plain_serves_every_plan(bx, cap, grid, pbc):
     got = TF.fold_windows_to_slots(_t(dw), tplan, bx)
     ref = _xla_fold(jnp.asarray(dw), plan, bx)
     _close(got, ref)
+
+
+# The fold's launch: the PbTe 262k default rung (bx 2, cap 64), the
+# jittered rung (cap 56), 1M PbTe, Si 32k (bx 8, cap 16) and 1M (bx 14,
+# cap 8), the card test's plans, caps that are not multiples of 4 and the
+# shapes it refuses (nx not whole x-blocks, a window narrower than 9
+# groups).
+@pytest.mark.parametrize("bx,cap,grid,c,wl", [
+    (2, 64, (16, 22, 22), 4, 2304), (2, 56, (16, 22, 22), 4, 2048),
+    (2, 64, (24, 34, 34), 4, 2304), (8, 16, (16, 21, 21), 4, 1536),
+    (14, 8, (56, 67, 67), 4, 1152), (1, 40, (3, 4, 3), 5, 1152),
+    (3, 24, (3, 3, 4), 5, 1152), (2, 6, (4, 3, 3), 3, 256),
+    (1, 10, (2, 3, 2), 2, 270), (3, 8, (4, 3, 3), 2, 1152),
+    (2, 16, (4, 3, 3), 2, 500)])
+def test_fold_plan_covers_the_row_or_is_refused(bx, cap, grid, c, wl):
+    plan = TG.DenseGridPlan(grid=grid, cap=cap, rc=4.0, skin=1.0,
+                            pbc=(True, True, True))
+    nx, ny, nz = grid
+    if nx % bx or wl < 9 * (bx + 2) * cap:
+        with pytest.raises(ValueError):
+            TF.fold_plan(plan, bx, c, wl)
+        return
+    for aligned in (True, False):
+        fp = TF.fold_plan(plan, bx, c, wl, aligned)
+        vec = 4 if cap % 4 == 0 and wl % 4 == 0 and aligned else 1
+        assert fp.vec == vec and fp.units * vec == nx * cap
+        assert fp.threads % 32 == 0 and 32 <= fp.threads <= 128
+        # one pass covers a row where it fits a block
+        assert fp.threads >= min(fp.units, 128) > fp.threads - 32
+        assert fp.blocks == nz * ny * c
+        assert fp.entry == f"fold_rows_kernelILi{vec}E"
+    if (bx, cap, grid) == (2, 64, (16, 22, 22)):
+        # PbTe 262k: 1,936 rows of 256 float4 units, 128 threads a row
+        fp = TF.fold_plan(plan, bx, c, wl)
+        assert (fp.blocks, fp.units, fp.threads) == (1936, 256, 128)
+

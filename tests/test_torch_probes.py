@@ -258,6 +258,95 @@ def test_onehot_plan_fits_the_card_or_is_refused(nb, m, k, n, ksplit):
                           f"{int(ksplit > 1)}E")
 
 
+@pytest.mark.parametrize("nb,m,k,n,ksplit", ONEHOT_SHAPES)
+def test_onehot_f32_plan_fits_the_card_or_is_refused(nb, m, k, n, ksplit):
+    """The f32 path's ring plan: the TF32 kernel's ring and shared memory,
+    k-split parts of any width; it refuses k that is not a multiple of 4
+    (no TMA row stride), which the FFMA kernel then takes."""
+    takes = (n % 16 == 0 and 0 < n <= 128 and k % ksplit == 0
+             and k % 4 == 0)
+    on_ring = MX.onehot_f32_on_ring(k, 0)
+    assert on_ring == (k % 4 == 0)
+    assert not MX.onehot_f32_on_ring(k, 4)  # an unaligned base: FFMA
+    if not takes:
+        with pytest.raises(ValueError):
+            MX.onehot_f32_plan(nb, m, k, n, ksplit)
+        return
+    plan = MX.onehot_f32_plan(nb, m, k, n, ksplit)
+    assert _legal_mma(plan, n) and plan.mma[1] in MX.ONEHOT_N
+    assert plan.kernel == "onehot_f32" and plan.split == (ksplit > 1)
+    assert plan.stage_k == MX.ONEHOT_BOXES * MX.ONEHOT_KC
+    assert plan.stage_bytes == MX.TILE_M * plan.stage_k * 4
+    assert 2 <= plan.stages <= MX.MAX_STAGES["onehot"]
+    need = (plan.stages * (plan.stage_bytes + 16) + plan.mma[1] * 128
+            + MX.ALIGN)
+    assert need <= plan.smem <= SMEM_LIMIT
+    assert plan.units * MX.TILE_M >= nb * m > (plan.units - 1) * MX.TILE_M
+    assert plan.blocks == min(plan.units, 132)
+    assert plan.entry == f"probe_onehot_f32_kernelILi{plan.mma[1]}E"
+    if (nb, m, k, n, ksplit) == (NB, 144, 4096, 128, 1):
+        # the timed shape: the same ring as the TF32 kernel's
+        tf32 = MX.onehot_plan(nb, m, k, n, ksplit)
+        assert (plan.stages, plan.smem, plan.units) == (
+            tf32.stages, tf32.smem, tf32.units)
+
+
+def _tf32_exact(t):
+    """Whether every element is a TF32 value: its low 13 mantissa bits 0."""
+    return bool(((t.view(torch.int32) & 0x1FFF) == 0).all())
+
+
+def test_tf32_split_is_exact():
+    """hi + mid + lo == a bit for bit on random f32 across the whole
+    exponent range (subnormals, zeros, both signs, the largest finite);
+    every term is a TF32 value (at most 10 explicit mantissa bits) for
+    |a| >= 2^-103, where all three terms are normal; below, hi and mid
+    are, and lo keeps a's bits under 2^-136, TF32's smallest step, which
+    no sum of TF32 values can hold."""
+    rng = _rng(11)
+    bits = rng.integers(0, 2 ** 32, size=200_000, dtype=np.uint64)
+    a = bits.astype(np.uint32).view(np.float32)
+    a = a[np.isfinite(a)]
+    extra = np.array([0.0, -0.0, 1.0, -1.5, np.finfo(np.float32).max,
+                      np.finfo(np.float32).tiny, 1e-45, -3e-39, 2.0 ** -103,
+                      np.nextafter(np.float32(2.0 ** -103), np.float32(0))],
+                     dtype=np.float32)
+    sub = (rng.integers(1, 2 ** 23, size=5000).astype(np.uint32)
+           .view(np.float32))
+    normal = rng.normal(size=50_000).astype(np.float32)
+    t = _t(np.concatenate([a, extra, sub, -sub, normal]))
+    assert bool((t.abs() < 2.0 ** -126).sum() > 5000)  # subnormals in
+    hi, mid, lo = MX.tf32_split(t)
+    # the sum is exact in f64 and equals a, and so is the f32 sum
+    assert torch.equal(hi.double() + mid.double() + lo.double(), t.double())
+    assert torch.equal((hi + mid) + lo, t)
+    big = t.abs() >= 2.0 ** -103
+    assert _tf32_exact(hi) and _tf32_exact(mid)
+    assert _tf32_exact(lo[big])
+    # each term's magnitude: hi carries a's top bits, mid and lo the rest
+    assert bool((hi.abs() <= t.abs()).all())
+    assert bool((mid.abs() <= 2.0 ** -10 * t.abs() + 2.0 ** -149).all())
+
+
+# The pair reduce's shape check, which decides whether either order
+# launches: na 7, nlm 24, whole 8-row chunks, 1 to 1024 lanes (the spill
+# order runs lane tiles of at most 256 threads, so it takes every width
+# the tiled order takes, and widths the tiled order refuses: 98 lanes, 14
+# chunks).
+@pytest.mark.parametrize("na,nlm,rows,lanes", [
+    (7, 24, 4 * 56, 128), (7, 24, 56, 1024), (7, 24, 3 * 56, 300),
+    (7, 24, 14 * 56, 98), (7, 24, 4 * 56, 1), (7, 24, 4 * 56, 0),
+    (7, 24, 4 * 56, 1025), (7, 24, 4 * 56 + 8, 128), (6, 12, 48, 128)])
+def test_pair_reduce_shape_is_checked(na, nlm, rows, lanes):
+    takes = ((na, nlm) == (7, 24) and rows % 56 == 0
+             and 0 < lanes <= 1024)
+    if not takes:
+        with pytest.raises(ValueError, match="1 to 1024 lanes"):
+            MX.reduce_chunks(na, nlm, rows, lanes)
+        return
+    assert MX.reduce_chunks(na, nlm, rows, lanes) == rows // 56
+
+
 @pytest.mark.parametrize("nb,mn,k,ch,lanes", FEATURE_SHAPES)
 def test_feature_plan_fits_the_card_or_is_refused(nb, mn, k, ch, lanes):
     stage = 8 * k * MX.FEATURE_LD * 4
