@@ -72,19 +72,32 @@ compact engine (CompactTersoffMD, full windows, BASELINE config 2), with the
 published Si parameters (Phys. Rev. B 39, 5566 (1989)) written to a
 temporary file and read by Tersoff1989.from_file, in float32:
 
-  8. tersoff-kernels  32,768 Si jittered by 0.1 A: the tersoff kernel
-             against its plain version with per-atom virials off and on,
-             the scatter at pch 4 and 12 and the fold on its cotangents
+  8. tersoff-kernels  32,768 Si jittered by 0.1 A: both modes of the
+             tersoff kernel (contract: pvals; fused: the scatter inside)
+             against their plain versions with per-atom virials off and
+             on, the scatter at pch 4 and 12 on the contract mode's pvals
+             and the fold on the cotangents; then both modes on 4,096 Si
+             compressed to a0 4.1 A, where every centre has 16 live bonds
+             and takes the kernel's general path (past the live cap)
   9. tersoff-md       32,768 Si, 300 K, dt 1 fs: 200 NVE steps (energy
-             conserved, tersoff, scatter and fold launched every step),
-             100 NVT-NHC and 50 NVT-Berendsen steps (300 K, coupling 100);
-             after 20 steps each run tracks its all-plain run
+             conserved, tersoff_scatter and fold launched every step,
+             tersoff and scatter never), 100 NVT-NHC and 50 NVT-Berendsen
+             steps (300 K, coupling 100); after 20 steps each run tracks
+             its all-plain run; then 20 NVE steps of 4,096 Si on the
+             default plan and at cap 320, a window (wl 8,704) too wide for
+             the fused kernel's accumulator, whose steps take the contract
+             kernel and the scatter (tersoff, scatter, fold every step)
+             and track the default plan's
  10. tersoff-time     1,000,000 Si (bench.py's run_tersoff system, skin
              1.0): 50 steps after warm-up under NVE and under NVT-NHC
              (atom-step/s, the host-sync cost of each), a device profile
-             of 5 NVE steps, the tersoff, scatter and fold times at that
-             shape beside their plain versions and bounds (the fold's
-             [design] line too), one rebuild, peak memory
+             of 5 NVE steps, the fused and contract tersoff kernels, the
+             scatter on the contract mode's pvals and the fold at that
+             shape beside their plain versions, bounds (from the shapes)
+             and library calls; [design] lines for both tersoff modes
+             (ptxas, shared memory, blocks an SM, live bonds a centre,
+             centres past the live cap, TB/s) and the fold; one rebuild,
+             peak memory
 
 Last, the probes' path: the port's counterparts of the three probe scripts
 (gpumd_tpu_torch/probes, kernels in csrc/probes.cu):
@@ -122,11 +135,12 @@ step at 262,144 atoms on the default rung: the compactions launch twice a
 step (positions and cotangent rows) and count both; compact_windows is
 timed on the packed windows of that plan.  The dense kernels' are per
 force pass at 262,144 atoms on the v2 plan, their launches those of the
-200-step v2 run (dense_k1 and dense_k2: of the round-1 pass).  The tersoff
-kernel's are per MD step at 1,000,000 Si, and its launches those of the
-200-step NVE run.  A probe's are per call at its script's geometry
-(bench_mxu_probes at 1,734 blocks, its scale 8), its launches those of the
-probes' path.
+200-step v2 run (dense_k1 and dense_k2: of the round-1 pass).  The two
+tersoff kernels' are per MD step at 1,000,000 Si; the fused kernel's
+launches are those of the 200-step NVE run, the contract kernel's those of
+the 20-step run of 4,096 Si at cap 320.  A probe's are per call at its
+script's geometry (bench_mxu_probes at 1,734 blocks, its scale 8), its
+launches those of the probes' path.
 Exits non-zero, printing no result, without a CUDA device or on any
 failed check.
 """
@@ -148,13 +162,15 @@ MODEL = ROOT / "artifacts" / "trainer_parity_r5_nep.txt"
 PROBES = ("probe_gather", "probe_transcendentals", "probe_onehot_dot",
           "probe_feature_matmul", "probe_pair_reduce", "probe_bgather")
 KERNELS = ("k1", "k2", "scatter", "fold", "compact_rows", "compact_windows",
-           "tersoff", "k1b", "k2b", "dense_k1", "dense_k2") + PROBES
+           "tersoff", "tersoff_scatter", "k1b", "k2b", "dense_k1",
+           "dense_k2") + PROBES
 # Tolerances, relative to max|plain|.  K1 and the fold add the same terms
 # in another order in f32 (descriptor sums of ~100 pairs): 1e-5.  K2 also
 # differs by hand-derived vs autograd-free op order, the scatter by
 # shared-memory atomics whose order changes from run to run: 1e-4.  The
 # compactions copy: bit for bit.  The tersoff kernel sums the bond-order
-# terms in another order and with CUDA's own powf/expf/sincospif: 1e-4.
+# terms in another order and with CUDA's own powf/expf/sincospif: 1e-4;
+# its fused mode also adds by shared-memory atomics, as the scatter: 1e-4.
 # The dense K1s sum in another order (1e-5); the dense K2s derive by hand
 # what the plain versions take from autograd (1e-4).
 # The probes: the gather copies (bit for bit); rsqrtf/cosf/sinf against
@@ -164,6 +180,7 @@ KERNELS = ("k1", "k2", "scatter", "fold", "compact_rows", "compact_windows",
 # the same f32 terms in another order (1e-5).
 TOL = {"k1": 1e-5, "fold": 1e-5, "k2": 1e-4, "scatter": 1e-4,
        "compact_rows": 0.0, "compact_windows": 0.0, "tersoff": 1e-4,
+       "tersoff_scatter": 1e-4,
        "k1b": 1e-5, "k2b": 1e-4, "dense_k1": 1e-5, "dense_k2": 1e-4,
        "probe_gather": 0.0, "probe_transcendentals": 1e-6,
        "probe_onehot_dot": 2e-3, "probe_feature_matmul": 2e-3,
@@ -194,6 +211,7 @@ REPLACES = {
     "compact_rows": "gpumd_tpu/engine/nep_compact.py:541",
     "compact_windows": "gpumd_tpu/engine/nep_compact.py:478",
     "tersoff": "gpumd_tpu/engine/tersoff_compact.py:162",
+    "tersoff_scatter": "gpumd_tpu/engine/tersoff_compact.py:162",
     "k1b": "gpumd_tpu/engine/nep_dense.py:555",
     "k2b": "gpumd_tpu/engine/nep_dense.py:588",
     "dense_k1": "gpumd_tpu/engine/nep_dense.py:303",
@@ -213,6 +231,7 @@ SOURCES = {
     "compact_rows": "gpumd_tpu_torch/csrc/compact.cu",
     "compact_windows": "gpumd_tpu_torch/csrc/compact.cu",
     "tersoff": "gpumd_tpu_torch/csrc/tersoff.cu",
+    "tersoff_scatter": "gpumd_tpu_torch/csrc/tersoff.cu",
     **{k: "gpumd_tpu_torch/csrc/nep_dense.cu"
        for k in ("k1b", "k2b", "dense_k1", "dense_k2")},
     **{k: "gpumd_tpu_torch/csrc/probes.cu" for k in PROBES},
@@ -319,14 +338,15 @@ class TersoffSystem:
     """Diamond Si at nc^3 cells with Tersoff-1989 (the file `pot_path`), on
     the card in f32, skin 1.0 as bench.py's run_tersoff."""
 
-    def __init__(self, nc, pot_path, plain=False, seed=3, jitter=0.0):
+    def __init__(self, nc, pot_path, plain=False, seed=3, jitter=0.0,
+                 a0=5.431, cap=None):
         from gpumd_tpu_torch.engine.tersoff_compact import CompactTersoffMD
         from gpumd_tpu_torch.integrate.velocity import initialize_velocity
         from gpumd_tpu_torch.model.box import Box
         from gpumd_tpu_torch.model.state import make_state
         from gpumd_tpu_torch.potentials.tersoff import Tersoff1989
 
-        pos, lengths = build_diamond(nc)
+        pos, lengths = build_diamond(nc, a0)
         if jitter:
             pos = pos + np.random.default_rng(seed).normal(0, jitter,
                                                            pos.shape)
@@ -337,7 +357,7 @@ class TersoffSystem:
                            np.zeros(self.n, int), self.box)
         self.state = initialize_velocity(state, 300.0, seed=seed)
         self.md = CompactTersoffMD(pot, self.box, self.n, position=pos,
-                                   skin=1.0, plain=plain)
+                                   skin=1.0, plain=plain, cap=cap)
 
     def describe(self):
         cp = self.md.cplan
@@ -360,17 +380,22 @@ class TersoffSystem:
 
 
 def tersoff_pairs(md, keep):
-    """(name, kernel fn, plain fn) on one Tersoff pass's tensors."""
+    """(name, kernel fn, plain fn) on one Tersoff pass's tensors: both
+    modes of the tersoff kernel, the scatter on the contract mode's pvals
+    (made here, once: the pass keeps none) and the fold."""
     from gpumd_tpu_torch.engine import fold_kernel as fk
     from gpumd_tpu_torch.engine import nep_compact as nc
     from gpumd_tpu_torch.engine import tersoff_compact as tc
 
     cp, spec = md.cplan, md.spec
-    pav = keep["pvals"].shape[3] == 12
+    pav = keep["dcand"].shape[2] == 12
     args = (keep["centers"], keep["cand"], keep["idx"], cp, spec, pav)
+    keep["pvals"] = tc.tersoff_kernel_plain(*args)[1]
     return [
         ("tersoff", lambda: tc.tersoff_kernel_call(*args),
          lambda: tc.tersoff_kernel_plain(*args)),
+        ("tersoff_scatter", lambda: tc.tersoff_scatter_call(*args),
+         lambda: tc.tersoff_scatter_plain(*args)),
         ("scatter", lambda: nc.scatter_call(keep["pvals"], keep["idx"], cp),
          lambda: nc.scatter_plain(keep["pvals"], keep["idx"], cp)),
         ("fold", lambda: fk.fold_windows_to_rows(keep["dcand"], cp.base,
@@ -528,10 +553,10 @@ def total_energy(state):
     return float(state.kinetic_energy() + pe) / float(state.mask.sum())
 
 
-def _md_path(label, sysm, n_steps, need, ens=None):
+def _md_path(label, sysm, n_steps, need, ens=None, never=()):
     """Drive one path from counts of 0, read them just after, gate it
-    (energy conservation under NVE only: `ens` None).  Returns the 20-step
-    positions and the counts."""
+    (energy conservation under NVE only: `ens` None; the kernels `never`
+    not launched).  Returns the 20-step positions and the counts."""
     from gpumd_tpu_torch.engine import cuda_build
 
     cuda_build.reset_launches()
@@ -556,6 +581,9 @@ def _md_path(label, sysm, n_steps, need, ens=None):
     if low:
         raise RuntimeError(f"{label}: kernels launched fewer times than "
                            f"{need}: {low}")
+    off = [k for k in never if counts[k]]
+    if off:
+        raise RuntimeError(f"{label}: kernels off this path launched: {off}")
     if ens is None and abs(e1 - e0) > DRIFT_TOL:
         raise RuntimeError(f"{label}: total energy not conserved")
     return snap, counts
@@ -1169,9 +1197,11 @@ def phase_dense_time(results):
 
 
 def _tersoff_live(keep, cp, spec):
-    """Live bonds (fc > 0 candidates: d < R2, real centre and neighbour)
-    and ordered live bond pairs (j != k) of this pass: the kernel's work."""
+    """Live bonds (fc > 0 candidates: d < R2, real centre and neighbour),
+    ordered live bond pairs (j != k), live centres and the centres past the
+    kernel's live cap (its general path) of this pass: the kernel's work."""
     from gpumd_tpu_torch.engine.nep_compact import _gather_lanes
+    from gpumd_tpu_torch.engine.tersoff_compact import tersoff_live_cap
 
     nb, mn, a_pad = cp.nb, cp.mn_r, cp.a_pad
     c = keep["centers"].reshape(nb, 4, 1, a_pad)
@@ -1185,19 +1215,57 @@ def _tersoff_live(keep, cp, spec):
     live = ((d2 > 1e-6) & (g[:, 3] > -0.5) & (c[:, 3] > -0.5)
             & (d2 < r2 * r2))
     nl = live.sum(dim=1).double()
-    return int(nl.sum()), int((nl * (nl - 1)).sum())
+    past = int((nl > tersoff_live_cap()).sum())
+    return (int(nl.sum()), int((nl * (nl - 1)).sum()),
+            int((c[:, 3, 0] > -0.5).sum()), past)
 
 
-def tersoff_work(keep, cp, spec):
-    """(bytes, operations) of one tersoff launch: each input read once,
-    each output written once; float operations from the kernel source (an
-    FMA 2, a transcendental 1): ~10 per slot (gather, distance), ~80 per
-    live bond (cutoff, exponentials, bond order, p_j, virial) and ~47 per
-    ordered live bond pair (12 in pass 1, 35 in pass 2)."""
-    bonds, pairs = _tersoff_live(keep, cp, spec)
-    nb = _nbytes(keep["centers"], keep["cand"], keep["idx"], keep["outf"],
-                 keep["pvals"])
-    return nb, 10 * keep["idx"].numel() + 80 * bonds + 47 * pairs
+def tersoff_work(keep, cp, spec, fused):
+    """(bytes, operations) of one launch of a tersoff mode, from the
+    shapes: each input read once (centres, window, lanes), each output
+    written once (outf; pvals (pch, mn, a_pad) a block, or the window
+    cotangents (pch, wl) a block); float operations from the kernel source
+    (an FMA 2, a transcendental 1): ~10 per slot (gather, distance), ~80 per
+    live bond (cutoff, exponentials, bond order, p_j, virial), ~47 per
+    ordered live bond pair (12 in pass 1, 35 in pass 2) and, fused, one
+    shared-memory add per channel of each live bond."""
+    bonds, pairs, _, _ = _tersoff_live(keep, cp, spec)
+    pch = keep["dcand"].shape[2]
+    out = cp.wl if fused else cp.mn_r * cp.a_pad
+    nb = (_nbytes(keep["centers"], keep["cand"], keep["idx"], keep["outf"])
+          + 4 * cp.nb * pch * out)
+    ops = 10 * keep["idx"].numel() + 80 * bonds + 47 * pairs
+    if fused:
+        ops += (12 if pch == 12 else 3) * bonds
+    return nb, ops
+
+
+def _tersoff_design(label, keep, cp, spec, pav, nbytes, ms, fused):
+    """What the tersoff kernel's design acts on at this plan: ptxas's
+    registers, stack and spill of the instance, its shared memory and the
+    resident blocks an SM (occupancy query), the live bonds a live centre
+    and the centres past the live cap (the general path), the rate."""
+    from gpumd_tpu_torch.engine import tersoff_compact as tc
+
+    entry = tc.tersoff_entry(fused, cp, pav)
+    px = _ptxas_entry(entry)
+    blocks, smem = tc.tersoff_occupancy(fused, cp, pav)
+    if smem != tc.tersoff_smem(fused, cp.wl, cp.mn_r, pav):
+        raise RuntimeError(f"{entry}: launcher's shared memory {smem} B is "
+                           "not the wrapper's")
+    bonds, _, centres, past = _tersoff_live(keep, cp, spec)
+    print(f"[design] {'tersoff_scatter' if fused else 'tersoff'} {label}: "
+          f"instance {entry}: {px['regs']} registers, {px['stack']} B stack "
+          f"frame (the general path's bonds), {px['spill_stores']} B spill "
+          f"stores, {px['spill_loads']} B spill loads; {smem} B shared "
+          f"memory a block, {blocks} blocks an SM by the occupancy query; "
+          f"{bonds / max(centres, 1):.3f} live bonds a live centre, {past} "
+          f"of {centres} centres past the live cap of "
+          f"{tc.tersoff_live_cap()}; "
+          f"{nbytes / ms / 1e9:.3f} TB/s reached")
+    return {"regs": px["regs"], "stack": px["stack"],
+            "spill_stores": px["spill_stores"], "smem": smem,
+            "blocks_per_sm": blocks, "past_cap": past}
 
 
 def phase_tersoff_kernels(results, pot_path):
@@ -1211,13 +1279,31 @@ def phase_tersoff_kernels(results, pot_path):
         for pav in (False, True):
             keep = sysm.pipeline(carry, pav)
             if not pav:
-                bonds, pairs = _tersoff_live(keep, sysm.md.cplan,
-                                             sysm.md.spec)
+                bonds, pairs, _, past = _tersoff_live(keep, sysm.md.cplan,
+                                                      sysm.md.spec)
                 print(f"[tersoff-kernels] live bonds per atom "
                       f"{bonds / sysm.n:.3f}, ordered bond pairs per atom "
-                      f"{pairs / sysm.n:.3f}")
+                      f"{pairs / sysm.n:.3f}, centres past the live cap "
+                      f"{past}")
             for name, kern, plain in tersoff_pairs(sysm.md, keep):
                 tag = f"{name}[tersoff{',pav' if pav else ''}]"
+                _compare(tag, name, kern(), plain(), results, failures)
+        del sysm, carry, keep
+        # compressed: 16 live bonds a centre, every one on the general path
+        dense = TersoffSystem(8, pot_path, jitter=0.05, a0=4.1)
+        print(f"[tersoff-kernels] {dense.describe()}")
+        carry = dense.md.init_carry(dense.state)
+        if bool(carry.overflow):
+            raise RuntimeError("tersoff: overflow at init (a0 4.1)")
+        for pav in (False, True):
+            keep = dense.pipeline(carry, pav)
+            _, _, centres, past = _tersoff_live(keep, dense.md.cplan,
+                                                dense.md.spec)
+            if past != centres:
+                raise RuntimeError(f"a0 4.1: {past} of {centres} centres "
+                                   "past the live cap, expected all")
+            for name, kern, plain in tersoff_pairs(dense.md, keep)[:2]:
+                tag = f"{name}[tersoff a0 4.1{',pav' if pav else ''}]"
                 _compare(tag, name, kern(), plain(), results, failures)
     if failures:
         raise RuntimeError(f"kernels disagree with plain versions: {failures}")
@@ -1225,6 +1311,7 @@ def phase_tersoff_kernels(results, pot_path):
 
 def phase_tersoff_md(results, pot_path):
     from gpumd_tpu_torch.engine import cuda_build
+    from gpumd_tpu_torch.engine import tersoff_compact as tc
     from gpumd_tpu_torch.integrate.ensembles.nvt import (
         NVTBerendsen,
         NVTNoseHooverChain,
@@ -1235,17 +1322,18 @@ def phase_tersoff_md(results, pot_path):
                                                     coupling=100.0), 100),
             ("NVT-Berendsen", lambda: NVTBerendsen(t0=300.0, t1=300.0,
                                                    coupling=100.0), 50)]
-    kernels = ("tersoff", "scatter", "fold")
+    kernels = ("tersoff_scatter", "fold")
     with torch.no_grad():
         sysm = TersoffSystem(16, pot_path)
         ref = TersoffSystem(16, pot_path, plain=True)
         for label, make, n in runs:
             snap, counts = _md_path(f"tersoff {label}", sysm, n,
                                     {k: n + 1 for k in kernels},
-                                    ens=make and make())
+                                    ens=make and make(),
+                                    never=("tersoff", "scatter"))
             if label == "NVE":
-                results.setdefault("tersoff", {})["launches"] = \
-                    counts["tersoff"]
+                results.setdefault("tersoff_scatter", {})["launches"] = \
+                    counts["tersoff_scatter"]
             cuda_build.reset_launches()
             _, _, snap_p = _run_steps(ref, 20, snap_at=20,
                                       ens=make and make())
@@ -1253,6 +1341,28 @@ def phase_tersoff_md(results, pot_path):
                 raise RuntimeError("the plain reference run launched kernels")
             _pos_check(f"tersoff {label}, kernels vs plain", sysm.box, snap,
                        snap_p)
+        del ref, sysm
+        torch.cuda.empty_cache()
+        # a window too wide for the fused kernel's accumulator (cap 320, wl
+        # 8,704): the contract kernel and the scatter in its place, against
+        # the default plan's run of the same atoms.  4,096 atoms: the
+        # rebuild holds a z slab's (a_pad, wl) distances, 1.3 GB a tensor
+        # here, 5.9 GB at 32,768
+        small = TersoffSystem(8, pot_path)
+        wide = TersoffSystem(8, pot_path, cap=320)
+        if tc.fused_fits(wide.md.cplan, False) \
+                or not tc.fused_fits(small.md.cplan, False):
+            raise RuntimeError("4,096 Si: routes not as planned")
+        snap_s, _ = _md_path("tersoff NVE, 4,096 Si", small, 20,
+                             {k: 21 for k in kernels},
+                             never=("tersoff", "scatter"))
+        snap_w, counts = _md_path("tersoff NVE, 4,096 Si at cap 320", wide,
+                                  20, {k: 21 for k in ("tersoff", "scatter",
+                                                       "fold")},
+                                  never=("tersoff_scatter",))
+        results.setdefault("tersoff", {})["launches"] = counts["tersoff"]
+        _pos_check("tersoff NVE, cap 320 vs the default plan", small.box,
+                   snap_w, snap_s)
 
 
 def phase_tersoff_time(results, pot_path):
@@ -1265,13 +1375,16 @@ def phase_tersoff_time(results, pot_path):
         label = "1M Si NVE"
         carry, aux, step, ms_nve = _time_rung(big, label)
         _profile(step, carry, aux)
+        print(f"[time] 1M Si: peak memory of the step "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
         md = big.md
         keep = big.pipeline(carry, False)
         for name, kern, plain in tersoff_pairs(md, keep):
             p_ms, k_ms = _in_turns(plain, kern, 2, 10)
-            if name == "tersoff":
-                nbytes, nops = tersoff_work(keep, md.cplan, md.spec)
-                lib_ms = None  # no single PyTorch call computes it
+            fused = name == "tersoff_scatter"
+            lib_ms = None  # no single PyTorch call computes a tersoff mode
+            if name in ("tersoff", "tersoff_scatter"):
+                nbytes, nops = tersoff_work(keep, md.cplan, md.spec, fused)
             else:
                 nbytes, nops = work(name, keep, md.cplan, None)
                 lib = library_calls(name, keep, md.cplan)
@@ -1283,14 +1396,17 @@ def phase_tersoff_time(results, pot_path):
                   f"bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
                   f"{nops / 1e9:.3f} GFLOP; {100 * b_ms / k_ms:.1f}% of "
                   f"bound)")
-            if name == "tersoff":
+            row = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by)
+            if name in ("tersoff", "tersoff_scatter"):
+                row.update(_tersoff_design(label, keep, md.cplan, md.spec,
+                                           False, nbytes, k_ms, fused))
+                results.setdefault(name, {}).update(row)
+            else:  # the scatter and fold rows are PbTe's; Si 1M beside
                 results.setdefault(name, {}).update(
-                    ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                    bound_ms=b_ms, bound_by=b_by)
+                    {f"{k}_si1m": v for k, v in row.items()
+                     if k != "bound_by"})
             if name == "fold":
-                results.setdefault(name, {}).update(
-                    ms_si1m=k_ms, plain_ms_si1m=p_ms, library_ms_si1m=lib_ms,
-                    bound_ms_si1m=b_ms)
                 _fold_design(label, keep, md.cplan, nbytes, k_ms)
         del keep
         _time_rebuild(big, label)

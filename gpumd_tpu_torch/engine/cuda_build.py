@@ -29,8 +29,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launches = {"k1": 0, "k2": 0, "scatter": 0, "fold": 0, "compact_rows": 0,
-            "compact_windows": 0, "tersoff": 0, "k1b": 0, "k2b": 0,
-            "dense_k1": 0, "dense_k2": 0, "probe_gather": 0,
+            "compact_windows": 0, "tersoff": 0, "tersoff_scatter": 0,
+            "k1b": 0, "k2b": 0, "dense_k1": 0, "dense_k2": 0,
+            "probe_gather": 0,
             "probe_transcendentals": 0, "probe_onehot_dot": 0,
             "probe_feature_matmul": 0, "probe_pair_reduce": 0,
             "probe_bgather": 0}
@@ -54,6 +55,9 @@ _SIGNATURES = {
     "compact_rows_launch": [P] * 3 + [I] * 9 + [P],
     "compact_windows_launch": [P] * 3 + [I] * 4 + [P],
     "tersoff_launch": [P] * 6 + [I] * 7 + [P],
+    "tersoff_scatter_launch": [P] * 6 + [I] * 8 + [P],
+    "tersoff_occupancy": [I] * 4 + [P] * 2,
+    "tersoff_live_cap": [],
     "dense_k1b_launch": [P] * 8 + [I] * 11 + [F] * 2 + [P],
     "dense_k2b_launch": [P] * 10 + [I] * 11 + [F] * 2 + [P],
     "dense_k1_launch": [P] * 7 + [I] * 10 + [F] * 2 + [P],
@@ -156,8 +160,10 @@ def ptr(t: torch.Tensor):
 
 
 def require(t: torch.Tensor, name: str, dtype, shape=None,
-            device=None):
-    """Wrapper-side argument checks: CUDA, dtype, contiguity, shape."""
+            device=None, align: int = 0):
+    """Wrapper-side argument checks: CUDA, dtype, contiguity, shape and,
+    given `align`, a base address on an `align`-byte boundary (for a kernel
+    that reads it in 16-byte pieces)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor")
     if device is not None and t.device != device:
@@ -169,3 +175,6 @@ def require(t: torch.Tensor, name: str, dtype, shape=None,
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
+    if align and t.data_ptr() % align:
+        raise ValueError(f"{name}: base address not on a {align}-byte "
+                         "boundary")

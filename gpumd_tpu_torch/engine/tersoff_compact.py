@@ -4,11 +4,19 @@ Counterpart of gpumd_tpu/engine/tersoff_compact.py.  It runs on the
 compact engine's grid with full windows (no compact candidate lists, no ANN
 middle).  Each step runs
 
-  tersoff  per-atom energy, centre gradient, virial rows and per-pair
-           cotangents p_ij = dE_i/dr_ij from the (mn, A) bond tiles
-           (csrc/tersoff.cu)
-  scatter  p_ij onto the neighbours' window lanes (csrc/scatter.cu)
-  fold     window lanes back onto the owning slots (csrc/fold.cu)
+  tersoff_scatter  per-atom energy, centre gradient and virial rows from
+                   the (mn, A) bond tiles, and the per-pair cotangents
+                   p_ij = dE_i/dr_ij added onto the neighbours' window
+                   lanes in the same kernel (csrc/tersoff.cu, fused mode)
+  fold             window lanes back onto the owning slots (csrc/fold.cu)
+
+The JAX package runs the first as two kernels, the tersoff kernel (p_ij
+into a (pch, mn, A) tile a block) and the scatter.  Both stay here:
+`tersoff_kernel_call` (csrc/tersoff.cu, contract mode) and `scatter_call`
+(csrc/scatter.cu).  The fused kernel equals their composition, and its
+plain version is the composition of theirs; a plan whose window leaves no
+room in shared memory for the fused kernel's accumulator runs the two in
+its place (`fused_fits`).
 
 The TPU kernel differentiated the tile energy in-kernel with
 jax.value_and_grad; here the gradient is derived by hand, in the two passes
@@ -272,35 +280,54 @@ def tersoff_kernel_plain(centers, cand, idx, cplan: CompactPlan,
     return outf, pvals
 
 
-def _tersoff_cuda(centers, cand, idx, cplan: CompactPlan, spec: TersoffSpec,
-                  per_atom_virial: bool):
+def tersoff_smem(fused: bool, wl: int, mn: int,
+                 per_atom_virial: bool) -> int:
+    """Shared memory a block of csrc/tersoff.cu: the window as (x, y, z,
+    type) lanes, a tile of 128 centres and their mn neighbour lanes and,
+    fused, the accumulator of the used channels (3, or 12 with per-atom
+    virials)."""
+    used = 12 if per_atom_virial else 3
+    return 4 * wl * (4 + (used if fused else 0)) + 4 * (4 + mn) * 128
+
+
+def _tersoff_launch(fused: bool, centers, cand, idx, cplan: CompactPlan,
+                    spec: TersoffSpec, per_atom_virial: bool):
     nz, ny = cplan.base.grid[2], cplan.base.grid[1]
     nxb, a_pad, wl, mn = cplan.nxb, cplan.a_pad, cplan.wl, cplan.mn_r
+    name = "tersoff_scatter" if fused else "tersoff"
     dev = centers.device
+    # the kernel reads all three in 16-byte pieces
     cuda_build.require(centers, "centers", torch.float32,
-                       (nz, ny, nxb, 4, a_pad))
-    cuda_build.require(cand, "cand", torch.float32, (nz, ny, nxb, 4, wl), dev)
-    cuda_build.require(idx, "idx", torch.int32, (nz, ny, nxb, mn, a_pad), dev)
-    if mn > 128 or a_pad > 1024 or a_pad % 32 or spec.num_types > 2:
-        raise ValueError("tersoff: plan or potential outside the kernel's "
-                         "sizes (mn <= 128, a_pad <= 1024, <= 2 types)")
-    if 16 * wl > _SMEM_LIMIT:
-        raise ValueError("tersoff: window exceeds shared memory")
+                       (nz, ny, nxb, 4, a_pad), align=16)
+    cuda_build.require(cand, "cand", torch.float32, (nz, ny, nxb, 4, wl), dev,
+                       align=16)
+    cuda_build.require(idx, "idx", torch.int32, (nz, ny, nxb, mn, a_pad), dev,
+                       align=16)
+    if mn > 128 or a_pad > 1024 or a_pad % 32 or wl % 4 \
+            or spec.num_types > 2:
+        raise ValueError(f"{name}: plan or potential outside the kernel's "
+                         "sizes (mn <= 128, a_pad <= 1024, wl a multiple "
+                         "of 4, <= 2 types)")
+    if tersoff_smem(fused, wl, mn, per_atom_virial) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: window exceeds shared memory")
     pch = _pch(per_atom_virial)
     outf = torch.empty((nz, ny, nxb, 16, a_pad), dtype=torch.float32,
                        device=dev)
-    pvals = torch.empty((nz, ny, nxb, pch, mn, a_pad), dtype=torch.float32,
-                        device=dev)
-    consts = spec.kernel_consts()
+    shape = (nz, ny, pch, nxb, wl) if fused else (nz, ny, nxb, pch, mn,
+                                                  a_pad)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
     lib = cuda_build.library()
-    rc = lib.tersoff_launch(
-        cuda_build.ptr(centers), cuda_build.ptr(cand), cuda_build.ptr(idx),
-        cuda_build.ptr(outf), cuda_build.ptr(pvals), consts, cplan.nb, a_pad,
-        wl, mn, pch, int(per_atom_virial), spec.num_types,
-        cuda_build.stream())
-    cuda_build.check(rc, "tersoff_launch")
-    cuda_build.launches["tersoff"] += 1
-    return outf, pvals
+    args = [cuda_build.ptr(centers), cuda_build.ptr(cand),
+            cuda_build.ptr(idx), cuda_build.ptr(outf), cuda_build.ptr(out),
+            spec.kernel_consts(), cplan.nb, a_pad, wl, mn, pch,
+            int(per_atom_virial), spec.num_types]
+    if fused:
+        rc = lib.tersoff_scatter_launch(*args, nxb, cuda_build.stream())
+    else:
+        rc = lib.tersoff_launch(*args, cuda_build.stream())
+    cuda_build.check(rc, f"{name}_launch")
+    cuda_build.launches[name] += 1
+    return outf, out
 
 
 def tersoff_kernel_call(centers, cand, idx, cplan: CompactPlan,
@@ -312,10 +339,66 @@ def tersoff_kernel_call(centers, cand, idx, cplan: CompactPlan,
     pch, mn, a_pad): p_ij, then -r_a p_b with per-atom virials (pch 12),
     else one zero channel (pch 4)."""
     if centers.is_cuda:
-        return _tersoff_cuda(centers, cand, idx, cplan, spec,
-                             per_atom_virial)
+        return _tersoff_launch(False, centers, cand, idx, cplan, spec,
+                               per_atom_virial)
     return tersoff_kernel_plain(centers, cand, idx, cplan, spec,
                                 per_atom_virial)
+
+
+def tersoff_scatter_plain(centers, cand, idx, cplan: CompactPlan,
+                          spec: TersoffSpec, per_atom_virial: bool):
+    """Plain version of csrc/tersoff.cu's fused mode: the tersoff kernel's
+    plain version, then the scatter's."""
+    outf, pvals = tersoff_kernel_plain(centers, cand, idx, cplan, spec,
+                                       per_atom_virial)
+    return outf, scatter_plain(pvals, idx, cplan)
+
+
+def tersoff_scatter_call(centers, cand, idx, cplan: CompactPlan,
+                         spec: TersoffSpec, per_atom_virial: bool):
+    """The inputs of tersoff_kernel_call -> its outf and the window
+    cotangents (nz, ny, pch, nxb, wl) that scatter_call makes from its
+    pvals, in one kernel: the per-pair cotangents stay on chip."""
+    if centers.is_cuda:
+        return _tersoff_launch(True, centers, cand, idx, cplan, spec,
+                               per_atom_virial)
+    return tersoff_scatter_plain(centers, cand, idx, cplan, spec,
+                                 per_atom_virial)
+
+
+def tersoff_occupancy(fused: bool, cplan: CompactPlan,
+                      per_atom_virial: bool) -> Tuple[int, int]:
+    """(resident blocks an SM, shared memory a block) of the instance the
+    plan launches, by the occupancy query (needs the card)."""
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    lib = cuda_build.library()
+    rc = lib.tersoff_occupancy(int(fused), cplan.mn_r, int(per_atom_virial),
+                               cplan.wl, ctypes.byref(blocks),
+                               ctypes.byref(smem))
+    cuda_build.check(rc, "tersoff_occupancy")
+    return blocks.value, smem.value
+
+
+def tersoff_live_cap() -> int:
+    """The live bonds a centre csrc/tersoff.cu keeps in registers; a centre
+    with more takes the kernel's general path (needs the card)."""
+    return cuda_build.library().tersoff_live_cap()
+
+
+def fused_fits(cplan: CompactPlan, per_atom_virial: bool) -> bool:
+    """Whether the fused kernel's window, lane tile and accumulator fit in a
+    block's shared memory at this plan."""
+    return tersoff_smem(True, cplan.wl, cplan.mn_r,
+                        per_atom_virial) <= _SMEM_LIMIT
+
+
+def tersoff_entry(fused: bool, cplan: CompactPlan,
+                  per_atom_virial: bool) -> str:
+    """The mangled-name stem of the instance the plan launches, as ptxas
+    reports it."""
+    mn = next(m for m in (32, 64, 128) if cplan.mn_r <= m)
+    name = "tersoff_scatter_kernel" if fused else "tersoff_kernel"
+    return f"{len(name)}{name}ILi{mn}ELb{int(per_atom_virial)}E"
 
 
 class CompactTersoffOutput(NamedTuple):
@@ -332,24 +415,27 @@ def compact_tersoff_compute(position_slots, type_slots, slot_mask, box: Box,
                             keep: Optional[dict] = None
                             ) -> CompactTersoffOutput:
     """Tersoff evaluation on dense slot state; `idx` from build_indices at
-    the last rebin.  `plain=True` runs every kernel's plain version; `keep`,
-    when given, receives every kernel's inputs and outputs."""
+    the last rebin.  The fused kernel, or where its accumulator does not
+    fit (`fused_fits`) the tersoff kernel and the scatter; `plain=True`
+    runs the plain versions of the same route; `keep`, when given,
+    receives the inputs and outputs of the pass."""
     plan = cplan.base
-    if plain:
-        kern, scf, foldf = (tersoff_kernel_plain, scatter_plain,
-                            fold_windows_to_rows_plain)
-    else:
-        kern, scf, foldf = (tersoff_kernel_call, scatter_call,
-                            fold_windows_to_rows)
+    foldf = fold_windows_to_rows_plain if plain else fold_windows_to_rows
     garr = pack_ghost(position_slots, type_slots, slot_mask, box, plan)
     centers = block_centers(garr, cplan)
     cand = pack_block_windows(garr, plan, cplan.bx, cplan.wl)
-    outf, pvals = kern(centers, cand, idx, cplan, spec, per_atom_virial)
-    dcand = scf(pvals, idx, cplan)
+    args = (centers, cand, idx, cplan, spec, per_atom_virial)
+    if fused_fits(cplan, per_atom_virial):
+        outf, dcand = (tersoff_scatter_plain if plain
+                       else tersoff_scatter_call)(*args)
+    else:
+        outf, pvals = (tersoff_kernel_plain if plain
+                       else tersoff_kernel_call)(*args)
+        dcand = (scatter_plain if plain else scatter_call)(pvals, idx, cplan)
     drows = foldf(dcand, plan, cplan.bx)
     if keep is not None:
         keep.update(centers=centers, cand=cand, idx=idx, outf=outf,
-                    pvals=pvals, dcand=dcand, drows=drows)
+                    dcand=dcand, drows=drows)
     dslots = rows_to_slots(drows)
     og = blocks_to_slots(outf, cplan)
     force = -(og[:, :3] + dslots[:, :3]) * slot_mask[:, None]

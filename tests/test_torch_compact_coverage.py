@@ -26,6 +26,8 @@ from gpumd_tpu_torch.engine import grid as TG
 from gpumd_tpu_torch.engine import nep_compact as TC
 from gpumd_tpu_torch.model.box import Box
 from gpumd_tpu_torch.potentials.nep.params import NepModel, params_from_numpy
+from torch_first_trig import warm_torch_transcendentals  # noqa: F401
+
 
 BASE = dict(
     version=4, model_type=0, num_types=2, symbols=("Te", "Pb"),

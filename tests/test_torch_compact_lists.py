@@ -18,9 +18,11 @@ JAX stage's own numpy inputs.  Selection, compaction and index building
 are integer or copy operations, so they must agree exactly; the scatter
 sums the same terms in another order (rtol 1e-9, atol 1e-12); the force
 pass is held to the JAX list path at the tolerances of
-tests/test_nep_compact.py.
+tests/test_nep_compact.py.  The JAX rebuild and scatter run with x64 on
+and matmul precision "highest", pinned and restored (`jax_oracle_state`).
 """
 
+import contextlib
 from pathlib import Path
 
 import jax
@@ -41,6 +43,8 @@ from gpumd_tpu_torch.engine import nep_compact as TC
 from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
 from gpumd_tpu_torch.model.box import Box
 from gpumd_tpu_torch.potentials.nep.model import NEP
+from torch_first_trig import warm_torch_transcendentals  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parent.parent
 MODEL = str(ROOT / "artifacts" / "trainer_parity_r5_nep.txt")
@@ -131,9 +135,24 @@ def _oracle(name):
                 types=types, lengths=lengths)
 
 
+@contextlib.contextmanager
+def jax_oracle_state():
+    """x64 on and full-precision matmuls for the JAX reference, whatever
+    the process-wide settings (test files that ran earlier on the same
+    worker may leave others: gpumd_tpu/app/nep.py sets the matmul
+    precision to "high"); both restored on exit."""
+    with jax.enable_x64(True), jax.default_matmul_precision("highest"):
+        yield
+
+
 @pytest.fixture(scope="module", params=list(SYSTEMS))
 def oracle(request):
-    return _oracle(request.param)
+    with jax_oracle_state():
+        out = _oracle(request.param)
+    for k, v in out["np"].items():
+        if np.issubdtype(v.dtype, np.floating):
+            assert v.dtype == np.float64, (k, v.dtype)
+    return out
 
 
 def test_make_compact_plan_matches(oracle):
@@ -267,8 +286,11 @@ def test_scatter_cidx_matches_pallas(oracle, pav):
     idx_a = o["idx"][:, :, :, :jc.mn_a, :]
     pvals = np.random.default_rng(2).normal(
         size=idx_a.shape[:3] + (pch,) + idx_a.shape[3:])
-    ref = jax.jit(lambda p, i, c: JC.scatter_call(p, i, jc, True, cidx=c))(
-        jnp.asarray(pvals), jnp.asarray(idx_a), jnp.asarray(o["cidx"]))
+    with jax_oracle_state():
+        ref = jax.jit(lambda p, i, c: JC.scatter_call(p, i, jc, True,
+                                                      cidx=c))(
+            jnp.asarray(pvals), jnp.asarray(idx_a), jnp.asarray(o["cidx"]))
+    assert ref.dtype == jnp.float64
     got = TC.scatter_call(_t(pvals), _t(idx_a, torch.int32), tc,
                           _t(o["cidx"], torch.int32))
     np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=1e-9,

@@ -9,21 +9,25 @@ They cover what chip_smoke.py does not: every ZBL variant, K1 and K2 on
 every class of their template instances (l_max 1 to 8, kr1/ka1/na1 up to
 20, 2, 3 and 8 types, both rungs, blocks without a live centre, centres
 that fill mn_a, equal bits from two calls), fold plans with bx = 1, odd
-caps, free axes, an unaligned base and the PbTe 262k and Si 1M plans, the
-compact-list rung on both compactions at CPU-test sizes, the Tersoff
-kernel on the 512-atom CPU-test plan, with two types (SiC) and at 32k
-atoms, and the four dense-window kernels (K1b, K2b, round-1 K1 and K2) on
-random solids with close pairs inside the ZBL switch, empty slots and an
-open axis; and the six probe kernels of csrc/probes.cu (the one-hot dot
-in TF32 and f32 on tiles across b boundaries, part-full tiles, n 16 to
-128, k 100 and ksplit 4, the f32 path's error against f64 within twice
-f32 torch.matmul's and its exact row sums bit for bit, the feature matmul
-at ch 24, 168 and 200, nb 1 to 300, equal bits from two calls, the
-shapes the TF32 kernels refuse; both pair-reduce orders at chunks 1 to
-13, part-full lane tiles, nb 1 and 9 and up to 1024 lanes, the tiled
-order equal to the spill order bit for bit, the shapes it refuses; the
-blocked gather at nblk 11 and 18 with indices out of range, the gather
-bit for bit, the transcendental gate).
+caps, free axes, an unaligned base and the PbTe 262k and Si 1M plans,
+the compact-list rung on both compactions at CPU-test sizes, both modes
+of the Tersoff kernel (contract, and fused with the scatter) on the
+512-atom CPU-test plan, with two types (SiC), at 32k atoms and
+compressed so that every centre takes the general path past the live
+cap, Newton's third law of the fused pass, the shapes, unaligned bases
+and windows the Tersoff wrappers refuse, and the four dense-window
+kernels (K1b, K2b, round-1 K1 and K2) on random solids with close pairs
+inside the ZBL switch, empty slots and an open axis; and the six probe
+kernels of csrc/probes.cu (the one-hot dot in TF32 and f32 on tiles
+across b boundaries, part-full tiles, n 16 to 128, k 100 and ksplit 4,
+the f32 path's error against f64 within twice f32 torch.matmul's and its
+exact row sums bit for bit, the feature matmul at ch 24, 168 and 200, nb
+1 to 300, equal bits from two calls, the shapes the TF32 kernels refuse;
+both pair-reduce orders at chunks 1 to 13, part-full lane tiles, nb 1
+and 9 and up to 1024 lanes, the tiled order equal to the spill order bit
+for bit, the shapes it refuses; the blocked gather at nblk 11 and 18
+with indices out of range, the gather bit for bit, the transcendental
+gate).
 Tolerances are relative to max|plain| in f32: 1e-5 for the
 K1s and the fold (summation order), 1e-4 for the K2s, the scatter and the
 Tersoff kernel (op order, hand-derived vs autograd gradients, shared-memory
@@ -59,8 +63,8 @@ MODEL = str(Path(__file__).resolve().parent.parent / "artifacts"
             / "trainer_parity_r5_nep.txt")
 
 TOL = {"k1": 1e-5, "fold": 1e-5, "k2": 1e-4, "scatter": 1e-4,
-       "tersoff": 1e-4, "k1b": 1e-5, "k2b": 1e-4, "dense_k1": 1e-5,
-       "dense_k2": 1e-4}
+       "tersoff": 1e-4, "tersoff_scatter": 1e-4, "k1b": 1e-5, "k2b": 1e-4,
+       "dense_k1": 1e-5, "dense_k2": 1e-4}
 # Tersoff-1989 Si and SiC (Phys. Rev. B 39, 5566 (1989), Table I)
 SIC = """tersoff_1989 2 Si C
 1830.8 471.18 2.4799 1.7322 1.1e-6 0.78734 1.0039e5 16.217 -0.59825 2.7 3.0
@@ -380,10 +384,12 @@ def test_compact_lists_match_plain(dev, nc, jitter, cap):
                 assert _rel(g, r) <= TOL[name], (name, pav, _rel(g, r))
 
 
-def _tersoff_inputs(dev, tmp_path, nc, c_frac, skin):
-    """Diamond lattice of nc^3 cells jittered by 0.1 A, c_frac of its sites
-    C (two types) or Si alone (the first line of SIC): the tersoff
-    kernel's inputs from CompactTersoffMD's own plan."""
+def _tersoff_inputs(dev, tmp_path, nc, c_frac, skin, a0=5.431,
+                    with_md=False):
+    """Diamond lattice of nc^3 cells (lattice constant a0) jittered by 0.1
+    A, c_frac of its sites C (two types) or Si alone (the first line of
+    SIC): the tersoff kernel's inputs from CompactTersoffMD's own plan
+    (and, with_md, the engine and its carry)."""
     text = SIC if c_frac else "\n".join(SIC.splitlines()[:2]).replace(
         "2 Si C", "1 Si") + "\n"
     path = tmp_path / "tersoff.txt"
@@ -395,10 +401,10 @@ def _tersoff_inputs(dev, tmp_path, nc, c_frac, skin):
     cells = np.stack(np.meshgrid(*[np.arange(nc)] * 3, indexing="ij"),
                      axis=-1).reshape(-1, 3)
     rng = np.random.default_rng(1)
-    pos = (cells[:, None, :] + base[None]).reshape(-1, 3) * 5.431
+    pos = (cells[:, None, :] + base[None]).reshape(-1, 3) * a0
     pos = pos + rng.uniform(-0.1, 0.1, pos.shape)
     types = (rng.uniform(size=len(pos)) < c_frac).astype(int)
-    box = Box.orthogonal([nc * 5.431] * 3, dtype=torch.float32, device=dev)
+    box = Box.orthogonal([nc * a0] * 3, dtype=torch.float32, device=dev)
     md = TT.CompactTersoffMD(pot, box, len(pos), position=pos, skin=skin)
     carry = md.init_carry(make_state(pos, np.where(types, 12.011, 28.085),
                                      types, box))
@@ -406,9 +412,10 @@ def _tersoff_inputs(dev, tmp_path, nc, c_frac, skin):
     s = carry.state
     garr = TG.pack_ghost(s.position, s.type, s.mask, s.box, md.plan)
     cp = md.cplan
-    return (TC.block_centers(garr, cp),
-            TG.pack_block_windows(garr, cp.base, cp.bx, cp.wl), carry.idx,
-            cp, md.spec)
+    out = (TC.block_centers(garr, cp),
+           TG.pack_block_windows(garr, cp.base, cp.bx, cp.wl), carry.idx,
+           cp, md.spec)
+    return out + (md, carry) if with_md else out
 
 
 @pytest.mark.parametrize("nc,c_frac,skin", [(4, 0.0, 0.5), (4, 0.3, 0.5),
@@ -428,16 +435,126 @@ def test_tersoff_matches_plain(dev, tmp_path, nc, c_frac, skin):
             assert _rel(g, r) <= TOL["tersoff"], (pav, _rel(g, r))
 
 
-def test_tersoff_wrapper_rejects_wrong_inputs(dev, tmp_path):
+@pytest.mark.parametrize("nc,c_frac,skin", [(4, 0.0, 0.5), (4, 0.3, 0.5),
+                                            (16, 0.0, 1.0)],
+                         ids=["si512", "sic512", "si32k"])
+def test_tersoff_scatter_matches_plain(dev, tmp_path, nc, c_frac, skin):
+    """The fused mode against the composition of the tersoff kernel's and
+    the scatter's plain versions, pch 4 and 12; one launch of its own
+    counter, none of the two kernels it replaces."""
+    centers, cand, idx, cp, spec = _tersoff_inputs(dev, tmp_path, nc, c_frac,
+                                                   skin)
+    for pav in (False, True):
+        before = dict(cuda_build.launches)
+        got = TT.tersoff_scatter_call(centers, cand, idx, cp, spec, pav)
+        after = dict(cuda_build.launches)
+        assert after["tersoff_scatter"] == before["tersoff_scatter"] + 1
+        assert {k: v for k, v in after.items() if k != "tersoff_scatter"} \
+            == {k: v for k, v in before.items() if k != "tersoff_scatter"}
+        ref = TT.tersoff_scatter_plain(centers, cand, idx, cp, spec, pav)
+        assert got[1].shape == (cp.base.grid[2], cp.base.grid[1],
+                                12 if pav else 4, cp.nxb, cp.wl)
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape
+            assert torch.isfinite(g).all()
+            assert _rel(g, r) <= TOL["tersoff_scatter"], (pav, _rel(g, r))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["contract", "fused"])
+def test_tersoff_general_path_matches_plain(dev, tmp_path, fused):
+    """Diamond Si compressed to a0 4.1 A (first shell 1.78 A, second 2.90 A,
+    inside R2 = 3.0): 16 live bonds a centre, past the kernel's live cap,
+    so every centre takes the general path; mn lands past 32 (the mn-64
+    instance)."""
+    centers, cand, idx, cp, spec = _tersoff_inputs(dev, tmp_path, 4, 0.0,
+                                                   0.5, a0=4.1)
+    assert 32 < cp.mn_r <= 64
+    nb, a_pad = cp.nb, cp.a_pad
+    g = TC._gather_lanes(cand.reshape(nb, 4, -1),
+                         idx.reshape(nb, cp.mn_r, a_pad))
+    c = centers.reshape(nb, 4, 1, a_pad)
+    d2 = sum((g[:, q] - c[:, q]) ** 2 for q in range(3))
+    live = ((d2 > 1e-6) & (d2 < 9.0) & (g[:, 3] > -0.5)).sum(dim=1)
+    assert int(live[c[:, 3, 0] > -0.5].min()) > TT.tersoff_live_cap()
+    call = TT.tersoff_scatter_call if fused else TT.tersoff_kernel_call
+    plain = TT.tersoff_scatter_plain if fused else TT.tersoff_kernel_plain
+    for pav in (False, True):
+        got = call(centers, cand, idx, cp, spec, pav)
+        ref = plain(centers, cand, idx, cp, spec, pav)
+        for gg, r in zip(got, ref):
+            assert torch.isfinite(gg).all()
+            assert _rel(gg, r) <= TOL["tersoff"], (pav, _rel(gg, r))
+
+
+def test_tersoff_fused_pass_keeps_newtons_third_law(dev, tmp_path):
+    """The fused pass adds at each neighbour the very f32 p_ij it sums at
+    the centre: the net force of compact_tersoff_compute (no net-force
+    zeroing) is f32 rounding (each atom's force sums pair terms larger
+    than itself): at most 64 sqrt(n) eps max|F|, 1.4e-3 max|F| at 32k
+    atoms, where one lost or doubled channel would leave O(max|F|)."""
+    *_, md, carry = _tersoff_inputs(dev, tmp_path, 16, 0.0, 1.0,
+                                    with_md=True)
+    s = carry.state
+    before = cuda_build.launches["tersoff_scatter"]
+    out = TT.compact_tersoff_compute(s.position, s.type, s.mask, s.box,
+                                     md.cplan, carry.idx, md.spec)
+    assert cuda_build.launches["tersoff_scatter"] == before + 1
+    n = int(s.mask.sum())
+    fmax = float(out.force.abs().max())
+    net = float(out.force.double().sum(dim=0).abs().max())
+    assert fmax > 0.1
+    assert net <= 64 * n ** 0.5 * 2.0 ** -23 * fmax, (net, fmax)
+
+
+@pytest.mark.parametrize("call", [TT.tersoff_kernel_call,
+                                  TT.tersoff_scatter_call],
+                         ids=["contract", "fused"])
+def test_tersoff_wrapper_rejects_wrong_inputs(dev, tmp_path, call):
     centers, cand, idx, cp, spec = _tersoff_inputs(dev, tmp_path, 4, 0.0,
                                                    0.5)
     with pytest.raises(ValueError, match="dtype"):
-        TT.tersoff_kernel_call(centers.double(), cand, idx, cp, spec, False)
+        call(centers.double(), cand, idx, cp, spec, False)
     with pytest.raises(ValueError, match="shape"):
-        TT.tersoff_kernel_call(centers, cand[..., :-128].contiguous(), idx,
-                               cp, spec, False)
+        call(centers, cand[..., :-128].contiguous(), idx, cp, spec, False)
     with pytest.raises(ValueError, match="dtype"):
-        TT.tersoff_kernel_call(centers, cand, idx.long(), cp, spec, False)
+        call(centers, cand, idx.long(), cp, spec, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        call(centers, cand.cpu(), idx, cp, spec, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(centers, cand, idx.transpose(3, 4).contiguous().transpose(3, 4),
+             cp, spec, False)
+    # contiguous, but 4 bytes past an aligned base: the kernel reads the
+    # window in 16-byte pieces
+    buf = torch.empty(cand.numel() + 1, device=dev)
+    buf[1:].copy_(cand.reshape(-1))
+    before = dict(cuda_build.launches)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        call(centers, buf[1:].view(cand.shape), idx, cp, spec, False)
+    assert cuda_build.launches == before
+
+
+def test_tersoff_wrappers_refuse_windows_past_shared_memory(dev):
+    """A plan whose window (cap 64, bx 14: wl 9,216) fits the contract
+    mode's shared memory (16 wl bytes and the lane tile) but not the fused
+    mode's accumulator with per-atom virials (48 wl more): the fused
+    wrapper raises before launching."""
+    plan = TG.DenseGridPlan(grid=(14, 3, 3), cap=64, rc=3.0, skin=1.0,
+                            pbc=(True, True, True))
+    cp = TC.CompactPlan(base=plan, bx=14, mn_r=32, mn_a=32)
+    assert cp.wl == 9216
+    spec = TT.TersoffSpec(num_types=1, **{k: (1.0,) for k in (
+        "a", "b", "lam", "mu", "r1", "r2", "beta", "n", "c2", "d2", "h")})
+    nz, ny, nxb = 3, 3, 1
+    centers = torch.zeros((nz, ny, nxb, 4, cp.a_pad), device=dev)
+    cand = torch.zeros((nz, ny, nxb, 4, cp.wl), device=dev)
+    idx = torch.zeros((nz, ny, nxb, 32, cp.a_pad), dtype=torch.int32,
+                      device=dev)
+    assert TT.tersoff_smem(False, cp.wl, 32, True) <= TC._SMEM_LIMIT
+    assert TT.tersoff_smem(True, cp.wl, 32, True) > TC._SMEM_LIMIT
+    before = dict(cuda_build.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        TT.tersoff_scatter_call(centers, cand, idx, cp, spec, True)
+    assert cuda_build.launches == before
 
 
 def _dense_state(dev, model, n, lengths, pbc, seed):

@@ -53,6 +53,8 @@ from gpumd_tpu_torch.potentials.nep.params import (
     params_from_numpy,
 )
 from gpumd_tpu_torch.units import K_B, TIME_UNIT_CONVERSION
+from torch_first_trig import warm_torch_transcendentals  # noqa: F401
+
 
 RTOL, ATOL = 1e-9, 1e-12
 MODEL = str(Path(__file__).resolve().parent.parent / "artifacts"

@@ -8,8 +8,15 @@ then K2 and the scatter with per-atom virials off and on.  Each port
 function gets the JAX kernel's own numpy inputs.  Sums are taken in
 another order, so outputs agree to f64 rounding: rtol 1e-9 with an
 absolute floor of 1e-12 (values are O(1e-3 .. 1e2)).
+
+The JAX side runs under a pinned process state (`jax_oracle_state`): x64
+on and matmul precision "highest", restored on exit.  Test files that ran
+earlier on the same worker can leave other settings behind
+(gpumd_tpu/app/nep.py sets the matmul precision to "high" for the whole
+process), and the oracle must not depend on them.
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -29,6 +36,8 @@ from gpumd_tpu_torch.engine import fold_kernel as TF
 from gpumd_tpu_torch.engine import grid as TG
 from gpumd_tpu_torch.engine import nep_compact as TC
 from gpumd_tpu_torch.potentials.nep.params import NepModel, random_params
+from torch_first_trig import warm_torch_transcendentals  # noqa: F401
+
 
 RTOL, ATOL = 1e-9, 1e-12
 
@@ -38,6 +47,22 @@ MODEL_KW = dict(
     mn_radial=96, mn_angular=24, n_max_radial=2, n_max_angular=2,
     basis_size_radial=2, basis_size_angular=2, l_max=2, neurons=30,
     zbl=True, zbl_rc_inner=1.0, zbl_rc_outer=2.0)
+
+
+@contextlib.contextmanager
+def jax_oracle_state():
+    """x64 on and full-precision matmuls for the JAX reference, whatever
+    the process-wide settings; both restored on exit."""
+    with jax.enable_x64(True), jax.default_matmul_precision("highest"):
+        yield
+
+
+def _assert_f64(arrays):
+    """Every floating reference array is float64."""
+    for name, v in arrays.items():
+        v = np.asarray(v)
+        if np.issubdtype(v.dtype, np.floating):
+            assert v.dtype == np.float64, (name, v.dtype)
 
 
 def _t(x, dtype=torch.float64):
@@ -71,6 +96,11 @@ def _close(got, ref):
 
 @pytest.fixture(scope="module")
 def oracle():
+    with jax_oracle_state():
+        return _oracle()
+
+
+def _oracle():
     rng = np.random.default_rng(11)
     n, lengths = 160, [27.5, 28.5, 30.0]
     nx = int(np.ceil(n ** (1 / 3)))
@@ -138,6 +168,7 @@ def oracle():
         dcand = JC.scatter_call(pvals, idx[:, :, :, :cplan.mn_a, :], cplan,
                                 True)
         k2[pav] = tuple(np.asarray(v) for v in (outf, pvals, dcand))
+        _assert_f64(dict(zip(("outf", "pvals", "dcand"), k2[pav])))
 
     tmodel = NepModel(**MODEL_KW)
     tparams = random_params(tmodel, seed=7, dtype=torch.float64,
@@ -149,6 +180,7 @@ def oracle():
         centers=centers, cand=cand, idx=idx, k1=k1, tiles=tiles,
         e_flat=e_flat, cot_sr=cot_sr, cot_z=cot_z, cot_s=cot_s, cotc=cotc,
         cotw=cotw, ti_f=ti_f, mask_f=mask_f).items()}
+    _assert_f64(np_)
     return dict(np=np_, k2=k2, jmodel=jmodel, tmodel=tmodel,
                 tparams=tparams, tcplan=tcplan,
                 tspec=TC.CompactSpec.from_model(tmodel, tparams))
@@ -221,9 +253,12 @@ def _random_dw(plan, bx, c, seed):
 
 def _xla_fold(dw, plan, bx):
     """The JAX package's XLA fold pair, jitted (one compile, not one per
-    op)."""
-    return jax.jit(lambda d: JG.fold_ghost_grad_c(
-        JG.fold_block_windows(d, plan, bx), plan))(dw)
+    op), under the pinned state."""
+    with jax_oracle_state():
+        out = jax.jit(lambda d: JG.fold_ghost_grad_c(
+            JG.fold_block_windows(d, plan, bx), plan))(dw)
+    _assert_f64({"fold": out})
+    return out
 
 
 def test_fold_plain_matches_pallas():
@@ -234,8 +269,10 @@ def test_fold_plain_matches_pallas():
     assert JF.fold_windows_eligible(plan, 2, dw.shape[4])
     tplan = TG.DenseGridPlan(*dataclasses.astuple(plan))
     got = TF.rows_to_slots(TF.fold_windows_to_rows_plain(_t(dw), tplan, 2))
-    pallas = JF.fold_windows_to_slots(jnp.asarray(dw), plan, 2,
-                                      interpret=True)
+    with jax_oracle_state():
+        pallas = JF.fold_windows_to_slots(jnp.asarray(dw), plan, 2,
+                                          interpret=True)
+    _assert_f64({"pallas": pallas})
     xla = _xla_fold(jnp.asarray(dw), plan, 2)
     _close(got, pallas)
     _close(got, xla)

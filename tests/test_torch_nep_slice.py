@@ -41,6 +41,8 @@ from gpumd_tpu_torch.potentials.nep.params import (
     random_params,
 )
 from gpumd_tpu_torch.units import K_B, TIME_UNIT_CONVERSION
+from torch_first_trig import warm_torch_transcendentals  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parent.parent
 MODEL = str(ROOT / "artifacts" / "trainer_parity_r5_nep.txt")

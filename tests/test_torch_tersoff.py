@@ -7,9 +7,15 @@ jax.value_and_grad of the TPU kernel's own tile energy
 (`_tersoff_energy_tiles`, pure jnp) and against torch.autograd; the force
 pass and short MD runs under NVE, NVT-Berendsen and NVT-NHC are held
 against the JAX list path (`ForceField`, `md_run`), which the JAX package
-golden-tests.  The Pallas kernel in interpret mode takes ~50 s per call
-here, so it is not run.
+golden-tests.  The fused kernel's plain version (the tersoff kernel's plain
+version, then the scatter's) is held against the Pallas tersoff kernel and
+scatter in interpret mode on a plan cut to mn 8 (~5 s a call; at the
+engine's mn 32 a call takes ~30 s), under a pinned JAX state (x64 on,
+matmul precision "highest", restored on exit).
 """
+
+import contextlib
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+from gpumd_tpu.engine import grid as JG
+from gpumd_tpu.engine import nep_compact as JC
 from gpumd_tpu.engine import tersoff_compact as JT
 from gpumd_tpu.engine.grid import plan_grid as jplan_grid
 from gpumd_tpu.engine.nep_compact import make_compact_plan as jmake_plan
@@ -41,6 +49,8 @@ from gpumd_tpu_torch.model.box import Box
 from gpumd_tpu_torch.model.state import make_state
 from gpumd_tpu_torch.potentials.tersoff import Tersoff1989
 from gpumd_tpu_torch.units import K_B, TIME_UNIT_CONVERSION
+from torch_first_trig import warm_torch_transcendentals  # noqa: F401
+
 
 SI = """tersoff_1989 1 Si
 1830.8 471.18 2.4799 1.7322 1.1e-6 0.78734 1.0039e5 16.217 -0.59825 2.7 3.0
@@ -178,7 +188,10 @@ def _plan_key(cp):
 @pytest.fixture(scope="module", params=["Si", "SiC"])
 def force_pass(request, pots):
     """Both virial modes of compact_tersoff_compute against the list path,
-    on 216 jittered Si atoms, or the same lattice with 30% of its sites C."""
+    on 216 jittered Si atoms, or the same lattice with 30% of its sites C,
+    on the engine's plan and on the same grid at cap 128 (one cell a block,
+    wl 3,456), where the fused kernel's accumulator fits in shared memory
+    at pch 4 but not at pch 12; with the wrappers each pass called."""
     name = request.param
     mine, ref = pots[name]
     pos, types, lengths = _diamond(3, c_frac=0.3 if name == "SiC" else 0.0,
@@ -193,33 +206,126 @@ def force_pass(request, pots):
     pos_w = box.wrap(torch.as_tensor(pos))
     cp, jcp = _cplan_pair(mine, ref, _np(pos_w), box, jbox, n)
     assert _plan_key(cp) == _plan_key(jcp)
-    perm, smask, ov = TG.bin_dense(pos_w, box,
-                                   torch.ones(n, dtype=torch.float64),
-                                   cp.base)
-    assert not bool(ov)
-    pos_s = TG.apply_perm(pos_w, perm, fill=1e5)
-    typ_s = TG.apply_perm(torch.as_tensor(types, dtype=torch.int32), perm, 0)
-    garr = TG.pack_ghost(pos_s, typ_s, smask, box, cp.base)
-    idx, ok = TC.build_indices(
-        TC.block_centers(garr, cp),
-        TG.pack_block_windows(garr, cp.base, cp.bx, cp.wl), cp, mine.rc)
-    assert bool(ok)
-    inv = np.full(n, -1)
-    pa = _np(perm)
-    inv[pa[pa < n]] = np.nonzero(pa < n)[0]
+    wide = cp._replace(base=dataclasses.replace(cp.base, cap=128), bx=1)
+    assert wide.wl == 3456
     spec = TT.TersoffSpec.from_potential(mine)
+    calls = []
+    outs, routes = {}, {}
     before = dict(cuda_build.launches)
-    outs = {pav: TT.compact_tersoff_compute(pos_s, typ_s, smask, box, cp,
-                                            idx, spec, per_atom_virial=pav)
-            for pav in (False, True)}
+    with pytest.MonkeyPatch.context() as mp:
+        for fn in ("tersoff_scatter_call", "tersoff_kernel_call"):
+            mp.setattr(TT, fn, lambda *a, _f=getattr(TT, fn), _n=fn:
+                       calls.append(_n) or _f(*a))
+        for plan, c in (("engine", cp), ("cap128", wide)):
+            perm, smask, ov = TG.bin_dense(
+                pos_w, box, torch.ones(n, dtype=torch.float64), c.base)
+            assert not bool(ov)
+            pos_s = TG.apply_perm(pos_w, perm, fill=1e5)
+            typ_s = TG.apply_perm(torch.as_tensor(types, dtype=torch.int32),
+                                  perm, 0)
+            garr = TG.pack_ghost(pos_s, typ_s, smask, box, c.base)
+            idx, ok = TC.build_indices(
+                TC.block_centers(garr, c),
+                TG.pack_block_windows(garr, c.base, c.bx, c.wl), c, mine.rc)
+            assert bool(ok)
+            inv = np.full(n, -1)
+            pa = _np(perm)
+            inv[pa[pa < n]] = np.nonzero(pa < n)[0]
+            for pav in (False, True):
+                calls.clear()
+                out = TT.compact_tersoff_compute(
+                    pos_s, typ_s, smask, box, c, idx, spec,
+                    per_atom_virial=pav)
+                outs[pav, plan] = (out, inv)
+                routes[pav, plan] = (tuple(calls), TT.fused_fits(c, pav))
     assert cuda_build.launches == before  # no kernel launched on the CPU
-    return st, outs, inv
+    return st, outs, routes
 
 
-@pytest.mark.parametrize("pav", [False, True], ids=["total", "per_atom"])
-def test_force_pass_matches_list_path(force_pass, pav):
-    ref, outs, inv = force_pass
-    out = outs[pav]
+@contextlib.contextmanager
+def jax_oracle_state():
+    """x64 on and full-precision matmuls for the JAX reference, whatever
+    the process-wide settings (gpumd_tpu/app/nep.py sets "high" for the
+    whole process); both restored on exit."""
+    with jax.enable_x64(True), jax.default_matmul_precision("highest"):
+        yield
+
+
+@pytest.fixture(scope="module", params=["Si", "SiC"])
+def pallas_pair(request, pots):
+    """The Pallas tersoff kernel (interpret mode) and the Pallas scatter on
+    its pvals, both virial modes, on the force_pass system with the plan cut
+    to mn 8 (~4 bonds a centre: every slot past them is empty), with the
+    port's inputs made from the same numpy arrays."""
+    name = request.param
+    mine, ref = pots[name]
+    pos, types, lengths = _diamond(3, c_frac=0.3 if name == "SiC" else 0.0,
+                                   seed=2)
+    n = len(pos)
+    jbox = JBox.orthogonal(lengths)
+    box = Box.orthogonal(lengths, device="cpu")
+    pos = _np(box.wrap(torch.as_tensor(pos)))
+    cp, jcp = _cplan_pair(mine, ref, pos, box, jbox, n)
+    cp, jcp = cp._replace(mn_r=8, mn_a=8), jcp._replace(mn_r=8, mn_a=8)
+    jspec = JT.TersoffSpec.from_potential(ref)
+    with jax_oracle_state():
+        @jax.jit
+        def setup(p, t):
+            perm, smask, _ = JG.bin_dense(p, jbox, jnp.ones(n), jcp.base)
+            garr = JG.pack_ghost(JG.apply_perm(p, perm, fill=1e5),
+                                 JG.apply_perm(t, perm, fill=0), smask, jbox,
+                                 jcp.base)
+            centers = JC.block_centers(garr, jcp)
+            cand = JG.pack_block_windows(garr, jcp.base, jcp.bx, jcp.wl)
+            idx, ok = JC.build_indices(centers, cand, jcp, ref.rc)
+            return centers, cand, idx, ok
+
+        centers, cand, idx, ok = setup(jnp.asarray(pos),
+                                       jnp.asarray(types, jnp.int32))
+        assert bool(ok)
+        out = {}
+        for pav in (False, True):
+            outf, pvals = JT.tersoff_kernel_call(centers, cand, idx, jcp,
+                                                 jspec, pav, True)
+            dcand = JC.scatter_call(pvals, idx, jcp, True)
+            out[pav] = tuple(np.asarray(v) for v in (outf, dcand))
+    for v in (centers, cand) + sum(out.values(), ()):
+        assert v.dtype == np.float64
+    args = (torch.as_tensor(np.array(centers)),
+            torch.as_tensor(np.array(cand)),
+            torch.as_tensor(np.array(idx), dtype=torch.int32), cp,
+            TT.TersoffSpec.from_potential(mine))
+    return args, out
+
+
+@pytest.mark.parametrize("pav", [False, True], ids=["pch4", "pch12"])
+def test_fused_plain_matches_pallas(pallas_pair, pav):
+    """tersoff_scatter_plain against the Pallas tersoff kernel and scatter:
+    outf and the window cotangents, at the scatter parity tolerance of
+    tests/test_torch_nep_kernels.py (rtol 1e-9, atol 1e-12)."""
+    args, out = pallas_pair
+    outf, dcand = TT.tersoff_scatter_plain(*args, pav)
+    assert dcand.shape[2] == (12 if pav else 4)
+    assert float(dcand[:, :, :3].abs().max()) > 0.1  # live bonds in reach
+    for got, ref in zip((outf, dcand), out[pav]):
+        np.testing.assert_allclose(_np(got), ref, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("pav", [False, True], ids=["pch4", "pch12"])
+def test_fused_call_takes_plain_version_on_cpu(pallas_pair, pav):
+    """On CPU tensors tersoff_scatter_call launches nothing and returns
+    the composition of the two plain versions, bit for bit."""
+    args, _ = pallas_pair
+    before = dict(cuda_build.launches)
+    got = TT.tersoff_scatter_call(*args, pav)
+    assert cuda_build.launches == before
+    outf, pvals = TT.tersoff_kernel_plain(*args, pav)
+    ref = (outf, TC.scatter_plain(pvals, args[2], args[3]))
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def _matches_list_path(ref, out, inv, pav):
     np.testing.assert_allclose(_np(out.energy)[inv],
                                np.asarray(ref.potential_energy),
                                rtol=1e-10, atol=1e-11)
@@ -233,6 +339,32 @@ def test_force_pass_matches_list_path(force_pass, pav):
                                    rtol=1e-8, atol=1e-9)
     else:
         assert out.virial_atom is None
+
+
+@pytest.mark.parametrize("pav", [False, True], ids=["total", "per_atom"])
+def test_force_pass_matches_list_path(force_pass, pav):
+    ref, outs, _ = force_pass
+    _matches_list_path(ref, *outs[pav, "engine"], pav)
+
+
+@pytest.mark.parametrize("pav", [False, True], ids=["total", "per_atom"])
+def test_force_pass_matches_list_path_at_cap128(force_pass, pav):
+    """The same at cap 128: the fused kernel's plain version at pch 4, the
+    tersoff kernel's and the scatter's at pch 12."""
+    ref, outs, _ = force_pass
+    _matches_list_path(ref, *outs[pav, "cap128"], pav)
+
+
+def test_force_pass_takes_fused_kernel_where_it_fits(force_pass):
+    """The fused kernel wherever its accumulator fits in shared memory:
+    on the engine's plan in both virial modes and at cap 128 with pch 4;
+    the tersoff kernel, then the scatter, at cap 128 with pch 12."""
+    _, _, routes = force_pass
+    fused, contract = ("tersoff_scatter_call",), ("tersoff_kernel_call",)
+    assert routes == {(False, "engine"): (fused, True),
+                      (True, "engine"): (fused, True),
+                      (False, "cap128"): (fused, True),
+                      (True, "cap128"): (contract, False)}
 
 
 @pytest.mark.parametrize("name,a0,nc,e_coh", [("Si", 5.432, 2, -4.62960),
