@@ -51,7 +51,9 @@ round-1 force pass dense_nep_compute (the round-1 K1 and K2, here
 dense_k1 and dense_k2):
 
   5. dense-kernels  32,768 atoms jittered by 0.1 A on the v2 plan (grid
-             11^3, cap 40): K1b and K2b on the tensors of one
+             11^3, cap 40), then compressed to a0 5.6 A (each cell's
+             live-pair queues take several pieces of the kernels'
+             buffers): K1b and K2b on the tensors of one
              dense_nep_compute_v2 pass, dense_k1 and dense_k2 on those of
              one dense_nep_compute pass, each against its plain version
   6. dense-md       32,768 atoms, 300 K, dt 1 fs: 200 NVE steps on
@@ -64,8 +66,10 @@ dense_k1 and dense_k2):
              (atom-step/s, the host-sync cost, a device profile of 5
              steps), the four kernels at that shape beside their plain
              versions and bounds (the round-1 ones on a dense_nep_compute
-             pass), one rebuild; then 1,000,000 atoms, 20 steps
-             (atom-step/s, peak memory)
+             pass), a [design] line for each (ptxas, the block's cut and
+             shared memory, blocks an SM, live pairs a centre, queue
+             pieces a cell, TB/s), one rebuild; then 1,000,000 atoms, 20
+             steps (atom-step/s, peak memory)
 
 It then drives the third path, Tersoff-1989 MD of diamond Si on the
 compact engine (CompactTersoffMD, full windows, BASELINE config 2), with the
@@ -268,14 +272,15 @@ class System:
     it would."""
 
     def __init__(self, nc, plain=False, seed=3, jitter=0.0,
-                 plan_on_lattice=False, compact_lists=True, engine="auto"):
+                 plan_on_lattice=False, compact_lists=True, engine="auto",
+                 a0=6.57):
         from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
         from gpumd_tpu_torch.integrate.velocity import initialize_velocity
         from gpumd_tpu_torch.model.box import Box
         from gpumd_tpu_torch.model.state import make_state
         from gpumd_tpu_torch.potentials.nep.model import NEP
 
-        lattice, types, lengths = build_pbte(nc)
+        lattice, types, lengths = build_pbte(nc, a0)
         pos = lattice
         if jitter:
             pos = lattice + np.random.default_rng(seed).normal(
@@ -1043,22 +1048,47 @@ def dense_pairs(plan, spec, k2, k1):
 
 
 def phase_dense_kernels(results):
+    from gpumd_tpu_torch.engine import nep_dense as nd
+
     failures = []
     with torch.no_grad():
-        sysm = System(16, jitter=0.1, engine="v2")
-        print(f"[dense-kernels] {sysm.describe()}")
-        carry = sysm.md.init_carry(sysm.state)
-        if bool(carry.overflow):
-            raise RuntimeError("v2: overflow at init")
-        k2, k1 = dense_passes(sysm, carry)
-        live = _dense_live(k2, sysm.md.plan, sysm.md.spec)
-        print(f"[dense-kernels] per centre: {live[0] / sysm.n:.1f} "
-              f"candidate slots, {live[1] / sysm.n:.2f} inside the radial "
-              f"cutoff, {live[2] / sysm.n:.2f} inside the angular one")
-        for name, kern, plain in dense_pairs(sysm.md.plan, sysm.md.spec, k2,
-                                             k1):
-            _compare(f"{name}[v2 plan]", name, kern(), plain(), results,
-                     failures)
+        # the v2 plan of the MD runs, and PbTe compressed to a0 5.6 A,
+        # whose cells' radial and angular queues each take several pieces
+        # of the kernels' shared-memory buffers
+        for tag, a0 in (("v2 plan", 6.57), ("compressed", 5.6)):
+            sysm = System(16, jitter=0.1, engine="v2", a0=a0)
+            plan, spec = sysm.md.plan, sysm.md.spec
+            print(f"[dense-kernels] {tag}: {sysm.describe()}")
+            carry = sysm.md.init_carry(sysm.state)
+            if bool(carry.overflow):
+                raise RuntimeError(f"v2 {tag}: overflow at init")
+            k2, k1 = dense_passes(sysm, carry)
+            live = _dense_live(k2, plan, spec)
+            lanes = k2["cand"].shape[-1]
+            tiles = [nd.dense_tiling(spec, plan.cap, lanes, bwd)
+                     for bwd in (False, True)]
+            pieces = [_dense_pieces(live, t, lanes, bwd)
+                      for t, bwd in zip(tiles, (False, True))]
+            most_r, most_a = (int(np.clip(x, 0, None).sum(1).max())
+                              for x in live[3:])
+            print(f"[dense-kernels] {tag}: per centre {live[0] / sysm.n:.1f} "
+                  f"candidate slots, {live[1] / sysm.n:.2f} inside the "
+                  f"radial cutoff, {live[2] / sysm.n:.2f} inside the angular "
+                  f"one; a cell's queues at most {most_r} radial, "
+                  f"{most_a} angular pairs; queue "
+                  f"pieces a cell (mean, max): forward {pieces[0][0]:.2f}, "
+                  f"{pieces[0][1]}, backward {pieces[1][0]:.2f}, "
+                  f"{pieces[1][1]}")
+            if tag == "compressed" and not (
+                    most_r > tiles[1].qr
+                    and most_a > max(t.qa for t in tiles)):
+                raise RuntimeError("compressed cell: its queues fit in one "
+                                   "piece, so it checks no more than the "
+                                   "v2 plan")
+            for name, kern, plain in dense_pairs(plan, spec, k2, k1):
+                _compare(f"{name}[{tag}]", name, kern(), plain(), results,
+                         failures)
+            del sysm, carry, k2, k1
     if failures:
         raise RuntimeError(f"kernels disagree with plain versions: {failures}")
 
@@ -1110,14 +1140,16 @@ def phase_dense_md(results):
 
 def _dense_live(k2, plan, spec):
     """(candidate slots, pairs inside the radial or ZBL cutoff, pairs
-    inside the angular cutoff) of one v2 pass: the kernels test every slot
-    and evaluate the live pairs only."""
+    inside the angular cutoff, and those two a (cell, live centre), in
+    slot order, as numpy arrays with -1 past a cell's live centres) of one
+    v2 pass: the kernels test every slot and evaluate the live pairs only,
+    an empty slot (at FAR, type -1) being no live centre."""
     from gpumd_tpu_torch.engine.nep_dense import _by_type, _cell_chunks
 
     cap = plan.cap
     c = k2["centers"].reshape(-1, 4, cap)
     w = k2["cand"].reshape(c.shape[0], 4, -1)
-    nr = na = 0
+    rc, ac = [], []
     for sl in _cell_chunks(c.shape[0], cap, w.shape[2]):
         ci, wj = c[sl, :, :, None], w[sl, :, None, :]
         d2 = sum((wj[:, q] - ci[:, q]) ** 2 for q in range(3))
@@ -1132,9 +1164,38 @@ def _dense_live(k2, plan, spec):
         lr = d < rcp_r
         if spec.zbl:
             lr = lr | (d < spec.zbl_rc_outer)
-        nr += int((ok & lr).sum())
-        na += int((ok & (d < rcp_a)).sum())
-    return c.shape[0] * cap * w.shape[2], nr, na
+        rc.append((ok & lr).sum(dim=2))
+        ac.append((ok & (d < rcp_a)).sum(dim=2))
+    dead = (c[:, 3] <= -0.5) & (c[:, 0] >= 5.0e4)
+    rc, ac = torch.cat(rc), torch.cat(ac)
+    # live centres first, in slot order (a stable sort on deadness)
+    order = torch.sort(dead.to(torch.int8), dim=1, stable=True).indices
+    rc = torch.where(dead, -1, rc).gather(1, order).cpu().numpy()
+    ac = torch.where(dead, -1, ac).gather(1, order).cpu().numpy()
+    return (c.shape[0] * cap * w.shape[2], int(rc[rc > 0].sum()),
+            int(ac[ac > 0].sum()), rc, ac)
+
+
+def _dense_pieces(live, tile, lanes, backward):
+    """Queue pieces a cell of a kernel at its cut (mean, max): each group
+    of tile.gc live centres has its own queues; the forward runs a group's
+    radial queue in pieces of tile.qr pairs, then its angular one in pieces
+    of tile.qa; the backward runs the k-th of each together.  The live
+    counts are over all of a cell's lanes, so a cut into windows is
+    refused."""
+    if tile.cw < lanes:
+        raise ValueError(f"a window of {tile.cw} of {lanes} lanes: the "
+                         f"piece count holds for one window only")
+    n = []
+    for rc, ac in zip(live[3], live[4]):
+        rc, ac = rc[rc >= 0], ac[ac >= 0]
+        k = 0
+        for c0 in range(0, len(rc), tile.gc):
+            pr = -(-int(rc[c0:c0 + tile.gc].sum()) // tile.qr)
+            pa = -(-int(ac[c0:c0 + tile.gc].sum()) // tile.qa)
+            k += max(pr, pa) if backward else pr + pa
+        n.append(k)
+    return float(np.mean(n)), int(np.max(n))
 
 
 def dense_work(name, k2, k1, live, spec):
@@ -1142,7 +1203,7 @@ def dense_work(name, k2, k1, live, spec):
     written once; float operations from the kernel source (an FMA 2, a
     transcendental 1): ~10 per candidate slot tested, and per live pair
     the Chebyshev basis, ZBL, Y_lm or their derivatives and the sums."""
-    slots, rad, ang = live
+    slots, rad, ang = live[:3]
     kr1, ka1, nlm, sw = spec.kr1, spec.ka1, spec.nlm, spec.s_width
     zt = sum((L + 1) ** 2 for L in range(1, spec.l_max + 1))
     zbl = 40 if spec.zbl else 0
@@ -1182,6 +1243,7 @@ def phase_dense_time(results):
                   f"({p_ms / k_ms:.2f}x), library n/a, bound {b_ms:.4f} ms "
                   f"by {b_by} ({nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} "
                   f"GFLOP; {100 * b_ms / k_ms:.1f}% of bound)")
+            _dense_design(name, sysm, k2, live, nbytes, k_ms)
             results.setdefault(name, {}).update(
                 ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by)
@@ -1194,6 +1256,36 @@ def phase_dense_time(results):
         _time_rung(big, "1M v2 engine", n_steps=20)
         print(f"[time] 1M v2 engine: peak memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+
+
+def _dense_design(name, sysm, k2, live, nbytes, ms):
+    """What the dense kernels' design acts on at this plan: ptxas's
+    registers, stack and spill of the model's instance, the block's cut
+    and shared memory, resident blocks an SM by the occupancy query, the
+    live pairs a centre, queue pieces a cell, and the rate reached."""
+    from gpumd_tpu_torch.engine import nep_dense as nd
+
+    plan, spec = sysm.md.plan, sysm.md.spec
+    backward = name in ("k2b", "dense_k2")
+    lanes = k2["cand"].shape[-1] if name in ("k1b", "k2b") else 27 * plan.cap
+    tile = nd.dense_tiling(spec, plan.cap, lanes, backward)
+    entry = nd.dense_entry(spec, backward)
+    px = _ptxas_entry(entry)
+    occ = nd.dense_occupancy(spec, tile, plan.cap, backward)
+    mean, most = _dense_pieces(live, tile, lanes, backward)
+    print(f"[design] {name} instance {entry}: {px['regs']} registers, "
+          f"{px['stack']} B stack frame, {px['spill_stores']} B spill "
+          f"stores, {px['spill_loads']} B spill loads; {tile.smem} B shared "
+          f"memory a block (a window of {tile.cw} lanes, a group of "
+          f"{tile.gc} centres, pieces of {tile.qr} radial / {tile.qa} "
+          f"angular pairs), {occ} blocks = {8 * occ} warps resident an "
+          f"SM; "
+          f"per centre {live[1] / sysm.n:.2f} radial and "
+          f"{live[2] / sysm.n:.2f} angular live pairs; {mean:.2f} queue "
+          f"pieces a cell (at most {most}); "
+          f"{nbytes / ms / 1e9:.3f} TB/s reached")
+    if occ < 1:
+        raise RuntimeError(f"{entry}: no resident block")
 
 
 def _tersoff_live(keep, cp, spec):

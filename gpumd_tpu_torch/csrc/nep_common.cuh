@@ -285,14 +285,14 @@ __device__ __forceinline__ void gk_ylm_vjp(float ux, float uy, float uz,
 }
 
 // gk_ylm_vjp with b_lm = sum_n cot[n, lm] g_n and b'_lm = sum_n cot[n, lm]
-// g'_n formed as each lm is reached (no b/b' arrays): cot[(n NLM + lm) ld]
-// is the centre's column of its cotangent channels in shared memory.
+// g'_n formed as each lm is reached (no b/b' arrays): cot[n sn + lm sl] is
+// the centre's cotangent channel n at lm, in shared memory (K2: a column,
+// sn = NLM ld, sl = ld) or in device memory (the dense K2s: a row, sl 1).
 template <int LMAX, int NMAX>
 __device__ __forceinline__ void gk_ylm_vjp_cot(
-    float ux, float uy, float uz, const float* ztab, const float* cot, int ld,
-    const float* gn, const float* gnp, int n1, float* sval, float* gx,
-    float* gy, float* gz) {
-  constexpr int NLM = LMAX * (LMAX + 2);
+    float ux, float uy, float uz, const float* ztab, const float* cot, int sn,
+    int sl, const float* gn, const float* gnp, int n1, float* sval,
+    float* gx, float* gy, float* gz) {
   float zp[LMAX + 1], cr[LMAX + 1], ci[LMAX + 1];
   zp[0] = 1.0f;
   cr[0] = 1.0f;
@@ -308,7 +308,7 @@ __device__ __forceinline__ void gk_ylm_vjp_cot(
 #pragma unroll
     for (int n = 0; n < NMAX; ++n) {
       if (n < n1) {
-        const float cc = cot[(n * NLM + lm) * ld];
+        const float cc = cot[n * sn + lm * sl];
         v += cc * gn[n];
         vp += cc * gnp[n];
       }
@@ -439,6 +439,30 @@ __device__ __forceinline__ bool gk_ang_live(const NepConsts& c, float dx,
   return d / (0.5f * (c.rc_a[ti] + c.rc_a[tjx])) < 1.0f;
 }
 
+// One warp, once the masks are complete: off[c] = the set bits of the mw
+// mask words of centres 0 .. c - 1, for c in [0, n].
+__device__ __forceinline__ void gk_offsets(const unsigned* mask, int mw,
+                                           int n, int* off) {
+  const int lane = threadIdx.x & 31;
+  int carry = 0;
+  for (int c0 = 0; c0 < n; c0 += 32) {
+    const int c = c0 + lane;
+    int cnt = 0;
+    if (c < n)
+      for (int w = 0; w < mw; ++w) cnt += __popc(mask[c * mw + w]);
+    int incl = cnt;
+#pragma unroll
+    for (int sh = 1; sh < 32; sh <<= 1) {
+      const int v = __shfl_up_sync(GK_FULL, incl, sh);
+      if (lane >= sh) incl += v;
+    }
+    if (c < n) off[c] = carry + incl - cnt;
+    carry += __shfl_sync(GK_FULL, incl, 31);
+  }
+  if (lane == 0) off[n] = carry;
+  __syncwarp();
+}
+
 // Warp 0, once the masks are complete: queue offsets and chunks.  A centre
 // starts a chunk when its first queue position crosses a multiple of qcap
 // or its index a multiple of ccap, so a chunk holds at most ccap centres
@@ -447,21 +471,12 @@ __device__ __forceinline__ void gk_queue_offsets(GkLive s, int mw, int qcap,
                                                  int ccap) {
   const int lane = threadIdx.x & 31;
   const int nlive = s.counts[0];
-  int carry = 0, nch = 0, prev_q = -1, prev_c = -1;
+  gk_offsets(s.mask, mw, nlive, s.off);
+  int nch = 0, prev_q = -1, prev_c = -1;
   for (int c0 = 0; c0 < nlive; c0 += 32) {
     const int c = c0 + lane;
     const bool in = c < nlive;
-    int cnt = 0;
-    if (in)
-      for (int w = 0; w < mw; ++w) cnt += __popc(s.mask[c * mw + w]);
-    int incl = cnt;
-#pragma unroll
-    for (int sh = 1; sh < 32; sh <<= 1) {
-      const int v = __shfl_up_sync(GK_FULL, incl, sh);
-      if (lane >= sh) incl += v;
-    }
-    const int start = carry + incl - cnt;
-    const int kq = start / qcap, kc = c / ccap;
+    const int kq = in ? s.off[c] / qcap : 0, kc = c / ccap;
     int pq = __shfl_up_sync(GK_FULL, kq, 1);
     int pc = __shfl_up_sync(GK_FULL, kc, 1);
     if (lane == 0) {
@@ -470,15 +485,12 @@ __device__ __forceinline__ void gk_queue_offsets(GkLive s, int mw, int qcap,
     }
     const bool first = in && (kq != pq || kc != pc);
     const unsigned bal = __ballot_sync(GK_FULL, first);
-    if (in) s.off[c] = start;
     if (first) s.chunk[nch + __popc(bal & ((1u << lane) - 1u))] = c;
     nch += __popc(bal);
-    carry += __shfl_sync(GK_FULL, incl, 31);
     prev_q = __shfl_sync(GK_FULL, kq, 31);
     prev_c = __shfl_sync(GK_FULL, kc, 31);
   }
   if (lane == 0) {
-    s.off[nlive] = carry;
     s.chunk[nch] = nlive;
     s.counts[1] = nch;
   }

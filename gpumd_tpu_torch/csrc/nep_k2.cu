@@ -274,8 +274,8 @@ __global__ void __launch_bounds__(GK_BLOCK, 2)
                        c.na1, gn, gnp);
       float sval, gx, gy, gz;
       gk_ylm_vjp_cot<LMAX, NMAX>(uu[0], uu[1], uu[2], zt, cot + (ci - c_lo),
-                                 k.ccap, gn, gnp, c.na1, &sval, &gx, &gy,
-                                 &gz);
+                                 NLM * k.ccap, k.ccap, gn, gnp, c.na1, &sval,
+                                 &gx, &gy, &gz);
       const float ug = uu[0] * gx + uu[1] * gy + uu[2] * gz;
       const float p[3] = {sval * uu[0] + (gx - uu[0] * ug) * inv_d,
                           sval * uu[1] + (gy - uu[1] * ug) * inv_d,

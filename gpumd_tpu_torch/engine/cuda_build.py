@@ -58,10 +58,11 @@ _SIGNATURES = {
     "tersoff_scatter_launch": [P] * 6 + [I] * 8 + [P],
     "tersoff_occupancy": [I] * 4 + [P] * 2,
     "tersoff_live_cap": [],
-    "dense_k1b_launch": [P] * 8 + [I] * 11 + [F] * 2 + [P],
-    "dense_k2b_launch": [P] * 10 + [I] * 11 + [F] * 2 + [P],
-    "dense_k1_launch": [P] * 7 + [I] * 10 + [F] * 2 + [P],
-    "dense_k2_launch": [P] * 8 + [I] * 10 + [F] * 2 + [P],
+    "dense_k1b_launch": [P] * 8 + [I] * 16 + [F] * 2 + [P],
+    "dense_k2b_launch": [P] * 10 + [I] * 16 + [F] * 2 + [P],
+    "dense_k1_launch": [P] * 7 + [I] * 15 + [F] * 2 + [P],
+    "dense_k2_launch": [P] * 8 + [I] * 15 + [F] * 2 + [P],
+    "dense_occupancy": [I] * 12 + [P],
     "probe_gather_launch": [P] * 3 + [I] * 4 + [P],
     "probe_trans_launch": [P] * 4 + [I] + [P],
     "probe_onehot_ffma_launch": [P] * 2 + [I] * 5 + [P],

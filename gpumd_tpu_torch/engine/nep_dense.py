@@ -31,6 +31,7 @@ coordinates; per-atom virials are not produced.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
 
@@ -56,8 +57,11 @@ from gpumd_tpu_torch.potentials.nep.params import NepModel, NepParams
 from gpumd_tpu_torch.units import K_C
 
 _EPS2 = 1.0e-6  # d^2 below this: self pair or parked slot, masked
-# shared memory one block may use on Hopper (bytes)
+# shared memory one block may use on Hopper (bytes), and the most that
+# lets three blocks share an SM (228 KB an SM, 1 KB reserved a block), as
+# many as the kernels' registers allow (their launch bounds)
 _SMEM_LIMIT = 232448
+_SMEM_THREE = 228 * 1024 // 3 - 1024
 # threads per block of the four kernels (csrc/nep_dense.cu: DK_THREADS)
 _THREADS = 256
 # pair slots per chunk of cells in the plain versions: bounds their
@@ -335,24 +339,92 @@ def _kernel_args(spec: DenseNepSpec, device):
             [spec.zbl_rc_inner, spec.zbl_rc_outer])
 
 
-def _stage_stride(spec: DenseNepSpec) -> int:
-    """Per-lane staging row of the forward kernels (tj, ez, f_r, f_a, Y),
-    odd so that the lanes' rows fall in different banks."""
-    return (2 + spec.kr1 + spec.ka1 + spec.nlm) | 1
+class DenseTile(NamedTuple):
+    """How the dense kernels cut a cell's work (csrc/nep_dense.cu DkTile):
+    windows of `cw` candidate lanes, groups of `gc` live centres, and
+    pieces of `qr` radial and `qa` angular queue positions; `smem` bytes of
+    shared memory a block."""
+
+    cw: int
+    gc: int
+    qr: int
+    qa: int
+    smem: int
 
 
-def _fwd_smem_floats(spec: DenseNepSpec, lanes: int) -> int:
-    """Shared memory (floats) of K1b / K1 with `lanes` candidates a cell."""
-    warps = _THREADS // 32
-    return (4 * lanes + z_tables_flat(spec.l_max).size
-            + warps * (spec.a_width + spec.s_width + 32 * _stage_stride(spec)))
+def _dense_smem_words(spec: DenseNepSpec, cap: int, cw: int, gc: int,
+                      qr: int, qa: int, backward: bool) -> int:
+    """Shared memory (4-byte words) of a dense kernel's block: dk_layout in
+    csrc/nep_dense.cu, term for term (the launcher refuses another size)."""
+    capr = -(-cap // 32) * 32
+    t = spec.num_types
+    words = 4 * cw + 6 * capr + (3 if backward else 2) * capr
+    if backward:
+        words += 4 * cw  # packed index of each lane, candidate sums
+    words += 3 * gc * (cw // 32) + 2 * (gc + 1) + _THREADS // 32 + 2
+    words += 2 * t * t + z_tables_flat(spec.l_max).size
+    if backward:  # a radial and an angular piece: pairs and p_ij
+        return words + 4 * (qr + qa)
+    rowr, rowa = (2 + spec.kr1) | 1, (1 + spec.ka1 + spec.nlm) | 1
+    return words + max(qr, qa) + max(qr * rowr, qa * rowa)
 
 
-def _bwd_smem_floats(spec: DenseNepSpec, cap: int) -> int:
-    """Shared memory (floats) of K2b / K2 at `cap` slots a cell."""
-    warps = _THREADS // 32
-    return (cap * (4 + spec.s_width + spec.a_width)
-            + z_tables_flat(spec.l_max).size + warps * 3 * cap)
+def dense_tiling(spec: DenseNepSpec, cap: int, lanes: int,
+                 backward: bool) -> DenseTile:
+    """The largest cut of a cell (`cap` slots, `lanes` candidates) whose
+    block fits in shared memory: one window and one group where they fit
+    (the PbTe plans), else smaller pieces, then groups, then windows.  The
+    forward pieces hold up to a pair row a thread (angular rows; radial
+    rows are shorter, so more fit); the backward's radial pieces four
+    3-float pair cotangents a thread, its angular ones one.  Pieces shrink
+    first, down to half a pair a thread, to let three blocks share an SM
+    (the kernels' registers allow three).  Raises ValueError when even the
+    smallest cut does not fit."""
+    rowr, rowa = (2 + spec.kr1) | 1, (1 + spec.ka1 + spec.nlm) | 1
+    tile = {"cw": -(-lanes // 32) * 32, "gc": cap, "q": _THREADS}
+
+    def make():
+        q = tile["q"]
+        if backward:
+            qr, qa = 4 * q, q
+        else:
+            region = q * max(rowr, rowa)
+            qr, qa = region // rowr, region // rowa
+        words = _dense_smem_words(spec, cap, tile["cw"], tile["gc"], qr, qa,
+                                  backward)
+        return DenseTile(tile["cw"], tile["gc"], qr, qa, 4 * words)
+
+    while make().smem > _SMEM_THREE and tile["q"] > _THREADS // 2:
+        tile["q"] -= 32
+    for key, floor in (("q", 64), ("gc", 1), ("cw", 32), ("q", 32)):
+        while make().smem > _SMEM_LIMIT and tile[key] > floor:
+            v = -(-tile[key] // 2)
+            tile[key] = max(floor, -(-v // 32) * 32 if key == "cw" else v)
+    out = make()
+    if out.smem > _SMEM_LIMIT:
+        raise ValueError(f"needs {out.smem} B of shared memory at the "
+                         f"smallest cut, above {_SMEM_LIMIT}")
+    return out
+
+
+def dense_entry(spec: DenseNepSpec, backward: bool) -> str:
+    """The mangled-name fragment of the forward or backward kernel's
+    instance for `spec` (l_max, and the bound 8 or 20 on kr1/ka1)."""
+    kmax = 8 if max(spec.kr1, spec.ka1) <= 8 else 20
+    kind = "bwd" if backward else "fwd"
+    return f"dense_{kind}_kernelILi{spec.l_max}ELi{kmax}E"
+
+
+def dense_occupancy(spec: DenseNepSpec, tile: DenseTile, cap: int,
+                    backward: bool) -> int:
+    """Resident blocks an SM of the kernel's instance at this cut
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    blocks = ctypes.c_int(0)
+    rc = cuda_build.library().dense_occupancy(
+        int(backward), cap, spec.num_types, spec.kr1, spec.ka1, spec.l_max,
+        z_tables_flat(spec.l_max).size, *tile, ctypes.addressof(blocks))
+    cuda_build.check(rc, "dense_occupancy")
+    return blocks.value
 
 
 def _check_lanes(cap: int, c_pad: int, name: str):
@@ -361,12 +433,14 @@ def _check_lanes(cap: int, c_pad: int, name: str):
                          f"the 27 cap = {27 * cap} candidates")
 
 
-def _check_sizes(spec: DenseNepSpec, smem_floats: int, name: str):
+def _launch_tile(spec: DenseNepSpec, cap: int, lanes: int, backward: bool,
+                 name: str) -> DenseTile:
     if not (1 <= spec.l_max <= 8 and spec.kr1 <= 20 and spec.ka1 <= 20):
         raise ValueError(f"{name}: model outside the kernel's sizes")
-    if 4 * smem_floats > _SMEM_LIMIT:
-        raise ValueError(f"{name}: needs {4 * smem_floats} B of shared "
-                         f"memory, above {_SMEM_LIMIT}")
+    try:
+        return dense_tiling(spec, cap, lanes, backward)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
 
 
 # --------------------------------------------------------------------------
@@ -393,7 +467,7 @@ def _k1b_cuda(centers, cand, plan: DenseGridPlan, spec: DenseNepSpec):
     cuda_build.require(cand, "cand", torch.float32, (nz, ny, nx, 4, c_pad),
                        dev)
     _check_lanes(cap, c_pad, "k1b")
-    _check_sizes(spec, _fwd_smem_floats(spec, c_pad), "k1b")
+    tile = _launch_tile(spec, cap, c_pad, False, "k1b")
     s = torch.empty((nz, ny, nx, cap, spec.s_width), dtype=torch.float32,
                     device=dev)
     a = torch.empty((nz, ny, nx, spec.ch_a, cap, spec.nlm),
@@ -401,8 +475,8 @@ def _k1b_cuda(centers, cand, plan: DenseGridPlan, spec: DenseNepSpec):
     ptrs, ints, floats = _kernel_args(spec, dev)
     rc = cuda_build.library().dense_k1b_launch(
         cuda_build.ptr(centers), cuda_build.ptr(cand), cuda_build.ptr(s),
-        cuda_build.ptr(a), *ptrs, nx, ny, nz, cap, c_pad, *ints, *floats,
-        cuda_build.stream())
+        cuda_build.ptr(a), *ptrs, nx, ny, nz, cap, c_pad, *ints, *tile,
+        *floats, cuda_build.stream())
     cuda_build.check(rc, "dense_k1b_launch")
     cuda_build.launches["k1b"] += 1
     return s, a
@@ -445,7 +519,7 @@ def _k2b_cuda(centers, cand, cot_s, cot_a, plan: DenseGridPlan,
     cuda_build.require(cot_a, "cot_a", torch.float32,
                        (nz, ny, nx, spec.ch_a, cap, spec.nlm), dev)
     _check_lanes(cap, c_pad, "k2b")
-    _check_sizes(spec, _bwd_smem_floats(spec, cap), "k2b")
+    tile = _launch_tile(spec, cap, c_pad, True, "k2b")
     dcen = torch.empty((nz, ny, nx, 3, cap), dtype=torch.float32, device=dev)
     dcand = torch.empty((nz, ny, nx, 3, c_pad), dtype=torch.float32,
                         device=dev)
@@ -453,7 +527,8 @@ def _k2b_cuda(centers, cand, cot_s, cot_a, plan: DenseGridPlan,
     rc = cuda_build.library().dense_k2b_launch(
         cuda_build.ptr(centers), cuda_build.ptr(cand), cuda_build.ptr(cot_s),
         cuda_build.ptr(cot_a), cuda_build.ptr(dcen), cuda_build.ptr(dcand),
-        *ptrs, nx, ny, nz, cap, c_pad, *ints, *floats, cuda_build.stream())
+        *ptrs, nx, ny, nz, cap, c_pad, *ints, *tile, *floats,
+        cuda_build.stream())
     cuda_build.check(rc, "dense_k2b_launch")
     cuda_build.launches["k2b"] += 1
     return dcen, dcand
@@ -501,13 +576,13 @@ def _k1_cuda(garr, plan: DenseGridPlan, spec: DenseNepSpec):
     dev = garr.device
     gshape, rows = _v1_shapes(plan)
     cuda_build.require(garr, "garr", torch.float32, gshape)
-    _check_sizes(spec, _fwd_smem_floats(spec, 27 * cap), "dense_k1")
+    tile = _launch_tile(spec, cap, 27 * cap, False, "dense_k1")
     s = torch.empty(rows + (spec.s_width,), dtype=torch.float32, device=dev)
     a = torch.empty(rows + (spec.a_width,), dtype=torch.float32, device=dev)
     ptrs, ints, floats = _kernel_args(spec, dev)
     rc = cuda_build.library().dense_k1_launch(
         cuda_build.ptr(garr), cuda_build.ptr(s), cuda_build.ptr(a), *ptrs,
-        nx, ny, nz, cap, *ints, *floats, cuda_build.stream())
+        nx, ny, nz, cap, *ints, *tile, *floats, cuda_build.stream())
     cuda_build.check(rc, "dense_k1_launch")
     cuda_build.launches["dense_k1"] += 1
     return s, a
@@ -547,13 +622,13 @@ def _k2_cuda(garr, cot_s, cot_a, plan: DenseGridPlan, spec: DenseNepSpec):
                        dev)
     cuda_build.require(cot_a, "cot_a", torch.float32, rows + (spec.a_width,),
                        dev)
-    _check_sizes(spec, _bwd_smem_floats(spec, cap), "dense_k2")
+    tile = _launch_tile(spec, cap, 27 * cap, True, "dense_k2")
     g = torch.empty((nz, ny, nx, 27, 3 * cap), dtype=torch.float32,
                     device=dev)
     ptrs, ints, floats = _kernel_args(spec, dev)
     rc = cuda_build.library().dense_k2_launch(
         cuda_build.ptr(garr), cuda_build.ptr(cot_s), cuda_build.ptr(cot_a),
-        cuda_build.ptr(g), *ptrs, nx, ny, nz, cap, *ints, *floats,
+        cuda_build.ptr(g), *ptrs, nx, ny, nz, cap, *ints, *tile, *floats,
         cuda_build.stream())
     cuda_build.check(rc, "dense_k2_launch")
     cuda_build.launches["dense_k2"] += 1

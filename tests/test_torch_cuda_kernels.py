@@ -17,7 +17,14 @@ compressed so that every centre takes the general path past the live
 cap, Newton's third law of the fused pass, the shapes, unaligned bases
 and windows the Tersoff wrappers refuse, and the four dense-window
 kernels (K1b, K2b, round-1 K1 and K2) on random solids with close pairs
-inside the ZBL switch, empty slots and an open axis; and the six probe
+inside the ZBL switch, empty slots and an open axis, a denser one whose
+live-pair queues take several pieces, a model at the edge of the shared
+memory of the kernels without queues (l_max 6, 20 angular basis
+functions, cap 24), a cap (300) whose cut of a cell takes several groups
+of centres and, backward, several windows of candidates, small cuts
+forced in both directions,
+equal bits from two calls, a pass's net gradient zero to rounding and the
+inputs the wrappers refuse; and the six probe
 kernels of csrc/probes.cu (the one-hot dot in TF32 and f32 on tiles
 across b boundaries, part-full tiles, n 16 to 128, k 100 and ksplit 4,
 the f32 path's error against f64 within twice f32 torch.matmul's and its
@@ -35,6 +42,7 @@ atomics, CUDA's own transcendentals); the two compactions copy, so they
 must match bit for bit.
 """
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -557,9 +565,10 @@ def test_tersoff_wrappers_refuse_windows_past_shared_memory(dev):
     assert cuda_build.launches == before
 
 
-def _dense_state(dev, model, n, lengths, pbc, seed):
+def _dense_state(dev, model, n, lengths, pbc, seed, cap=None):
     """Random solid (uniform positions: pairs far inside the ZBL switch)
-    binned on the v2 engine's plan_grid plan, in f32 on the card."""
+    binned on the v2 engine's plan_grid plan (or at `cap` slots a cell), in
+    f32 on the card."""
     rng = np.random.default_rng(seed)
     pos = rng.uniform(0, 1, (n, 3)) * lengths
     if not pbc[2]:
@@ -568,7 +577,7 @@ def _dense_state(dev, model, n, lengths, pbc, seed):
     box = Box.orthogonal(lengths, pbc=pbc, dtype=torch.float32, device=dev)
     p = box.wrap(torch.as_tensor(pos, dtype=torch.float32, device=dev))
     plan = TG.plan_grid(box, model.rc_radial_max, 1.0, n,
-                        position=p.cpu().numpy())
+                        position=p.cpu().numpy(), cap=cap)
     perm, smask, ov = TG.bin_dense(p, box, torch.ones(n, device=dev), plan)
     assert not bool(ov)
     return (TG.apply_perm(p, perm, 1e5),
@@ -577,48 +586,205 @@ def _dense_state(dev, model, n, lengths, pbc, seed):
             smask, box, plan)
 
 
-@pytest.mark.parametrize("which", ["universal-l2", "none-l4", "trained",
-                                   "open-z"])
-def test_dense_kernels_match_plain(dev, which):
-    """K1b, K2b (one dense_nep_compute_v2 pass) and the round-1 K1, K2 (one
-    dense_nep_compute pass), each against its plain version on the tensors
-    of its pass."""
+def _edge_model():
+    """l_max 6 and 20 angular basis functions: at cap 24 the backward
+    without queues took 189 KB of shared memory, near the 227 KB limit."""
+    return dataclasses.replace(_model("universal", 6),
+                               basis_size_angular=19, n_max_angular=5)
+
+
+# (model, atoms, box lengths, pbc, cap): "dense" packs ~3x the other
+# systems' atoms into the box, so each cell's radial and angular queues
+# take several pieces of each kernel; "edge" is _edge_model at cap 24;
+# "wide" is the "dense" packing at cap 300 (8,192 lanes), where both
+# kernels cut a cell into groups of centres and the backward also into
+# windows of candidates
+_DENSE_CASES = {
+    "universal-l2": ("universal-l2", 700, (27.5, 28.0, 29.0), True, None),
+    "none-l4": ("none-l4", 700, (27.5, 28.0, 29.0), True, None),
+    "trained": ("trained", 700, (27.5, 28.0, 29.0), True, None),
+    "open-z": ("universal-l2", 700, (27.5, 28.0, 29.0), False, None),
+    "dense": ("trained", 2100, (27.5, 28.0, 29.0), True, None),
+    "edge": ("edge", 330, (27.5, 28.0, 29.0), True, 24),
+    "wide": ("universal-l2", 2100, (27.5, 28.0, 29.0), True, 300),
+}
+
+
+def _dense_model(dev, which):
     if which == "trained":
         nep = NEP.from_file(MODEL, device=dev)
-        model, params = nep.model, nep.params
-    else:
-        model = _model("none" if which == "none-l4" else "universal",
-                       4 if which == "none-l4" else 2)
-        params = random_params(model, seed=5, dtype=torch.float32, device=dev)
-    lengths = np.array([27.5, 28.0, 29.0])
-    pbc = (True, True, which != "open-z")
-    ps, ts, smask, box, plan = _dense_state(dev, model, 700, lengths, pbc, 4)
+        return nep.model, nep.params
+    model = (_edge_model() if which == "edge" else
+             _model("none" if which == "none-l4" else "universal",
+                    4 if which == "none-l4" else 2))
+    return model, random_params(model, seed=5, dtype=torch.float32,
+                                device=dev)
+
+
+def _dense_passes(dev, case):
+    """The kernels' inputs of one dense_nep_compute_v2 pass (k2) and one
+    dense_nep_compute pass (k1) on a _DENSE_CASES system."""
+    which, n, lengths, pbc_z, cap = _DENSE_CASES[case]
+    model, params = _dense_model(dev, which)
+    ps, ts, smask, box, plan = _dense_state(
+        dev, model, n, np.array(lengths), (True, True, pbc_z), 4, cap)
     spec = TD.DenseNepSpec.from_model(model)
     k2, k1 = {}, {}
-    before = dict(cuda_build.launches)
     TD.dense_nep_compute_v2(ps, ts, smask, box, plan, model, params, keep=k2)
     TD.dense_nep_compute(ps, ts, smask, box, plan, model, params, keep=k1)
-    for name in ("k1b", "k2b", "dense_k1", "dense_k2"):
-        assert cuda_build.launches[name] == before[name] + 1, name
     assert bool((smask == 0).any())  # empty slots in the cells
+    return k2, k1, plan, spec
+
+
+def _dense_calls(k2, k1, plan, spec):
+    """name -> (kernel call, plain call) of the four dense kernels."""
     c, w = k2["centers"], k2["cand"]
-    pairs = {
-        "k1b": (TD.k1b_call(c, w, plan, spec),
-                TD.k1b_plain(c, w, plan, spec)),
-        "k2b": (TD.k2b_call(c, w, k2["cot_s"], k2["cot_a"], plan, spec),
-                TD.k2b_plain(c, w, k2["cot_s"], k2["cot_a"], plan, spec)),
-        "dense_k1": (TD.k1_call(k1["garr"], plan, spec),
-                     TD.k1_plain(k1["garr"], plan, spec)),
-        "dense_k2": ((TD.k2_call(k1["garr"], k1["cot_s"], k1["cot_a"], plan,
-                                 spec),),
-                     (TD.k2_plain(k1["garr"], k1["cot_s"], k1["cot_a"], plan,
-                                  spec),)),
+    g, cs1, ca1 = k1["garr"], k1["cot_s"], k1["cot_a"]
+    return {
+        "k1b": (lambda: TD.k1b_call(c, w, plan, spec),
+                lambda: TD.k1b_plain(c, w, plan, spec)),
+        "k2b": (lambda: TD.k2b_call(c, w, k2["cot_s"], k2["cot_a"], plan,
+                                    spec),
+                lambda: TD.k2b_plain(c, w, k2["cot_s"], k2["cot_a"], plan,
+                                     spec)),
+        "dense_k1": (lambda: TD.k1_call(g, plan, spec),
+                     lambda: TD.k1_plain(g, plan, spec)),
+        "dense_k2": (lambda: (TD.k2_call(g, cs1, ca1, plan, spec),),
+                     lambda: (TD.k2_plain(g, cs1, ca1, plan, spec),)),
     }
-    for name, (got, ref) in pairs.items():
-        for g, r in zip(got, ref):
+
+
+def _check_dense_calls(k2, k1, plan, spec, case):
+    """Each dense kernel once against its plain version: one launch each,
+    finite, within its tolerance."""
+    for name, (kern, plain) in _dense_calls(k2, k1, plan, spec).items():
+        n0 = cuda_build.launches[name]
+        got = kern()
+        assert cuda_build.launches[name] == n0 + 1, name
+        for g, r in zip(got, plain()):
             assert g.shape == r.shape
             assert torch.isfinite(g).all()
-            assert _rel(g, r) <= TOL[name], (name, _rel(g, r))
+            assert _rel(g, r) <= TOL[name], (name, case, _rel(g, r))
+
+
+def _queueless_smem_bytes(spec, cap, lanes, backward):
+    """Shared memory of the dense kernels without live-pair queues (a warp
+    a centre forward, a thread a candidate backward), whose size checks
+    the queues' cut of a cell must accept: a warp's accumulators and 32
+    staged pair rows forward, the cell's cotangents backward."""
+    zt = TD.z_tables_flat(spec.l_max).size
+    if backward:
+        return 4 * (cap * (4 + spec.s_width + spec.a_width) + zt + 24 * cap)
+    stride = (2 + spec.kr1 + spec.ka1 + spec.nlm) | 1
+    return 4 * (4 * lanes + zt
+                + 8 * (spec.a_width + spec.s_width + 32 * stride))
+
+
+@pytest.mark.parametrize("case", list(_DENSE_CASES))
+def test_dense_kernels_match_plain(dev, case):
+    """K1b, K2b (one dense_nep_compute_v2 pass) and the round-1 K1, K2 (one
+    dense_nep_compute pass), each against its plain version on the tensors
+    of its pass; each call moves its launch counter by one."""
+    before = dict(cuda_build.launches)
+    k2, k1, plan, spec = _dense_passes(dev, case)
+    for name in ("k1b", "k2b", "dense_k1", "dense_k2"):
+        assert cuda_build.launches[name] == before[name] + 1, name
+    if case == "dense":
+        # more queue positions a cell than one piece of either kernel holds
+        cap, lanes = plan.cap, k2["cand"].shape[-1]
+        fwd = TD.dense_tiling(spec, cap, lanes, False)
+        bwd = TD.dense_tiling(spec, cap, lanes, True)
+        rad, ang = _dense_cell_queues(k2, plan, spec)
+        assert rad > max(fwd.qr, bwd.qr) and ang > max(fwd.qa, bwd.qa), (
+            rad, ang)
+    if case == "wide":
+        # the queueless kernels took this plan; the cut has more than one
+        # group a cell in both directions and more than one window in the
+        # backward, for both rounds' lanes
+        live = _dense_live_centres(k2, plan)
+        for ln in (k2["cand"].shape[-1], 27 * plan.cap):
+            for bwd in (False, True):
+                assert _queueless_smem_bytes(spec, plan.cap, ln, bwd) <= \
+                    TD._SMEM_LIMIT
+                tile = TD.dense_tiling(spec, plan.cap, ln, bwd)
+                assert tile.gc < live, (ln, bwd, tile, live)
+                assert (tile.cw < ln) == bwd, (ln, bwd, tile)
+    if case == "dense":
+        assert TD.dense_tiling(spec, plan.cap, k2["cand"].shape[-1],
+                               True).gc < _dense_live_centres(k2, plan)
+    if case == "edge":
+        lanes = k2["cand"].shape[-1]
+        for bwd, ln in ((True, lanes), (False, lanes), (True, 27 * plan.cap),
+                        (False, 27 * plan.cap)):
+            assert _queueless_smem_bytes(spec, plan.cap, ln, bwd) <= \
+                TD._SMEM_LIMIT
+        assert _queueless_smem_bytes(spec, plan.cap, lanes, True) > \
+            0.8 * TD._SMEM_LIMIT
+    _check_dense_calls(k2, k1, plan, spec, case)
+
+
+def _dense_live_centres(k2, plan):
+    """The most live centres of one cell (an empty slot is at FAR, type
+    -1)."""
+    c = k2["centers"].reshape(-1, 4, plan.cap)
+    dead = (c[:, 3] <= -0.5) & (c[:, 0] >= 5.0e4)
+    return int((~dead).sum(dim=1).max())
+
+
+def _dense_cell_queues(k2, plan, spec):
+    """The largest radial and angular live-pair counts of one cell."""
+    cap = plan.cap
+    c = k2["centers"].reshape(-1, 4, cap, 1)
+    w = k2["cand"].reshape(c.shape[0], 4, 1, -1)
+    d = torch.sqrt(sum((w[:, q] - c[:, q]) ** 2 for q in range(3)))
+    ok = (d > 1e-3) & (w[:, 3] > -0.5) & (c[:, 3] > -0.5)
+    rad = (ok & (d < max(spec.rc_radial))).sum(dim=(1, 2)).max()
+    ang = (ok & (d < min(spec.rc_angular))).sum(dim=(1, 2)).max()
+    return int(rad), int(ang)
+
+
+@pytest.mark.parametrize("case", ["trained", "dense"])
+@pytest.mark.parametrize("cw,gc,q", [(64, 5, 32), (96, 1, 64)])
+def test_dense_kernels_small_cuts_match_plain(dev, monkeypatch, case, cw, gc,
+                                              q):
+    """The four kernels with a cell cut into windows of cw lanes, groups of
+    gc centres and queue pieces of q pairs, in both directions, against
+    their plain versions: the sums a centre carries from window to window
+    and group to group, and the candidate sums a window keeps."""
+    k2, k1, plan, spec = _dense_passes(dev, case)
+    live = _dense_live_centres(k2, plan)
+    assert gc < live and cw < 27 * plan.cap, (live, plan.cap)
+
+    def cut(spec_, cap, lanes, backward):
+        words = TD._dense_smem_words(spec_, cap, cw, gc, q, q, backward)
+        return TD.DenseTile(cw, gc, q, q, 4 * words)
+
+    monkeypatch.setattr(TD, "dense_tiling", cut)
+    _check_dense_calls(k2, k1, plan, spec, case)
+
+
+@pytest.mark.parametrize("case", ["trained", "dense", "wide"])
+def test_dense_kernels_equal_bits_and_newton(dev, case):
+    """Two launches of each dense kernel give the same bits; every pair's
+    p_ij goes to its centre and its candidate alike, so the net gradient of
+    a pass (dcenter plus dcand, or the round-1 tiles, over every cell) is
+    zero to f32 rounding."""
+    k2, k1, plan, spec = _dense_passes(dev, case)
+    calls = _dense_calls(k2, k1, plan, spec)
+    for name, (kern, _) in calls.items():
+        a, b = kern(), kern()
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), name
+    dcen, dcand = calls["k2b"][0]()
+    tiles = calls["dense_k2"][0]()[0]
+    nx, ny, nz = plan.grid
+    for parts in ((dcen.transpose(3, 4).reshape(-1, 3),
+                   dcand.transpose(3, 4).reshape(-1, 3)),
+                  (tiles.reshape(nz, ny, nx, 9, 3, -1).transpose(4, 5)
+                   .reshape(-1, 3),)):
+        net = sum(p.double().sum(dim=0) for p in parts)
+        scale = sum(p.double().abs().sum(dim=0) for p in parts)
+        assert bool((net.abs() <= 1e-5 * scale).all()), (net, scale)
 
 
 def test_dense_wrappers_reject_wrong_inputs(dev):
@@ -640,6 +806,19 @@ def test_dense_wrappers_reject_wrong_inputs(dev):
         TD.k1_call(k["garr"].double(), plan, spec)
     with pytest.raises(ValueError, match="shape"):
         TD.k2_call(k["garr"], k["cot_s"], k["cot_a"], plan, spec)
+    with pytest.raises(ValueError, match="CUDA"):
+        TD.k2b_call(c, w.cpu(), k["cot_s"], k["cot_a"], plan, spec)
+    with pytest.raises(ValueError, match="contiguous"):
+        TD.k1_call(k["garr"].transpose(0, 1), plan, spec)
+    # the kernels read their inputs by 4-byte element: a base 4 bytes off a
+    # 16-byte boundary is taken, and gives the same results
+    buf = torch.empty(w.numel() + 1, device=dev)
+    w4 = buf[1:].view(w.shape)
+    w4.copy_(w)
+    assert w4.data_ptr() % 16 == 4
+    for x, y in zip(TD.k1b_call(c, w4, plan, spec),
+                    TD.k1b_call(c, w, plan, spec)):
+        assert torch.equal(x, y)
 
 
 # ---------------------------------------------------------------------------

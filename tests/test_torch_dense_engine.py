@@ -463,3 +463,65 @@ def test_dense_spec_rejections(bad):
         kw["zbl_typewise_factor"] = 0.65
     with pytest.raises(NotImplementedError, match="dense engine"):
         TD.DenseNepSpec.from_model(NepModel(**kw))
+
+
+# --------------------------------------------------------------------------
+# the kernels' cut of a cell (dense_tiling) against the shared-memory
+# limits of the kernels without live-pair queues
+# --------------------------------------------------------------------------
+
+
+def _spec(t, kr1, ka1, l_max):
+    return TD.DenseNepSpec(
+        num_types=t, kr1=kr1, ka1=ka1, l_max=l_max, rc_radial=(8.0,) * t,
+        rc_angular=(4.0,) * t, zbl=True, zbl_rc_inner=1.0, zbl_rc_outer=2.0,
+        atomic_numbers=(52, 82, 32, 50)[:t])
+
+
+@pytest.mark.parametrize("t,kr1,ka1,l_max", [
+    (1, 2, 2, 1), (2, 7, 7, 4), (4, 20, 20, 1), (2, 7, 20, 6), (3, 12, 9, 8),
+    (4, 9, 2, 3), (1, 20, 1, 2), (4, 20, 20, 8)])
+def test_dense_tiling_accepts_every_queueless_plan(t, kr1, ka1, l_max):
+    """Every (spec, cap) the queueless kernels' size checks let through
+    (round 2 at pack_candidates' lanes, round 1 at 27 cap) gets a cut that
+    fits in shared memory: one window and one group where that fits, else
+    smaller pieces, groups and windows, never a refusal."""
+    from test_torch_cuda_kernels import _queueless_smem_bytes
+
+    spec = _spec(t, kr1, ka1, l_max)
+    accepted = 0
+    for cap in range(8, 2208, 8):
+        v2 = TG.round_up(27 * cap, TD._chunk_lanes(cap))
+        for lanes in (v2, 27 * cap):
+            for backward in (False, True):
+                if _queueless_smem_bytes(spec, cap, lanes, backward) > \
+                        TD._SMEM_LIMIT:
+                    continue
+                accepted += 1
+                tile = TD.dense_tiling(spec, cap, lanes, backward)
+                assert tile.smem <= TD._SMEM_LIMIT
+                assert tile.smem == 4 * TD._dense_smem_words(
+                    spec, cap, tile.cw, tile.gc, tile.qr, tile.qa, backward)
+                assert tile.cw % 32 == 0 and 32 <= tile.cw <= lanes + 31
+                assert 1 <= tile.gc <= cap and min(tile.qr, tile.qa) >= 32
+    assert accepted > 0
+
+
+@pytest.mark.parametrize("lanes", [1152, 1080])
+def test_dense_tiling_pbte_is_one_tile(lanes):
+    """The trained model on the PbTe 262k v2 plan (cap 40; 1,152 lanes, or
+    round 1's 27 cap): the whole cell in one window and one group, three
+    blocks an SM by shared memory (228 KB an SM, 1 KB of it reserved a
+    block), pieces of at least half a pair a thread."""
+    _, _, tm, _ = _models("full")
+    spec = TD.DenseNepSpec.from_model(tm)
+    for backward in (False, True):
+        tile = TD.dense_tiling(spec, 40, lanes, backward)
+        assert tile.cw >= lanes and tile.gc == 40
+        assert 3 * (tile.smem + 1024) <= 228 * 1024
+        assert tile.qa >= TD._THREADS // 2 and tile.qr >= tile.qa
+
+
+def test_dense_tiling_refuses_what_no_cut_fits():
+    with pytest.raises(ValueError, match="shared memory"):
+        TD.dense_tiling(_spec(4, 20, 20, 8), 40000, 27 * 40000, True)
