@@ -114,8 +114,10 @@ Last, the probes' path: the port's counterparts of the three probe scripts
              feature matmul at ch 24 and 168; both pair-reduce orders,
              and the two equal bit for bit, also at 1024 and 300 lanes
              (the spill order in tiles of 256); the blocked gather at
-             nblk 18 and 11 with indices out of range); then, counts from
-             0, the three entry points'
+             nblk 18 and 11 with indices out of range, at nblk 18 with the
+             script's zero indices, at nblk 27 (past what one block's
+             shared memory held when the whole window was staged) and
+             nblk 1); then, counts from 0, the three entry points'
              main() at the scripts' geometry (the probes' path, which
              prints the scripts' keys); the transcendental gate (every
              kernel op within 1e-6 of f64); every probe timed beside its
@@ -128,11 +130,25 @@ Last, the probes' path: the port's counterparts of the three probe scripts
              memory, blocks an SM, the ring and its bytes in flight, TB/s;
              for the pair reduce's tiled order (a shared-memory slab a
              lane tile) one too: ptxas, shared memory, blocks an SM, lane
-             tile, slab row stride, TB/s
+             tile, slab row stride, TB/s; the blocked gather at the
+             script's zero indices and at uniform random ones, each
+             beside its bound (the 32-byte sectors of src the indices
+             touch), and a [design] line (ptxas, channels a block, lanes
+             a thread, threads, shared memory, blocks an SM, TB/s); last
+             the [host] block (probes/host_cost.py in its own process):
+             the host microseconds of a wrapper call, part by part
+             (require, allocation, pointers, stream, the ctypes call,
+             check, the rest), for row 13's wrapper and those the NEP and
+             Tersoff steps launch, each wrapper with the launch helpers as
+             they were and as they are (in turns in one process), and
+             row 13's launch floor from a CUDA graph.  With --parent DIR (a checkout of the parent commit)
+             the phase also times DIR's blocked gather in turns with this
+             tree's (probes/ab_bgather.py) and runs the [host] block for
+             DIR's package, on this tree's kernels
 
 Usage: python3 chip_smoke.py [--phases build,kernels,md,time,
        dense-kernels,dense-md,dense-time,tersoff-kernels,tersoff-md,
-       tersoff-time,probes]
+       tersoff-time,probes] [--parent DIR]
 Prints the kernels' JSON line, then, last, {"ok": true, "device": {...}}.
 A NEP kernel's "ms", "plain_ms", "library_ms" and "bound_ms" are per MD
 step at 262,144 atoms on the default rung: the compactions launch twice a
@@ -1695,15 +1711,23 @@ def _probe_checks(results, failures):
         if not same:
             failures.append(f"probe_pair_reduce spill != tiled at {lanes}")
         del g, y, spill
-    for nblk, chunks in ((18, 14), (11, 14), (11, 12)):
+    # the script's shapes with indices out of range, its zero indices, a
+    # window past what one block's shared memory held before (nblk 27) and
+    # one block of 128 columns
+    for nblk, chunks, zeros in ((18, 14, False), (11, 14, False),
+                                (11, 12, False), (18, 14, True),
+                                (27, 14, False), (1, 14, False)):
         width = 128 * nblk
         src = randn(nb, 17, width)
-        idx = torch.randint(-64, width + 64, (nb, 8 * chunks, 128),
-                            generator=gen, device=dev, dtype=torch.int32)
+        shape = (nb, 8 * chunks, 128)
+        idx = (torch.zeros(shape, device=dev, dtype=torch.int32) if zeros
+               else torch.randint(-64, width + 64, shape, generator=gen,
+                                  device=dev, dtype=torch.int32))
+        what = "zero indices" if zeros else "indices out of range"
         _compare(f"probe_bgather[nb {nb}, nblk {nblk}, chunks {chunks}, "
-                 f"indices out of range]", "probe_bgather",
-                 MX.bgather(src, idx), MX.bgather_plain(src, idx), results,
-                 failures)
+                 f"{what}]", "probe_bgather", MX.bgather(src, idx),
+                 MX.bgather_plain(src, idx), results, failures)
+        del src, idx
 
 
 def _f32_error(label, vals, ksplit, got, ref, results, failures, key):
@@ -1857,11 +1881,12 @@ def _reduce_design(nb, chunks, lanes, rate):
                            f"launch {occ} against the plan's {want}")
 
 
-def _probe_time(results):
+def _probe_time(results, parent=None):
     """Every probe at its script's geometry (bench_mxu_probes at scale 8:
     1,734 blocks): kernel, plain version and library call with CUDA
     events, and the bound.  Bytes count each input once and each output
     once; a gather's table counts the 32-byte sectors its indices touch."""
+    from gpumd_tpu_torch.probes import ab_bgather as AB
     from gpumd_tpu_torch.probes import bench_gather as BG
     from gpumd_tpu_torch.probes import bench_mxu_probes as MX
     from gpumd_tpu_torch.probes import probe_transcendentals as PT
@@ -1976,34 +2001,154 @@ def _probe_time(results):
     s11, i11 = MX.case_inputs("bgather_17ch_nblk11", nb, dev)
     k11 = _time_ms(lambda: MX.bgather(s11, i11), 10)
     del s11, i11
-    # where its time goes: the same windows with 8 index rows (the staging
-    # of the windows, mostly) and a plain copy of the windows
-    i8 = bidx[:, :8].contiguous()
-    k_nq8 = _time_ms(lambda: MX.bgather(src, i8), 10)
-    copy_ms = _time_ms(src.clone, 10)
     nch, width = src.shape[1:]
     j = bidx.long().reshape(nb, 1, -1)
     gsum_ms = _time_ms(lambda: torch.gather(
         src, 2, j.expand(nb, nch, j.shape[2])).view(nb, nch, -1, 128).sum(2),
         10)
-    # every channel row reads the same columns: nch x the (b, column)
+    del j
+    # bytes: the indices, the output and, of src, nch x the (b, column)
     # sectors the valid indices touch
-    valid = (bidx >= 0) & (bidx < width)
-    keys = (torch.arange(nb, device=dev).view(nb, 1, 1) * width
-            + bidx.long())[valid]
+    nbytes = AB.sector_bytes(src, bidx)
+    terms = nch * int(((bidx >= 0) & (bidx < width)).sum())
     _probe_row(results, "probe_bgather",
                f"probe_bgather (nb {nb}, 17 channels, nblk 18, 14 chunks, "
-               f"the script's zero indices)", k, p, None,
-               _nbytes(bidx) + 4 * nb * nch * 128
-               + 32 * nch * _sectors(keys),
-               nch * int(valid.sum()), ms_nblk11=k11, gather_sum_ms=gsum_ms,
-               ms_8_index_rows=k_nq8, window_copy_ms=copy_ms)
+               f"the script's zero indices)", k, p, None, nbytes, terms,
+               ms_nblk11=k11, gather_sum_ms=gsum_ms)
+    del src, bidx
+    # uniform random indices in [-64, width + 64): nearly every sector
+    rsrc, ridx = AB.inputs("random", dev)
+    p_r, k_r = _in_turns(lambda: MX.bgather_plain(rsrc, ridx),
+                         lambda: MX.bgather(rsrc, ridx), 3, 10)
+    nbytes_r = AB.sector_bytes(rsrc, ridx)
+    b_r, by_r = bound(nbytes_r,
+                      nch * int(((ridx >= 0) & (ridx < width)).sum()))
+    print(f"[time] probe_bgather (the same shape, uniform random indices "
+          f"in [-64, width + 64)): kernel {k_r:.4f} ms, plain {p_r:.4f} ms "
+          f"({p_r / k_r:.2f}x), bound {b_r:.4f} ms by {by_r} "
+          f"({nbytes_r / 1e6:.1f} MB; {100 * b_r / k_r:.1f}% of bound)")
+    results["probe_bgather"].update(ms_random=k_r, plain_ms_random=p_r,
+                                    bound_ms_random=b_r)
+    _bgather_design(results, rsrc, ridx, nbytes, k, nbytes_r, k_r)
+    del rsrc, ridx
+    if parent is not None:
+        _bgather_parent(results, parent)
 
 
-def phase_probes(results):
+def _bgather_design(results, src, idx, nbytes, ms, nbytes_r, ms_r):
+    """What the blocked gather's design acts on: ptxas's registers, stack
+    and spill of the plan's instance, lanes a thread, threads, the window's
+    chunks, shared memory a block, resident blocks an SM (the occupancy
+    query beside the plan's), waves, and the rate at both index patterns.
+    Fails on local memory, no staging or no resident block."""
+    from gpumd_tpu_torch.probes import bench_mxu_probes as MX
+
+    nb, nch, width = src.shape
+    nq, lanes = idx.shape[1:]
+    plan = MX.bgather_plan(nb, nch, nq, width, lanes, sms=_sms())
+    occ = MX.bgather_occupancy(plan)
+    px = _ptxas_entry(f"probe_bgather_kernelILi{plan.lv}ELb"
+                      f"{int(plan.stage)}E")
+    rate, rate_r = nbytes / ms / 1e9, nbytes_r / ms_r / 1e9
+    print(f"[design] probe_bgather probe_bgather_kernel<{plan.lv}, "
+          f"{str(plan.stage).lower()}>: {px['regs']} registers, "
+          f"{px['stack']} B stack frame, {px['spill_stores']} B spill "
+          f"stores, {px['spill_loads']} B spill loads; a block a b, "
+          f"{plan.lv} lanes of a channel quad a thread, "
+          f"{plan.threads} threads; the indices "
+          f"and {plan.chunks} chunks of {plan.chunk} columns (touched "
+          f"sectors only) in {plan.smem} B shared memory a block; {occ} "
+          f"blocks an SM (plan {plan.blocks_per_sm}); {plan.units} blocks, "
+          f"{plan.waves:.1f} waves; {rate:.3f} TB/s at zero indices, "
+          f"{rate_r:.3f} at random")
+    results["probe_bgather"].update(tb_per_s=rate, tb_per_s_random=rate_r)
+    if px["stack"] or px["spill_stores"] or occ < 1 or not plan.stage:
+        raise RuntimeError("probe_bgather_kernel: local memory, no staging "
+                           "or no resident block")
+
+
+def _bgather_parent(results, parent):
+    """The parent checkout's blocked gather (its csrc/probes.cu, built on
+    its own) and this tree's, in turns on the same inputs at both index
+    patterns (probes/ab_bgather.py)."""
+    from gpumd_tpu_torch.engine import cuda_build
+    from gpumd_tpu_torch.probes import ab_bgather as AB
+
+    src = Path(parent) / "gpumd_tpu_torch" / "csrc" / "probes.cu"
+    lib, _ = AB.build({"parent": src})["parent"]
+    res = AB.compare({"parent": lib, "tree": cuda_build.library()},
+                     torch.device("cuda"))
+    for pattern, rows in res.items():
+        b_ms, pa, tr = rows["bound_ms"], rows["parent"], rows["tree"]
+        print(f"[time] probe_bgather {pattern} indices, in turns "
+              f"(ab_bgather): parent {pa['ms']:.4f} ms "
+              f"({100 * b_ms / pa['ms']:.1f}% of bound), this tree "
+              f"{tr['ms']:.4f} ms "
+              f"({100 * b_ms / tr['ms']:.1f}%; {pa['ms'] / tr['ms']:.2f}x); "
+              f"max |error| {pa['max_abs_err']:.2e} / "
+              f"{tr['max_abs_err']:.2e}")
+        key = "" if pattern == "zeros" else "_random"
+        results["probe_bgather"][f"parent_ms{key}"] = pa["ms"]
+
+
+def _host_block(results, parent):
+    """The [host] block: the host time of a wrapper call, part by part
+    (probes/host_cost.py, a process of its own each), for the parent
+    checkout's package and this one's on this tree's kernels, in turns
+    (parent, tree, tree, parent); this tree's wrappers with the launch
+    helpers as they were and as they are, in turns in one process; and
+    the launch floor of row 13 from a CUDA graph.  The results keep each
+    checkout's smaller reading."""
+    import sys
+
+    if parent is None:
+        turns = [("tree", str(ROOT))]
+    else:
+        turns = [("parent", parent), ("tree", str(ROOT))]
+        turns += turns[::-1]
+    script = ROOT / "gpumd_tpu_torch" / "probes" / "host_cost.py"
+    best = {}
+    for label, root in turns:
+        out = subprocess.run([sys.executable, str(script), "--root", root],
+                             capture_output=True, text=True)
+        lines = out.stdout.strip().splitlines()
+        if out.returncode:
+            raise RuntimeError(f"host_cost ({label}) failed:\n"
+                               + out.stderr[-4000:])
+        for line in lines[:-1]:
+            print(line.replace(f"[host] {Path(root).resolve()}",
+                               f"[host] {label}"))
+        res = json.loads(lines[-1])
+        for name, r in res["wrappers"].items():
+            key = (label, name)
+            if key not in best or r["whole"] < best[key]:
+                best[key] = r["whole"]
+        r13 = results.setdefault("probe_transcendentals", {})
+        suffix = "" if label == "tree" else "_parent"
+        r13[f"back_to_back_ms{suffix}"] = min(
+            res["row13_ms"], r13.get(f"back_to_back_ms{suffix}", 1e9))
+        if label == "tree":
+            r13["launch_floor_ms"] = res["launch_floor_ms"]
+            ab = res["ab"]["probe/transcendentals"]
+            r13["host_us_helpers_before"] = ab["before"]
+            r13["host_us_helpers_now"] = ab["now"]
+    for (label, name), us in best.items():
+        if label == "tree" and ("parent", name) in best:
+            print(f"[host] {name}: {us:.2f} us a call (parent "
+                  f"{best[('parent', name)]:.2f}), the smaller reading of "
+                  f"each checkout")
+    r13 = results["probe_transcendentals"]
+    r13["host_us"] = best[("tree", "probe/transcendentals")]
+    if parent is not None:
+        r13["host_us_parent"] = best[("parent", "probe/transcendentals")]
+
+
+def phase_probes(results, parent=None):
     """Phase 11: the probe kernels against their plain versions, the
     probes' own path (the three entry points at the scripts' geometry,
-    counts from 0), the transcendental gate, and the timings."""
+    counts from 0), the transcendental gate, the timings (with a parent
+    checkout, its blocked gather in turns with this one's) and the [host]
+    block."""
     from gpumd_tpu_torch.engine import cuda_build
     from gpumd_tpu_torch.probes import bench_gather as BG
     from gpumd_tpu_torch.probes import bench_mxu_probes as MX
@@ -2033,7 +2178,8 @@ def phase_probes(results):
               f"{worst:.3e} (gate {TRANS_GATE:.0e})")
         if not worst <= TRANS_GATE:
             raise RuntimeError("in-kernel transcendentals above the gate")
-        _probe_time(results)
+        _probe_time(results, parent)
+    _host_block(results, parent)
 
 
 def main():
@@ -2041,6 +2187,10 @@ def main():
     ap.add_argument("--phases", default="build,kernels,md,time,"
                     "dense-kernels,dense-md,dense-time,"
                     "tersoff-kernels,tersoff-md,tersoff-time,probes")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the parent commit: the probes "
+                    "phase then times its blocked gather and its wrappers' "
+                    "host time beside this tree's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port's smoke test needs one")
@@ -2064,7 +2214,7 @@ def main():
                  lambda r: phase_tersoff_kernels(r, pot_path)),
                 ("tersoff-md", lambda r: phase_tersoff_md(r, pot_path)),
                 ("tersoff-time", lambda r: phase_tersoff_time(r, pot_path)),
-                ("probes", phase_probes)):
+                ("probes", lambda r: phase_probes(r, args.parent))):
             if name in phases:
                 fn(results)
                 print(f"[{name}] done at {time.time() - t0:.1f} s")

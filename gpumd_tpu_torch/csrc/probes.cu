@@ -1048,82 +1048,305 @@ extern "C" int probe_reduce_occupancy(int nb, int chunks, int lanes,
 // a term being 0 where idx < 0 or idx >= width (= 128 nblk), as the TPU
 // kernel's blocked select gives.
 //
-// Bound: bytes (src, idx read once, out written once).  Design: a block per
-// b stages its whole src slab (nch x width: 156.7 KB at nblk 18, 95.7 KB at
-// 11) in dynamic shared memory with 16-byte loads from all 512 threads, the
-// on-chip window of the TPU kernel.  Then thread (group, lane a) sums, in q
-// order, the terms of lane a for its group's channels (17 channels in 4
-// groups of up to 5 at 128 lanes), each valid index a shared-memory read
-// per channel, with the indices loaded kBgQ at a time.  The q loop is bound
-// by latency, not bytes: 4 warps an SM summing all 17 channels ran ~3x
-// slower on the H100 than these 16 (PERF.md, the probes).
+// Bound: bytes: idx read once, out written once and, of src, the 32-byte
+// sectors the valid indices touch (every channel reads the same columns).
+// Design: a block per b, all channels.
+//   1. b's indices (nq x lanes int32) go to shared memory by 16-byte
+//      cp.async, all in flight at once; a flag word for each 8-column
+//      sector of the window marks the sectors a valid index touches.
+//   2. The window is taken in column chunks that fit beside the indices
+//      (the plan sizes them for two blocks an SM).  A chunk without a
+//      marked sector is skipped (the script's zero indices mark one
+//      sector); otherwise its marked sectors of every channel, and no
+//      others, are copied into shared memory transposed (column j,
+//      channel i at j cgp + i, cgp the channels rounded up to 4), so that
+//      one 16-byte load gives four channels of a column.
+//   3. Thread (lane quad or lane, channel quad) adds, in q order, the
+//      terms whose index falls in the chunk, kBgU indices at a time from
+//      shared memory and one 16-byte shared-memory load a term (a
+//      broadcast where a warp's indices are equal).  Its sums stay in
+//      registers across the chunks and are written once.
+// Terms add in (chunk, q) order, the same every run (no atomics): q order
+// where one chunk covers the window.  Where the indices leave no room for
+// a chunk of 8 columns, STAGE false reads indices and terms from device
+// memory through the read-only path.
 // ---------------------------------------------------------------------------
 
 namespace {
-constexpr int kBgCh = 8;      // channels a thread holds in registers a pass
-constexpr int kBgQ = 8;       // index loads in flight a thread
-constexpr int kBgThreads = 512;
+constexpr int kBgU = 8;  // indices a thread takes at a time in the sums
+constexpr int kBgMaxThreads = 512;
+
+int bg_round4(int x) { return (x + 3) & ~3; }
 }  // namespace
 
-__global__ void __launch_bounds__(kBgThreads)
-probe_bgather_kernel(const float* __restrict__ src,
-                     const int* __restrict__ idx, float* __restrict__ out,
-                     int nch, int nq, int width, int lanes, int groups) {
-  extern __shared__ __align__(16) float s[];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const float4* sb = reinterpret_cast<const float4*>(
-      src + (size_t)b * nch * width);
-  float4* s4 = reinterpret_cast<float4*>(s);
-#pragma unroll 4
-  for (int e = tid; e < nch * width / 4; e += blockDim.x) s4[e] = __ldg(sb + e);
-  __syncthreads();
-  if (tid >= lanes * groups) return;
-  // thread (group, lane): channels [c0, c1) of lane a
-  const int a = tid % lanes, per = (nch + groups - 1) / groups;
-  const int c0 = (tid / lanes) * per, c1 = min(nch, c0 + per);
-  const int* ib = idx + (size_t)b * nq * lanes + a;
-  float* ob = out + (size_t)b * nch * lanes + a;
-  for (int i0 = c0; i0 < c1; i0 += kBgCh) {
-    const int nc = min(kBgCh, c1 - i0);
-    const float* si = s + (size_t)i0 * width;
-    float acc[kBgCh];
+__device__ __forceinline__ void bg_mark(int* flag, int j, int width) {
+  if ((unsigned)j < (unsigned)width) flag[j >> 3] = 1;
+}
+
+__device__ __forceinline__ void bg_add(float4& acc, const float4 v) {
+  acc.x += v.x;
+  acc.y += v.y;
+  acc.z += v.z;
+  acc.w += v.w;
+}
+
+// channels ch0..ch0+3 (those below nch) of column j, from src
+__device__ __forceinline__ float4 bg_direct(const float* sb, int width, int j,
+                                            int ch0, int nch) {
+  float v[4];
 #pragma unroll
-    for (int i = 0; i < kBgCh; ++i) acc[i] = 0.0f;
-    // the indices of kBgQ terms are loaded before they are used, so their
-    // latencies overlap instead of adding up term by term
-    for (int q0 = 0; q0 < nq; q0 += kBgQ) {
-      int jq[kBgQ];
-#pragma unroll
-      for (int u = 0; u < kBgQ; ++u)
-        jq[u] = q0 + u < nq ? __ldg(ib + (size_t)(q0 + u) * lanes) : -1;
-#pragma unroll
-      for (int u = 0; u < kBgQ; ++u) {
-        const int j = jq[u];
-        if (j >= 0 && j < width) {
-#pragma unroll
-          for (int i = 0; i < kBgCh; ++i)
-            if (i < nc) acc[i] += si[(size_t)i * width + j];
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kBgCh; ++i)
-      if (i < nc) ob[(size_t)(i0 + i) * lanes] = acc[i];
+  for (int k = 0; k < 4; ++k)
+    v[k] = ch0 + k < nch ? __ldg(sb + (size_t)(ch0 + k) * width + j) : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// the indices of lanes l0..l0+LV-1 in row q (-1 past nq)
+template <int LV>
+__device__ __forceinline__ void bg_row(const int* row, bool in, int* j) {
+  if (LV == 4) {
+    const int4 v = in ? *reinterpret_cast<const int4*>(row)
+                      : make_int4(-1, -1, -1, -1);
+    j[0] = v.x;
+    j[LV > 1 ? 1 : 0] = v.y;
+    j[LV > 2 ? 2 : 0] = v.z;
+    j[LV > 3 ? 3 : 0] = v.w;
+  } else {
+    j[0] = in ? *row : -1;
   }
 }
 
+template <int LV, bool STAGE>
+__global__ void __launch_bounds__(kBgMaxThreads)
+probe_bgather_kernel(const float* __restrict__ src,
+                     const int* __restrict__ idx, float* __restrict__ out,
+                     int nch, int nq, int width, int lanes, int chunk) {
+  extern __shared__ __align__(16) float s[];
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int n = nq * lanes, nsec = (width + 7) >> 3;
+  const int quads = (nch + 3) >> 2, cgp = 4 * quads;
+  const int* ib = idx + (size_t)b * n;
+  const float* sb = src + (size_t)b * nch * width;
+  int* si = reinterpret_cast<int*>(s);
+  int* flag = si + ((n + 3) & ~3);
+  float* sl = reinterpret_cast<float*>(flag + ((nsec + 3) & ~3));
+  const float4* sl4 = reinterpret_cast<const float4*>(sl);
+  if (STAGE) {
+    // 1. the indices, and the sectors they touch
+    if (n % 4 == 0) {  // b's indices start on a 16-byte boundary
+      for (int e = tid; e < n / 4; e += nt)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                         gk::smem_u32(si + 4 * e)),
+                     "l"(ib + 4 * e)
+                     : "memory");
+    } else {
+      for (int e = tid; e < n; e += nt) si[e] = __ldg(ib + e);
+    }
+    for (int e = tid; e < nsec; e += nt) flag[e] = 0;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (n % 4 == 0) {
+      const int4* si4 = reinterpret_cast<const int4*>(si);
+#pragma unroll 4
+      for (int e = tid; e < n / 4; e += nt) {
+        const int4 v = si4[e];
+        bg_mark(flag, v.x, width);
+        bg_mark(flag, v.y, width);
+        bg_mark(flag, v.z, width);
+        bg_mark(flag, v.w, width);
+      }
+    } else {
+      for (int e = tid; e < n; e += nt) bg_mark(flag, si[e], width);
+    }
+    __syncthreads();
+  }
+  // thread unit p: lanes l0..l0+LV-1 of channel quad c4
+  const int lq = lanes / LV, units = lq * quads;
+  for (int p0 = 0; p0 < units; p0 += nt) {
+    const int p = p0 + tid;
+    const bool mine = p < units;
+    const int l0 = (p % lq) * LV, c4 = p / lq;
+    float4 acc[LV];
+#pragma unroll
+    for (int l = 0; l < LV; ++l) acc[l] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (!STAGE) {
+      for (int q0 = 0; mine && q0 < nq; q0 += kBgU) {
+        int j[kBgU][LV];
+#pragma unroll
+        for (int u = 0; u < kBgU; ++u) {
+          const int q = q0 + u;
+          if (LV == 4) {
+            const int4 v = q < nq ? __ldg(reinterpret_cast<const int4*>(
+                                        ib + (size_t)q * lanes + l0))
+                                  : make_int4(-1, -1, -1, -1);
+            j[u][0] = v.x;
+            j[u][LV > 1 ? 1 : 0] = v.y;
+            j[u][LV > 2 ? 2 : 0] = v.z;
+            j[u][LV > 3 ? 3 : 0] = v.w;
+          } else {
+            j[u][0] = q < nq ? __ldg(ib + (size_t)q * lanes + l0) : -1;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kBgU; ++u)
+#pragma unroll
+          for (int l = 0; l < LV; ++l)
+            if ((unsigned)j[u][l] < (unsigned)width)
+              bg_add(acc[l], bg_direct(sb, width, j[u][l], 4 * c4, nch));
+      }
+    }
+    for (int c0 = 0; STAGE && c0 < width; c0 += chunk) {
+      const int c1 = min(width, c0 + chunk), s0 = c0 >> 3;
+      const int s1 = (c1 + 7) >> 3;
+      int any = 0;
+      for (int e = s0 + tid; e < s1; e += nt) any |= flag[e];
+      if (!__syncthreads_or(any)) continue;
+      // 2. the chunk's marked sectors of every channel, transposed; item
+      // (sector, channel), channel fastest, four in flight a thread
+      const int items = (s1 - s0) * nch;
+      for (int e0 = tid; e0 < items; e0 += 4 * nt) {
+        float4 lo[4], hi[4];
+        int at[4], ch[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = e0 + u * nt;
+          const int sec = s0 + e / nch;
+          ch[u] = e % nch;
+          at[u] = e < items && flag[sec] ? 8 * sec : -1;
+          if (at[u] >= 0) {
+            const float4* g = reinterpret_cast<const float4*>(
+                sb + (size_t)ch[u] * width + at[u]);
+            lo[u] = __ldg(g);
+            hi[u] = at[u] + 4 < width ? __ldg(g + 1)
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (at[u] < 0) continue;
+          float* d = sl + (size_t)(at[u] - c0) * cgp + ch[u];
+          d[0] = lo[u].x;
+          d[cgp] = lo[u].y;
+          d[2 * cgp] = lo[u].z;
+          d[3 * cgp] = lo[u].w;
+          if (at[u] + 4 < width) {  // width % 4 == 0: all four or none
+            d[4 * cgp] = hi[u].x;
+            d[5 * cgp] = hi[u].y;
+            d[6 * cgp] = hi[u].z;
+            d[7 * cgp] = hi[u].w;
+          }
+        }
+      }
+      __syncthreads();
+      // 3. the terms that fall in the chunk, in q order
+      const unsigned span = (unsigned)(c1 - c0);
+      for (int q0 = 0; mine && q0 < nq; q0 += kBgU) {
+        int j[kBgU][LV];
+#pragma unroll
+        for (int u = 0; u < kBgU; ++u)
+          bg_row<LV>(si + (size_t)(q0 + u) * lanes + l0, q0 + u < nq, j[u]);
+#pragma unroll
+        for (int u = 0; u < kBgU; ++u)
+#pragma unroll
+          for (int l = 0; l < LV; ++l) {
+            const unsigned c = (unsigned)(j[u][l] - c0);
+            if (c < span) bg_add(acc[l], sl4[(size_t)c * quads + c4]);
+          }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int ch = 4 * c4 + i;
+      if (!mine || ch >= nch) break;
+      float v[LV];
+#pragma unroll
+      for (int l = 0; l < LV; ++l)
+        v[l] = i == 0 ? acc[l].x : i == 1 ? acc[l].y : i == 2 ? acc[l].z
+                                                               : acc[l].w;
+      float* ob = out + ((size_t)b * nch + ch) * lanes + l0;
+      if (LV == 4)
+        *reinterpret_cast<float4*>(ob) = make_float4(
+            v[0], v[LV > 1 ? 1 : 0], v[LV > 2 ? 2 : 0], v[LV > 3 ? 3 : 0]);
+      else
+        ob[0] = v[0];
+    }
+  }
+}
+
+namespace {
+using BgKernel = void (*)(const float*, const int*, float*, int, int, int,
+                          int, int);
+
+// the instance for lv 4 or 1 lanes a thread, staged or not; 0 for
+// another lv
+BgKernel bg_kernel(int lv, int stage) {
+  if (lv == 4)
+    return stage ? probe_bgather_kernel<4, true>
+                 : probe_bgather_kernel<4, false>;
+  if (lv == 1)
+    return stage ? probe_bgather_kernel<1, true>
+                 : probe_bgather_kernel<1, false>;
+  return nullptr;
+}
+
+// the indices, the flags and a chunk of columns x the channels rounded up
+// to 4 (bench_mxu_probes.bgather_smem)
+int bg_smem(int nq, int lanes, int nch, int width, int chunk) {
+  const size_t words = (size_t)bg_round4(nq * lanes) +
+                       bg_round4((width + 7) / 8) +
+                       (size_t)chunk * bg_round4(nch);
+  return (int)(sizeof(float) * words);
+}
+
+// raise an instance's dynamic shared-memory limit to smem once, not at
+// every launch (nor inside a graph capture that follows a first launch)
+cudaError_t bg_allow_smem(int lv, int smem) {
+  static int allowed[2] = {0, 0};  // the staged instances, lv 1 and 4
+  int& have = allowed[lv == 4];
+  if (smem <= have) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      bg_kernel(lv, 1), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) have = smem;
+  return err;
+}
+}  // namespace
+
+// plan (bench_mxu_probes.bgather_plan): lv lanes a thread in the sums (1,
+// or 4 for lanes a multiple of 4), stage (the indices and chunks of
+// `chunk` columns, a multiple of 8, in smem bytes of shared memory) and
+// threads a block.
 extern "C" int probe_bgather_launch(const float* src, const int* idx,
                                     float* out, int nb, int nch, int nq,
-                                    int width, int lanes, void* stream) {
-  if (width % 4 || lanes < 1 || lanes > kBgThreads)
+                                    int width, int lanes, int lv, int stage,
+                                    int chunk, int threads, int smem,
+                                    void* stream) {
+  const BgKernel kern = bg_kernel(lv, stage);
+  if (kern == nullptr || nb < 1 || nch < 1 || nq < 0 || width < 4 ||
+      width % 4 || lanes < 1 || lanes % lv || threads < 32 ||
+      threads > kBgMaxThreads ||
+      (stage && (chunk < 8 || chunk % 8 ||
+                 smem != bg_smem(nq, lanes, nch, width, chunk))))
     return (int)cudaErrorInvalidValue;
-  const int groups = kBgThreads / lanes;
-  const size_t smem = sizeof(float) * (size_t)nch * width;
-  cudaError_t err = cudaFuncSetAttribute(
-      probe_bgather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  probe_bgather_kernel<<<nb, kBgThreads, smem, (cudaStream_t)stream>>>(
-      src, idx, out, nch, nq, width, lanes, groups);
+  if (stage) {
+    const cudaError_t err = bg_allow_smem(lv, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kern<<<(unsigned)nb, threads, stage ? smem : 0, (cudaStream_t)stream>>>(
+      src, idx, out, nch, nq, width, lanes, chunk);
   return (int)cudaGetLastError();
+}
+
+// resident blocks an SM of the plan's instance
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+extern "C" int probe_bgather_occupancy(int lv, int stage, int threads,
+                                       int smem, int* blocks) {
+  const BgKernel kern = bg_kernel(lv, stage);
+  if (kern == nullptr || threads < 32 || threads > kBgMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  if (stage) {
+    const cudaError_t err = bg_allow_smem(lv, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kern, threads, stage ? (size_t)smem : 0);
 }

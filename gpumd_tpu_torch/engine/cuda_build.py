@@ -43,7 +43,7 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 
-# C signatures: every pointer and the stream as c_void_p
+# C signatures: every pointer and the stream as c_void_p (given as ints)
 _SIGNATURES = {
     "k1_launch": [P] * 12 + [I] * 18 + [F] * 4 + [P],
     "k2_launch": [P] * 14 + [I] * 22 + [F] * 4 + [P],
@@ -72,7 +72,8 @@ _SIGNATURES = {
     "probe_wgmma_occupancy": [I] * 5 + [P] * 2,
     "probe_reduce_launch": [P] * 3 + [I] * 6 + [P],
     "probe_reduce_occupancy": [I] * 3 + [P] * 5,
-    "probe_bgather_launch": [P] * 3 + [I] * 5 + [P],
+    "probe_bgather_launch": [P] * 3 + [I] * 10 + [P],
+    "probe_bgather_occupancy": [I] * 4 + [P],
     "gk_error_string": [I],
 }
 
@@ -147,24 +148,35 @@ def library():
 
 def check(rc: int, name: str):
     """Raise on a non-zero cudaGetLastError() returned by a launcher."""
-    if rc != 0:
+    if rc:
         msg = library().gk_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
 
 
-def stream():
-    return P(torch.cuda.current_stream().cuda_stream)
+def stream() -> int:
+    """The raw handle of the current device's current stream, read anew at
+    every call, so that a launch follows graph capture and a caller's own
+    stream; torch.cuda.current_stream() would build a Stream object a
+    call."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
-def ptr(t: torch.Tensor):
-    return P(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    """The tensor's data pointer: ctypes takes the int for a c_void_p."""
+    return t.data_ptr()
 
 
 def require(t: torch.Tensor, name: str, dtype, shape=None,
             device=None, align: int = 0):
     """Wrapper-side argument checks: CUDA, dtype, contiguity, shape and,
     given `align`, a base address on an `align`-byte boundary (for a kernel
-    that reads it in 16-byte pieces)."""
+    that reads it in 16-byte pieces).  One test of all of them first; the
+    message of the one that fails after."""
+    if (t.is_cuda and t.dtype == dtype and t.is_contiguous()
+            and (shape is None or t.shape == tuple(shape))
+            and (device is None or t.device == device)
+            and not (align and t.data_ptr() % align)):
+        return
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor")
     if device is not None and t.device != device:

@@ -41,6 +41,7 @@ the hand-derived gradient against.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -120,6 +121,14 @@ class TersoffSpec(NamedTuple):
             v = getattr(self, k)
             vals += list(v) + [0.0] * (2 - len(v))
         return (ctypes.c_float * len(vals))(*vals)
+
+
+@functools.lru_cache(maxsize=8)
+def kernel_consts(spec: TersoffSpec):
+    """spec.kernel_consts() built once a spec, not at every launch: the
+    launcher copies the floats into the kernel's arguments, so one array
+    serves every call."""
+    return spec.kernel_consts()
 
 
 def _type_index(tcode, t: int):
@@ -319,7 +328,7 @@ def _tersoff_launch(fused: bool, centers, cand, idx, cplan: CompactPlan,
     lib = cuda_build.library()
     args = [cuda_build.ptr(centers), cuda_build.ptr(cand),
             cuda_build.ptr(idx), cuda_build.ptr(outf), cuda_build.ptr(out),
-            spec.kernel_consts(), cplan.nb, a_pad, wl, mn, pch,
+            kernel_consts(spec), cplan.nb, a_pad, wl, mn, pch,
             int(per_atom_virial), spec.num_types]
     if fused:
         rc = lib.tersoff_scatter_launch(*args, nxb, cuda_build.stream())

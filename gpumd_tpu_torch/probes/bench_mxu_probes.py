@@ -15,8 +15,9 @@ the compact engine's pair math would run as matrix-unit products, at the
   pair_reduce     out[n nlm + m] = sum over chunks and 8 rows of g[n] y[m]
                   for 7 x 24 channels, with all accumulators live across the
                   chunks ("spill") or channel-outer ("tiled")
-  bgather         out[i] = sum over q of src[i, idx[q]] from a block's
-                  shared-memory window (17 channels, 18 or 11 blocks of 128)
+  bgather         out[i] = sum over q of src[i, idx[q]] over a block's
+                  window (17 channels, 18 or 11 blocks of 128), the indices
+                  and the window's touched sectors staged in shared memory
 
 Each has a plain torch version beside it.  `main` times every probe at
 nb = 13872 / scale blocks (the script's GPUMD_PROBE_SCALE, here `--scale`,
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 from dataclasses import dataclass
 
@@ -476,33 +478,118 @@ def bgather_plain(src, idx):
     return got.reshape(nb, nch, nq, a).sum(dim=2)
 
 
-def _bgather_cuda(src, idx):
+# The blocked gather's launch (csrc/probes.cu, probe_bgather_kernel): a
+# block a b, its indices and chunks of its window's touched sectors in
+# shared memory, thread (lane quad, channel quad) in the sums.
+BG_BLOCKS_PER_SM = 2   # the chunks are sized for this many blocks an SM
+BG_MAX_THREADS = 512   # kBgMaxThreads
+
+
+@dataclass(frozen=True)
+class BgatherPlan:
+    """How the blocked gather runs a call: `units` blocks (one a b) of
+    `threads`, each summing `lv` lanes of a channel quad a thread;
+    with `stage`, the b's indices and its window in `chunks` chunks of
+    `chunk` columns in `smem` bytes of shared memory (the chunks sized for
+    `bps` blocks an SM), else indices and terms read from device memory;
+    `blocks_per_sm` fit an SM by shared memory and threads, so `units` take
+    `waves` rounds of `sms` SMs."""
+
+    lv: int
+    stage: bool
+    bps: int
+    chunk: int
+    chunks: int
+    threads: int
+    smem: int
+    blocks_per_sm: int
+    units: int
+    waves: float
+
+
+def _round4(x):
+    return -(-x // 4) * 4
+
+
+def bgather_smem(nq, lanes, nch, width, chunk) -> int:
+    """The indices, a flag word a sector of 8 columns and a chunk of
+    `chunk` columns x the channels rounded up to 4 (transposed)."""
+    return 4 * (_round4(nq * lanes) + _round4(-(-width // 8))
+                + chunk * _round4(nch))
+
+
+@functools.lru_cache(maxsize=64)
+def bgather_plan(nb, nch, nq, width, lanes=A, sms=132, bps=None,
+                 lv=None) -> BgatherPlan:
+    """The blocked gather's plan for width a multiple of 4: chunks of the
+    window (multiples of 8 columns) as wide as fit beside the indices at
+    `bps` (BG_BLOCKS_PER_SM) blocks an SM, or at fewer where none would,
+    or no staging where not even 8 columns fit at one; 4 lanes a thread
+    where lanes is a multiple of 4, else one.  `bps` and `lv` override the
+    choice."""
+    if width % 4 or width < 4:
+        raise ValueError(f"bgather: width {width} must be a positive "
+                         f"multiple of 4")
+    lv = lv or (4 if lanes % 4 == 0 else 1)
+    if lv not in (1, 4) or lanes % lv:
+        raise ValueError(f"bgather: lv {lv} must be 1 or 4 and divide "
+                         f"lanes {lanes}")
+    fixed = bgather_smem(nq, lanes, nch, width, 0)
+    for bps in range(bps or BG_BLOCKS_PER_SM, 0, -1):
+        budget = min(_SMEM_LIMIT, SM_SMEM // bps - BLOCK_RESERVE)
+        chunk = min(-(-width // 8) * 8,
+                    (budget - fixed) // (4 * _round4(nch)) // 8 * 8)
+        if chunk >= 8:
+            break
+    stage = chunk >= 8
+    chunk = chunk if stage else 0
+    smem = bgather_smem(nq, lanes, nch, width, chunk) if stage else 0
+    units = (lanes // lv) * (_round4(nch) // 4)
+    threads = min(BG_MAX_THREADS, max(128, -(-units // 32) * 32))
+    per_sm = min(SM_SMEM // (smem + BLOCK_RESERVE), SM_THREADS // threads,
+                 32)
+    return BgatherPlan(lv, stage, bps, chunk,
+                       -(-width // chunk) if stage else 0, threads, smem,
+                       per_sm, nb, nb / (sms * per_sm))
+
+
+def bgather_occupancy(plan: BgatherPlan) -> int:
+    """Resident blocks an SM of the plan's kernel instance
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    blocks = ctypes.c_int(0)
+    rc = cuda_build.library().probe_bgather_occupancy(
+        plan.lv, int(plan.stage), plan.threads, plan.smem,
+        ctypes.addressof(blocks))
+    cuda_build.check(rc, "probe_bgather_occupancy")
+    return blocks.value
+
+
+def _bgather_cuda(src, idx, plan=None):
     nb, nch, width = src.shape
     nq, a = idx.shape[1:]
-    cuda_build.require(src, "src", torch.float32)
+    # the kernel reads all three in 16-byte pieces
+    cuda_build.require(src, "src", torch.float32, align=16)
     cuda_build.require(idx, "idx", torch.int32, (nb, nq, a),
-                       device=src.device)
-    smem = 4 * nch * width
-    if width % 4 or a > 512 or smem > _SMEM_LIMIT:
-        raise ValueError(f"bgather: width {width} must be a multiple of 4, "
-                         f"lanes {a} at most 512, and the window "
-                         f"{smem} B at most {_SMEM_LIMIT} B of shared memory")
+                       device=src.device, align=16)
+    plan = plan or bgather_plan(nb, nch, nq, width, a)
     out = torch.empty((nb, nch, a), dtype=src.dtype, device=src.device)
     lib = cuda_build.library()
-    rc = lib.probe_bgather_launch(cuda_build.ptr(src), cuda_build.ptr(idx),
-                                  cuda_build.ptr(out), nb, nch, nq, width, a,
-                                  cuda_build.stream())
+    rc = lib.probe_bgather_launch(
+        cuda_build.ptr(src), cuda_build.ptr(idx), cuda_build.ptr(out), nb,
+        nch, nq, width, a, plan.lv, int(plan.stage), plan.chunk,
+        plan.threads, plan.smem, cuda_build.stream())
     cuda_build.check(rc, "probe_bgather_launch")
     cuda_build.launches["probe_bgather"] += 1
     return out
 
 
-def bgather(src, idx):
+def bgather(src, idx, plan=None):
     """src (nb, nch, 128 nblk) f32, idx (nb, 8 chunks, A) int32 ->
     out[b, i, a] = sum over q of src[b, i, idx[b, q, a]], a term 0 where
-    idx < 0 or idx >= 128 nblk."""
+    idx < 0 or idx >= 128 nblk.  On the card any width that is a multiple
+    of 4 runs; `plan` (bgather_plan) overrides the launch's."""
     if src.is_cuda:
-        return _bgather_cuda(src, idx)
+        return _bgather_cuda(src, idx, plan)
     return bgather_plain(src, idx)
 
 

@@ -34,14 +34,14 @@ def run_plain(x):
 
 def _run_cuda(x):
     cuda_build.require(x, "x", torch.float32)
-    outs = tuple(torch.empty_like(x) for _ in OPS)
-    lib = cuda_build.library()
-    rc = lib.probe_trans_launch(cuda_build.ptr(x),
-                                *(cuda_build.ptr(o) for o in outs), x.numel(),
-                                cuda_build.stream())
+    out = torch.empty((len(OPS),) + x.shape, dtype=x.dtype, device=x.device)
+    r, c, s = out.unbind(0)
+    rc = cuda_build.library().probe_trans_launch(
+        cuda_build.ptr(x), cuda_build.ptr(r), cuda_build.ptr(c),
+        cuda_build.ptr(s), x.numel(), cuda_build.stream())
     cuda_build.check(rc, "probe_trans_launch")
     cuda_build.launches["probe_transcendentals"] += 1
-    return outs
+    return r, c, s
 
 
 def run(x):

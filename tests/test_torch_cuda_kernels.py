@@ -976,17 +976,92 @@ def test_probe_pair_reduce_matches_plain(dev, order, nb, chunks, lanes):
         3 if order == "tiled" else 2)
 
 
-@pytest.mark.parametrize("nblk,chunks", [(18, 14), (11, 14), (11, 12),
-                                         (3, 2)])
-def test_probe_bgather_matches_plain(dev, nblk, chunks):
+@pytest.mark.parametrize("nblk,chunks,zeros", [
+    (18, 14, False), (11, 14, False), (11, 12, False), (3, 2, False),
+    (18, 14, True), (27, 14, False), (1, 14, False), (1, 2, True),
+    (120, 2, False)])
+def test_probe_bgather_matches_plain(dev, nblk, chunks, zeros):
+    # the script's zero indices, nblk 27 (past what a block's shared
+    # memory held when the whole window was staged), one block of columns,
+    # and a window cut into many chunks
     gen = _gen(dev, nblk)
     width = 128 * nblk
     src = torch.randn((6, 17, width), device=dev, generator=gen)
-    idx = torch.randint(-50, width + 50, (6, 8 * chunks, 128), device=dev,
-                        generator=gen, dtype=torch.int32)
-    assert (idx < 0).any() and (idx >= width).any()
+    shape = (6, 8 * chunks, 128)
+    if zeros:
+        idx = torch.zeros(shape, device=dev, dtype=torch.int32)
+    else:
+        idx = torch.randint(-50, width + 50, shape, device=dev,
+                            generator=gen, dtype=torch.int32)
+        assert (idx < 0).any() and (idx >= width).any()
+    plan = PM.bgather_plan(6, 17, 8 * chunks, width)
+    assert plan.stage and PM.bgather_occupancy(plan) >= 1
+    before = cuda_build.launches["probe_bgather"]
     got = PM.bgather(src, idx)
+    assert cuda_build.launches["probe_bgather"] == before + 1
     assert _rel(got, PM.bgather_plain(src, idx)) <= 1e-5
+    assert torch.equal(PM.bgather(src, idx), got)  # no atomics
+
+
+@pytest.mark.parametrize("lv,stage,bps,chunk,lanes,nq", [
+    (4, True, 2, None, 128, 16), (1, True, 2, None, 128, 16),
+    (4, True, 1, None, 128, 16), (1, True, 1, 8, 128, 16),
+    (4, True, 2, 64, 128, 16), (4, False, 2, None, 128, 16),
+    (1, False, 2, None, 128, 16), (1, True, 2, None, 6, 3),
+    (1, False, 2, None, 5, 3), (4, True, 2, 16, 100, 8)])
+def test_probe_bgather_every_instance_matches_plain(dev, lv, stage, bps,
+                                                    chunk, lanes, nq):
+    # both sums (4 lanes a thread, 1), staged or read from src, chunks of
+    # 8 to all columns, lanes and index rows whose slab is not whole
+    # 16-byte pieces (6 x 3, 5 x 3: copied and read one index at a time)
+    gen = _gen(dev, 10 * lv + bps)
+    width = 128 * 3 - 4  # the last sector half full
+    src = torch.randn((5, 17, width), device=dev, generator=gen)
+    idx = torch.randint(-50, width + 50, (5, nq, lanes), device=dev,
+                        generator=gen, dtype=torch.int32)
+    plan = PM.bgather_plan(5, 17, nq, width, lanes, bps=bps, lv=lv)
+    if chunk:
+        plan = dataclasses.replace(
+            plan, chunk=chunk,
+            smem=PM.bgather_smem(nq, lanes, 17, width, chunk))
+    if not stage:
+        plan = dataclasses.replace(plan, stage=False, chunk=0, smem=0)
+    assert PM.bgather_occupancy(plan) >= 1
+    got = PM.bgather(src, idx, plan)
+    assert _rel(got, PM.bgather_plain(src, idx)) <= 1e-5
+
+
+def test_probe_bgather_reads_src_where_the_indices_fill_shared_memory(dev):
+    gen = _gen(dev, 11)
+    src = torch.randn((3, 17, 256), device=dev, generator=gen)
+    idx = torch.randint(-50, 306, (3, 120, 512), device=dev, generator=gen,
+                        dtype=torch.int32)
+    assert not PM.bgather_plan(3, 17, 120, 256, 512).stage
+    assert _rel(PM.bgather(src, idx), PM.bgather_plain(src, idx)) <= 1e-5
+
+
+def test_wrappers_follow_the_current_stream_and_graph_capture(dev):
+    # cuda_build.stream() is read at each call: a launch on a caller's
+    # stream and one captured in a CUDA graph give the default stream's
+    # result
+    x = torch.linspace(0.5, 120.0, 8192, device=dev).reshape(8, 1024)
+    gen = _gen(dev, 7)
+    src = torch.randn((4, 17, 128 * 18), device=dev, generator=gen)
+    idx = torch.randint(-50, 128 * 18 + 50, (4, 16, 128), device=dev,
+                        generator=gen, dtype=torch.int32)
+    ref = (*PT.run(x), PM.bgather(src, idx))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = (*PT.run(x), PM.bgather(src, idx))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = (*PT.run(x), PM.bgather(src, idx))
+    graph.replay()
+    torch.cuda.synchronize()
+    for r, s, c in zip(ref, on_side, captured):
+        assert torch.equal(r, s) and torch.equal(r, c)
 
 
 def test_probe_gather_bit_for_bit(dev):
@@ -1004,9 +1079,20 @@ def test_probe_transcendentals_within_gate(dev):
 
 
 def test_probe_wrappers_reject_wrong_inputs(dev):
-    with pytest.raises(ValueError, match="shared memory"):
-        PM.bgather(torch.zeros((1, 17, 128 * 27), device=dev),
+    # the blocked gather takes a window past shared memory (nblk 27), and
+    # refuses a width that is not whole 16-byte pieces and int64 indices
+    src27 = torch.randn((2, 17, 128 * 27), device=dev)
+    idx27 = torch.randint(0, 128 * 27, (2, 8, 128), device=dev,
+                          dtype=torch.int32)
+    assert _rel(PM.bgather(src27, idx27),
+                PM.bgather_plain(src27, idx27)) <= 1e-5
+    before = dict(cuda_build.launches)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        PM.bgather(torch.zeros((1, 17, 130), device=dev),
                    torch.zeros((1, 8, 128), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="dtype"):
+        PM.bgather(src27, idx27.long())
+    assert cuda_build.launches == before
     with pytest.raises(ValueError, match="dtype"):
         PM.onehot_dot(torch.zeros((1, 16, 32), dtype=torch.float64,
                                   device=dev), 128)

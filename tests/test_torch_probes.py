@@ -19,6 +19,7 @@ jax.config.update made a no-op, so the worker keeps its own cache.
 import functools
 import importlib.util
 import json
+import types
 from pathlib import Path
 
 import jax
@@ -29,9 +30,11 @@ import torch
 from jax.experimental import pallas as pl
 
 from gpumd_tpu_torch.engine import cuda_build
+from gpumd_tpu_torch.probes import ab_bgather as ABG
 from gpumd_tpu_torch.probes import ab_onehot_f32 as AB
 from gpumd_tpu_torch.probes import bench_gather as BG
 from gpumd_tpu_torch.probes import bench_mxu_probes as MX
+from gpumd_tpu_torch.probes import host_cost as HC
 from gpumd_tpu_torch.probes import probe_transcendentals as PT
 
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
@@ -457,6 +460,144 @@ def test_bgather_plain_matches_pallas(scripts, nblk, chunks):
     _close(MX.bgather(_t(src), _t(idx)), ref, 1e-6)
 
 
+@pytest.mark.parametrize("nblk", [1, 11, 18, 27, 110, 200, 1000])
+def test_bgather_plan_fits_the_card(nblk):
+    # chunks of whole sectors that cover the window beside b's indices in
+    # shared memory, at two blocks an SM where they fit, else one
+    width, nq = 128 * nblk, 112
+    plan = MX.bgather_plan(1734, 17, nq, width)
+    assert plan.stage and plan.lv == 4 and plan.threads == 160
+    assert plan.chunk % 8 == 0 and plan.chunk >= 8
+    assert plan.chunks == -(-width // plan.chunk)
+    assert plan.chunk < width or plan.chunks == 1
+    assert plan.smem == MX.bgather_smem(nq, 128, 17, width, plan.chunk)
+    assert plan.smem <= MX._SMEM_LIMIT
+    assert plan.blocks_per_sm >= plan.bps == (1 if nblk == 1000 else 2)
+    assert plan.units == 1734
+    assert MX.bgather_plan(2, 17, nq, width, lanes=6).lv == 1
+    with pytest.raises(ValueError, match="multiple of 4"):
+        MX.bgather_plan(1734, 17, nq, width + 2)
+
+
+def test_bgather_plan_reads_src_where_the_indices_fill_shared_memory():
+    plan = MX.bgather_plan(3, 17, 120, 256, 512)
+    assert not plan.stage and plan.smem == 0 and plan.chunks == 0
+    assert MX.bgather_smem(120, 512, 17, 256, 0) > MX._SMEM_LIMIT
+
+
+def test_bgather_sector_bytes_count_what_the_indices_touch():
+    src = torch.zeros((2, 3, 64))
+    idx = torch.tensor([[[0, 7], [8, -1]], [[63, 64], [63, 40]]],
+                       dtype=torch.int32)
+    # b 0: sectors 0 and 1; b 1: sectors 7 and 5 (64 is past the window)
+    assert ABG.sector_bytes(src, idx) == (idx.numel() * 4 + 4 * 2 * 3 * 2
+                                          + 32 * 3 * 4)
+
+
+# ---------------------------------------------------------------------------
+# the launch path: cuda_build's helpers and the host-time probe
+# ---------------------------------------------------------------------------
+
+
+def test_ptr_is_the_data_pointer():
+    x = torch.zeros(5)
+    assert cuda_build.ptr(x) == x.data_ptr()
+    assert isinstance(cuda_build.ptr(x), int)
+    assert cuda_build.ptr(x[2:]) == x.data_ptr() + 8
+
+
+class _CudaLike:
+    """What cuda_build.require reads of a tensor, as a card's tensor
+    would give it."""
+
+    is_cuda = True
+
+    def __init__(self, dtype=torch.float32, contiguous=True, shape=(2, 3),
+                 device="cuda:0", ptr=256):
+        self.dtype, self.shape = dtype, torch.Size(shape)
+        self.device, self._c, self._p = torch.device(device), contiguous, ptr
+
+    def is_contiguous(self):
+        return self._c
+
+    def data_ptr(self):
+        return self._p
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({}, None), ({"dtype": torch.float64}, "dtype"),
+    ({"contiguous": False}, "contiguous"), ({"shape": (3, 2)}, "shape"),
+    ({"device": "cuda:1"}, "on cuda:1"), ({"ptr": 260}, "16-byte")])
+def test_require_names_the_check_that_fails(kw, match):
+    t = _CudaLike(**kw)
+
+    def call():
+        cuda_build.require(t, "t", torch.float32, (2, 3),
+                           torch.device("cuda:0"), align=16)
+    if match is None:
+        call()
+    else:
+        with pytest.raises(ValueError, match=match):
+            call()
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        cuda_build.require(torch.zeros(3), "x", torch.float32)
+
+
+def test_transcendental_wrapper_fills_three_outputs(monkeypatch):
+    # the card wrapper's host side on a CPU tensor, the library replaced
+    calls = []
+
+    class Lib:
+        def probe_trans_launch(self, *args):
+            calls.append(args)
+            return 0
+    monkeypatch.setattr(cuda_build, "library", Lib)
+    monkeypatch.setattr(cuda_build, "require", lambda *a, **k: None)
+    monkeypatch.setattr(cuda_build, "stream", lambda: 7)
+    monkeypatch.setitem(cuda_build.launches, "probe_transcendentals", 0)
+    x = torch.linspace(1, 2, 24).reshape(4, 6)
+    outs = PT._run_cuda(x)
+    assert len(outs) == 3 and all(o.shape == x.shape for o in outs)
+    (args,) = calls
+    ptrs = [o.data_ptr() for o in outs]
+    assert args == (x.data_ptr(), *ptrs, x.numel(), 7)
+    # three separate outputs: disjoint ranges of x's size
+    assert all(b - a >= 4 * x.numel() for a, b in zip(sorted(ptrs),
+                                                      sorted(ptrs)[1:]))
+    assert cuda_build.launches["probe_transcendentals"] == 1
+
+
+def test_host_cost_times_each_part_and_restores_the_path():
+    lib = types.SimpleNamespace(launch=lambda *args: 0)
+    cb = types.SimpleNamespace(
+        library=lambda: lib, require=lambda t, *a, **k: None,
+        ptr=lambda t: t.data_ptr(), stream=lambda: 0,
+        check=lambda rc, name: None)
+    saved = dict(vars(cb)), torch.empty_like
+
+    def wrapper(x):
+        cb.require(x, "x", torch.float32)
+        out = torch.empty_like(x)
+        rc = cb.library().launch(cb.ptr(x), cb.ptr(out), cb.stream())
+        cb.check(rc, "launch")
+        return out
+    x = torch.zeros(8)
+    res = HC.measure(lambda: wrapper(x), cb, 50, sync=lambda: None)
+    assert set(res) == set(HC.PARTS) | {"whole", "rest"}
+    assert res["whole"] > 0 and res["alloc"] > 0
+    assert abs(res["whole"] - sum(res[p] for p in HC.PARTS)
+               - res["rest"]) < 1e-9
+    assert vars(cb) == saved[0] and torch.empty_like is saved[1]
+    # the helpers as they were and as they are, in turns, then restored
+    seen = []
+    ab = HC.helpers_ab({"w": (lambda: seen.append(cb.ptr(x)),
+                              lambda: seen.append(cb.ptr(x)))}, cb, 20,
+                       sync=lambda: None)
+    assert set(ab["w"]) == {"before", "now"} and ab["w"]["now"] > 0
+    assert vars(cb) == saved[0]
+    assert {type(v) for v in seen} == {int, type(HC._before_ptr(x))}
+
+
 # ---------------------------------------------------------------------------
 # wrappers and entry points on the CPU
 # ---------------------------------------------------------------------------
@@ -521,10 +662,11 @@ def test_main_prints_the_script_keys_on_cpu(capsys, module, argv, keys):
     lambda: MX.main(["--scale", str(MX.NB_FULL)]),
     lambda: PT.measure(), lambda: BG.make_inputs(64, 16, 1),
     lambda: MX.case_inputs("pair_reduce_spill", 1),
-    lambda: AB.main(["a.so:f", "b.so:g"]),
+    lambda: AB.main(["a.so:f", "b.so:g"]), lambda: ABG.main([]),
+    lambda: HC.main([]),
 ], ids=["transcendentals-main", "gather-main", "mxu-main",
         "transcendentals-measure", "gather-inputs", "mxu-inputs",
-        "ab-onehot-f32-main"])
+        "ab-onehot-f32-main", "ab-bgather-main", "host-cost-main"])
 def test_entry_points_raise_without_a_card(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

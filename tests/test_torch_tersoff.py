@@ -108,6 +108,15 @@ def test_params_match_jax(pots, name):
         JT.TersoffSpec.from_potential(ref)._asdict()
 
 
+@pytest.mark.parametrize("name", ["Si", "SiC"])
+def test_kernel_consts_are_built_once_a_spec(pots, name):
+    spec = TT.TersoffSpec.from_potential(pots[name][0])
+    consts = TT.kernel_consts(spec)
+    again = TT.kernel_consts(TT.TersoffSpec.from_potential(pots[name][0]))
+    assert again is consts and len(consts) == 34
+    assert list(consts) == list(spec.kernel_consts())
+
+
 def _tiles(num_types, mn=16, lanes=48, seed=7):
     """Random (mn, A) bond tiles: distances across R1..R2 of every type
     pair and beyond, empty slots (far, type -1), the centre's own slot, a
