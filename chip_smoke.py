@@ -7,7 +7,9 @@ in artifacts/trainer_parity_r5_nep.txt at its full width, in float32, on
 both of its rungs: compact candidate lists (the default; the kept window
 lanes are gathered by compact_rows from the ghost rows, or by
 compact_windows from packed windows on plans that rows_compact_eligible
-rejects) and full windows (compact_lists=False).  Phases:
+rejects) and full windows (compact_lists=False), and then the same path
+under NPT, under HNEMD and over a 10 ps drift run (phases 3a-3c).
+Phases:
 
   1. build   compile the CUDA kernels from gpumd_tpu_torch/csrc with nvcc
              (one process per source, all at once); print the build time
@@ -19,8 +21,9 @@ rejects) and full windows (compact_lists=False).  Phases:
              the default plan (cap 56, compact_windows), the same state on
              a plan made from the unjittered lattice (cap 64,
              compact_rows) and the full-window rung; each kernel against
-             its plain torch version on the tensors of its pass (K2 and the
-             scatter with per-atom virials off and on); the compactions
+             its plain torch version on the tensors of its pass (K2, the
+             scatter and the fold with per-atom virials off and on, 4 and
+             12 channels, as the HNEMD path gives them); the compactions
              bit for bit, and compact_rows == compact_windows of the
              packed window on the rows pass
   3. md      32,768 atoms, 300 K, dt 1 fs: 200 NVE steps on the default
@@ -29,6 +32,25 @@ rejects) and full windows (compact_lists=False).  Phases:
              no overflow, energy conserved, every kernel of each path
              launched on every step; after 20 steps the default rung
              tracks its all-plain run and the full-window rung
+ 3a. npt-md  32,768 atoms on the default rung (BASELINE config 3 as
+             written): 200 steps under NPTBerendsen with bench.py's
+             coupling (40 GPa, tau_p 1000) and 200 under NPTSCR (BDP noise
+             from a seeded generator): finite, no overflow, the box
+             rescaled (its change printed), K1/K2/scatter/fold and
+             compact_rows launched on every step; after 20 steps each
+             tracks its all-plain run (same seed, same noise)
+ 3b. hnemd-md  HNEMD (BASELINE config 4's path: per-atom virials, the
+             driving force (1e-4, 0, 0) 1/A, NVE), 100 steps with the
+             heat-current observer and an SHC measure on the card, on
+             PbTe 32,768 (default rung; K2, scatter and fold at 12
+             channels) and on Si 32,768 Tersoff (its route, fused or not,
+             and shared memory printed): finite, the SHC file well formed;
+             after 20 steps positions and the observer's J track the
+             all-plain run
+ 3c. drift   the NVE drift gate: 10 ps (10 blocks of 1000 steps) of
+             PbTe 32,768 with compensated positions and velocities
+             (scripts/drift_gate.py's twin): drift in eV/atom/ns, failing
+             above 1e-5, on overflow or a non-finite energy
   4. time    262,144 atoms, 50 steps of each rung after warm-up
              (atom-step/s, the cost of the per-step host sync, a device
              profile of 5 steps): the default rung from the lattice
@@ -41,8 +63,17 @@ rejects) and full windows (compact_lists=False).  Phases:
              [design] line (ptxas, unit width, threads, rows, resident
              blocks an SM against the plan, TB/s); the wall time of one
              rebuild on each, and 500 more steps of the lattice-start runs
-             with their rebuilds counted and included; then 1,000,000
-             atoms on the default rung, 20 steps (atom-step/s, peak memory)
+             with their rebuilds counted and included; the default rung
+             under NPTBerendsen (a device profile; then NVE and NPT in
+             turns in one process, blocks of 20 steps with their ms/step
+             and rebuilds, and the host time of a step of each by
+             operator, torch.profiler's CPU side) and under HNEMD with its
+             observer (a device profile, peak memory, and K2, the scatter
+             and the fold at 12 channels beside their plain versions,
+             bounds and library calls); then 1,000,000 atoms on the
+             default rung, 20 steps (atom-step/s, peak memory), and the
+             bytes of K2's pvals, the scatter's dcand and the fold's drows
+             with per-atom virials off and on
 
 It then drives the dense-window engines on the same PbTe model: the
 round-2 engine of DenseNEPMD(engine="v2") (kernels K1b and K2b, the path
@@ -146,10 +177,18 @@ Last, the probes' path: the port's counterparts of the three probe scripts
              tree's (probes/ab_bgather.py) and runs the [host] block for
              DIR's package, on this tree's kernels
 
-Usage: python3 chip_smoke.py [--phases build,kernels,md,time,
-       dense-kernels,dense-md,dense-time,tersoff-kernels,tersoff-md,
-       tersoff-time,probes] [--parent DIR]
+Usage: python3 chip_smoke.py [--phases build,kernels,md,npt-md,
+       hnemd-md,drift,time,dense-kernels,dense-md,dense-time,
+       tersoff-kernels,tersoff-md,tersoff-time,probes] [--parent DIR]
 Prints the kernels' JSON line, then, last, {"ok": true, "device": {...}}.
+A kernel's "launches" are those of the 200-step NVE run of its path;
+"launches_npt", "launches_hnemd" (PbTe), "launches_hnemd_tersoff" and
+"launches_drift" those of the new phases' runs, where the kernel is on
+them.  "max_abs_err_pav" is the largest error of a kernel's instances at
+12 channels (per-atom virials: K2, scatter, fold, the tersoff modes), and
+K2's, the scatter's and the fold's "ms_pav", "plain_ms_pav",
+"library_ms_pav", "bound_ms_pav" and "bound_by_pav" their step at 12
+channels on the HNEMD path at 262,144 atoms.
 A NEP kernel's "ms", "plain_ms", "library_ms" and "bound_ms" are per MD
 step at 262,144 atoms on the default rung: the compactions launch twice a
 step (positions and cotangent rows) and count both; compact_windows is
@@ -222,6 +261,10 @@ POS_TOL = 1e-3
 # Total-energy change over a run, per atom: f32 velocity Verlet at dt 1 fs
 # conserves it to ~1e-5 eV/atom; broken forces do not.
 DRIFT_TOL = 5e-4
+# The HNEMD heat current after 20 steps, kernels vs plain versions, over
+# max |J|: positions agree to ~1e-5 A there, so J to ~1e-5; a broken
+# per-atom virial moves it by its whole size.
+J_TOL = 1e-3
 
 REPLACES = {
     "k1": "gpumd_tpu/engine/nep_compact.py:1099",
@@ -256,27 +299,11 @@ SOURCES = {
        for k in ("k1b", "k2b", "dense_k1", "dense_k2")},
     **{k: "gpumd_tpu_torch/csrc/probes.cu" for k in PROBES},
 }
-# Tersoff-1989 Si (Phys. Rev. B 39, 5566 (1989), Table I), in the format
-# Tersoff1989.from_file reads
-SI_TERSOFF = """tersoff_1989 1 Si
-1830.8 471.18 2.4799 1.7322 1.1e-6 0.78734 1.0039e5 16.217 -0.59825 2.7 3.0
-"""
 # Peaks of one H100 SXM (NVIDIA's data sheet): HBM3
 # bytes/s, float32 FLOP/s outside the tensor cores, dense TF32 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
-
-
-def build_pbte(nc, a0=6.57):
-    """Rocksalt PbTe supercell, 8 atoms per cubic cell (0 = Te, 1 = Pb)."""
-    base = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5],
-                     [.5, 0, 0], [0, .5, 0], [0, 0, .5], [.5, .5, .5]])
-    types_cell = np.array([1, 1, 1, 1, 0, 0, 0, 0])
-    cells = np.stack(np.meshgrid(*[np.arange(nc)] * 3, indexing="ij"),
-                     axis=-1).reshape(-1, 3)
-    pos = (cells[:, None, :] + base[None]).reshape(-1, 3) * a0
-    return pos, np.tile(types_cell, len(cells)), np.full(3, nc * a0)
 
 
 class System:
@@ -289,14 +316,15 @@ class System:
 
     def __init__(self, nc, plain=False, seed=3, jitter=0.0,
                  plan_on_lattice=False, compact_lists=True, engine="auto",
-                 a0=6.57):
+                 a0=6.57, per_atom_virial=False, compensated=False):
+        from gpumd_tpu_torch.bench import build_pbte
         from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
         from gpumd_tpu_torch.integrate.velocity import initialize_velocity
         from gpumd_tpu_torch.model.box import Box
         from gpumd_tpu_torch.model.state import make_state
         from gpumd_tpu_torch.potentials.nep.model import NEP
 
-        lattice, types, lengths = build_pbte(nc, a0)
+        lattice, types, lengths = build_pbte(nc, nc, nc, a0)
         pos = lattice
         if jitter:
             pos = lattice + np.random.default_rng(seed).normal(
@@ -305,12 +333,13 @@ class System:
         self.nep = NEP.from_file(str(MODEL), dtype=torch.float32)
         self.box = Box.orthogonal(lengths, dtype=torch.float32)
         state = make_state(pos, np.where(types == 1, 207.2, 127.6), types,
-                           self.box)
+                           self.box, compensated=compensated)
         self.state = initialize_velocity(state, 300.0, seed=seed)
         self.md = DenseNEPMD(self.nep, self.box, self.n,
                              position=lattice if plan_on_lattice else pos,
                              skin=1.5, plain=plain,
-                             compact_lists=compact_lists, engine=engine)
+                             compact_lists=compact_lists, engine=engine,
+                             per_atom_virial=per_atom_virial)
 
     def describe(self):
         from gpumd_tpu_torch.engine.grid import round_up
@@ -343,24 +372,13 @@ class System:
         return keep
 
 
-def build_diamond(nc, a0=5.431):
-    """Diamond-lattice Si supercell, 8 atoms per cubic cell (bench.py's
-    run_tersoff system at nc 50)."""
-    base = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5],
-                     [.25, .25, .25], [.75, .75, .25], [.75, .25, .75],
-                     [.25, .75, .75]])
-    cells = np.stack(np.meshgrid(*[np.arange(nc)] * 3, indexing="ij"),
-                     axis=-1).reshape(-1, 3)
-    pos = (cells[:, None, :] + base[None]).reshape(-1, 3) * a0
-    return pos, np.full(3, nc * a0)
-
-
 class TersoffSystem:
     """Diamond Si at nc^3 cells with Tersoff-1989 (the file `pot_path`), on
     the card in f32, skin 1.0 as bench.py's run_tersoff."""
 
     def __init__(self, nc, pot_path, plain=False, seed=3, jitter=0.0,
-                 a0=5.431, cap=None):
+                 a0=5.431, cap=None, per_atom_virial=False):
+        from gpumd_tpu_torch.bench import build_diamond
         from gpumd_tpu_torch.engine.tersoff_compact import CompactTersoffMD
         from gpumd_tpu_torch.integrate.velocity import initialize_velocity
         from gpumd_tpu_torch.model.box import Box
@@ -378,7 +396,8 @@ class TersoffSystem:
                            np.zeros(self.n, int), self.box)
         self.state = initialize_velocity(state, 300.0, seed=seed)
         self.md = CompactTersoffMD(pot, self.box, self.n, position=pos,
-                                   skin=1.0, plain=plain, cap=cap)
+                                   skin=1.0, plain=plain, cap=cap,
+                                   per_atom_virial=per_atom_virial)
 
     def describe(self):
         cp = self.md.cplan
@@ -489,7 +508,7 @@ def phase_build():
     print(card)  # the card's name and power limit, as nvidia-smi gives them
 
 
-def _compare(tag, name, got, ref, results, failures, tol=None):
+def _compare(tag, name, got, ref, results, failures, tol=None, pav=False):
     got, ref = _outputs(got), _outputs(ref)
     torch.cuda.synchronize()
     tol = TOL[name] if tol is None else tol
@@ -502,6 +521,8 @@ def _compare(tag, name, got, ref, results, failures, tol=None):
           f"tol={tol:.0e} {'ok' if ok else 'FAIL'}")
     r = results.setdefault(name, {"max_abs_err": 0.0})
     r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+    if pav:  # the 12-channel instances of K2, the scatter and the fold
+        r["max_abs_err_pav"] = max(r.get("max_abs_err_pav", 0.0), err)
     if not ok:
         failures.append(tag)
 
@@ -531,10 +552,11 @@ def phase_kernels(results):
             for pav in (False, True):
                 keep = sysm.pipeline(carry, pav)
                 for name, kern, plain in kernel_pairs(sysm.md, keep):
-                    if pav and name not in ("k2", "scatter"):
-                        continue  # the same inputs' shapes as with pav off
+                    if pav and name not in ("k2", "scatter", "fold"):
+                        continue  # K1 and the compactions: no channels
                     tag = f"{name}[{label}{',pav' if pav else ''}]"
-                    _compare(tag, name, kern(), plain(), results, failures)
+                    _compare(tag, name, kern(), plain(), results, failures,
+                             pav=pav)
                 if label == "lists-rows" and not pav:
                     cp, cidx = sysm.md.cplan, keep["cidx"]
                     for src in (keep["garr"], keep["rows_p"]):
@@ -550,23 +572,35 @@ def phase_kernels(results):
         raise RuntimeError(f"kernels disagree with plain versions: {failures}")
 
 
-def _run_steps(sysm, n_steps, snap_at=None, ens=None):
+def _run_steps(sysm, n_steps, snap_at=None, ens=None, observer=None,
+               measure=None, maccs=None):
+    """n_steps from sysm's state: the final carry, the starting total
+    energy per atom and the input-order positions after `snap_at` steps.
+    With make_step's hooks, also the observer's tensors stacked (kept on
+    the card; None without an observer) and the measure's accumulators."""
     from gpumd_tpu_torch.integrate.ensembles.nve import NVE
     from gpumd_tpu_torch.units import TIME_UNIT_CONVERSION
 
     md, ens = sysm.md, ens or NVE()
-    dt = 1.0 / TIME_UNIT_CONVERSION
+    hooked = observer is not None or measure is not None
     carry = md.init_carry(sysm.state)
     carry = carry._replace(state=md.compute(carry.state, carry.idx))
     aux = ens.init(carry.state)
-    step = md.make_step(ens, dt)
-    snap = None
+    step = md.make_step(ens, 1.0 / TIME_UNIT_CONVERSION, observer, measure)
+    snap, ys = None, []
     e0 = total_energy(carry.state)
     for s in range(n_steps):
-        carry, aux = step(carry, aux)
+        if hooked:
+            carry, aux, maccs, y = step(carry, aux, maccs)
+            ys.append(y)
+        else:
+            carry, aux = step(carry, aux)
         if snap_at is not None and s + 1 == snap_at:
             snap = md.to_input_order(carry, sysm.n).position.clone()
-    return carry, e0, snap
+    if not hooked:
+        return carry, e0, snap
+    return (carry, e0, snap,
+            torch.stack(ys) if observer is not None else None, maccs)
 
 
 def total_energy(state):
@@ -574,14 +608,23 @@ def total_energy(state):
     return float(state.kinetic_energy() + pe) / float(state.mask.sum())
 
 
-def _md_path(label, sysm, n_steps, need, ens=None, never=()):
+def _md_path(label, sysm, n_steps, need, ens=None, never=(), hooks=None,
+             out=None):
     """Drive one path from counts of 0, read them just after, gate it
     (energy conservation under NVE only: `ens` None; the kernels `never`
-    not launched).  Returns the 20-step positions and the counts."""
+    not launched).  Returns the 20-step positions and the counts; with
+    `hooks` (observer, measure, maccs) it runs through make_step's hooks
+    and puts the observer's rows and the accumulators in `out`, which
+    also receives the final carry."""
     from gpumd_tpu_torch.engine import cuda_build
 
     cuda_build.reset_launches()
-    carry, e0, snap = _run_steps(sysm, n_steps, snap_at=20, ens=ens)
+    carry, e0, snap, *ys_maccs = _run_steps(sysm, n_steps, snap_at=20,
+                                            ens=ens, **(hooks or {}))
+    if hooks is not None:
+        out.update(ys=ys_maccs[0], maccs=ys_maccs[1])
+    if out is not None:
+        out["carry"] = carry
     torch.cuda.synchronize()
     counts = dict(cuda_build.launches)
     e1 = total_energy(carry.state)
@@ -649,6 +692,158 @@ def phase_md(results):
         if any(cuda_build.launches.values()):
             raise RuntimeError("the plain reference run launched kernels")
         _pos_check("default rung, kernels vs plain", sysm.box, snap, snap_p)
+
+
+def _box_change(carry, box0):
+    """Largest relative change of a lattice vector component since box0."""
+    h, h0 = carry.state.box.h, box0.h
+    return float(((h - h0).abs() / h0.abs().max()).max())
+
+
+def phase_npt_md(results):
+    """NPT on the default rung (BASELINE config 3 as written): 200 steps
+    under NPTBerendsen with bench.py's coupling and 200 under NPTSCR, the
+    box rescaled every step; 20 steps of each against the all-plain run
+    with the same noise."""
+    from gpumd_tpu_torch.bench import NPT_BARO
+    from gpumd_tpu_torch.engine import cuda_build
+    from gpumd_tpu_torch.integrate.ensembles.npt import NPTSCR, NPTBerendsen
+
+    runs = (("NPT-Berendsen", lambda: NPTBerendsen(**NPT_BARO)),
+            ("NPT-SCR", lambda: NPTSCR(coupling=100.0, seed=5, **NPT_BARO)))
+    base = ("k1", "k2", "scatter", "fold")
+    n = 200
+    with torch.no_grad():
+        sysm = System(16)
+        ref = System(16, plain=True)
+        for label, make in runs:
+            out = {}
+            snap, counts = _md_path(
+                f"{label} default rung", sysm, n,
+                {**{k: n for k in base}, "compact_rows": 2 * n}, ens=make(),
+                out=out)
+            change = _box_change(out["carry"], sysm.box)
+            print(f"[npt-md] {label}: box {sysm.box.h.diagonal().tolist()}"
+                  f" -> {out['carry'].state.box.h.diagonal().tolist()} A, "
+                  f"largest relative change {change:.3e}")
+            if not change > 1e-6:
+                raise RuntimeError(f"{label}: the box did not change")
+            if label == "NPT-Berendsen":
+                for k in base + ("compact_rows",):
+                    results.setdefault(k, {})["launches_npt"] = counts[k]
+            cuda_build.reset_launches()
+            _, _, snap_p = _run_steps(ref, 20, snap_at=20, ens=make())
+            if any(cuda_build.launches.values()):
+                raise RuntimeError("the plain reference run launched kernels")
+            _pos_check(f"{label}, kernels vs plain", sysm.box, snap, snap_p)
+
+
+def _rows_check(what, ys, ys_p):
+    """The observer's rows of two runs: max difference over max |row|."""
+    rel = float((ys - ys_p).abs().max()) / max(float(ys_p.abs().max()),
+                                               1e-30)
+    print(f"[hnemd-md] 20-step heat current, {what}: max |dJ| / max |J| "
+          f"= {rel:.3e} (bound {J_TOL})")
+    if not rel <= J_TOL:
+        raise RuntimeError(f"heat currents depart: {what}")
+
+
+def phase_hnemd_md(results, pot_path):
+    """HNEMD (BASELINE config 4's path): per-atom virials, the driving
+    force, the heat-current observer and an SHC measure, on PbTe (default
+    rung) and on Si Tersoff (the fused route with 12 channels)."""
+    import types as pytypes
+
+    from gpumd_tpu_torch.bench import HNEMD_FE
+    from gpumd_tpu_torch.engine import cuda_build
+    from gpumd_tpu_torch.engine import tersoff_compact as tc
+    from gpumd_tpu_torch.integrate.ensembles.nve import NVE
+    from gpumd_tpu_torch.measure.properties import SHC, heat_current_total
+    from gpumd_tpu_torch.units import TIME_UNIT_CONVERSION
+
+    fe, n = HNEMD_FE, 100
+    dt = 1.0 / TIME_UNIT_CONVERSION
+    paths = (("PbTe", lambda plain: System(16, plain=plain,
+                                           per_atom_virial=True),
+              {"k1": n, "k2": n, "scatter": n, "fold": n,
+               "compact_rows": 2 * n}, ()),
+             ("Si Tersoff", lambda plain: TersoffSystem(
+                 16, pot_path, plain=plain, per_atom_virial=True),
+              {"tersoff_scatter": n, "fold": n}, ("tersoff", "scatter")))
+    with torch.no_grad(), tempfile.TemporaryDirectory() as tmp:
+        for label, make, need, never in paths:
+            sysm = make(False)
+            sysm.md.hnemd_fe = fe
+            if label == "Si Tersoff":
+                cp = sysm.md.cplan
+                fused = tc.fused_fits(cp, True)
+                print(f"[hnemd-md] Si Tersoff, per-atom virials: route "
+                      f"{tc.tersoff_entry(fused, cp, True)} "
+                      f"({'fused' if fused else 'contract + scatter'}), "
+                      f"{tc.tersoff_smem(fused, cp.wl, cp.mn_r, True):,} B "
+                      f"of shared memory a block (3 channels: "
+                      f"{tc.tersoff_smem(fused, cp.wl, cp.mn_r, False):,} B)"
+                      f", {tc.tersoff_occupancy(fused, cp, True)[0]} blocks"
+                      f" an SM")
+            sess = pytypes.SimpleNamespace(workdir=tmp, _n=sysm.n,
+                                           state=sysm.state)
+            shc = SHC(sample_interval=2, nc=10, direction=0, num_omega=20,
+                      max_omega=40.0, dt=dt)
+            out = {}
+            snap, counts = _md_path(
+                f"HNEMD {label}", sysm, n, need, ens=NVE(), never=never,
+                hooks=dict(observer=heat_current_total,
+                           measure=shc.device_update,
+                           maccs=shc.device_init(sess, sysm.n)), out=out)
+            key = "launches_hnemd" + ("" if label == "PbTe" else "_tersoff")
+            for k in need:
+                results.setdefault(k, {})[key] = counts[k]
+            shc.device_postprocess(sess, out["maccs"])
+            rows = np.loadtxt(Path(tmp) / "shc.out", comments="#")
+            (Path(tmp) / "shc.out").unlink()
+            print(f"[hnemd-md] {label}: SHC {rows.shape[0]} rows, finite "
+                  f"{bool(np.isfinite(rows).all())}; J of {len(out['ys'])} "
+                  f"steps, the last {out['ys'][-1].tolist()}")
+            if rows.shape != (2 * 10 - 1 + 20, 3) or not np.isfinite(
+                    rows).all() or not bool(torch.isfinite(out["ys"]).all()):
+                raise RuntimeError(f"HNEMD {label}: SHC or J not finite or "
+                                   f"misshapen")
+            ref = make(True)
+            ref.md.hnemd_fe = fe
+            cuda_build.reset_launches()
+            _, _, snap_p, ys_p, _ = _run_steps(
+                ref, 20, snap_at=20, ens=NVE(), observer=heat_current_total)
+            if any(cuda_build.launches.values()):
+                raise RuntimeError("the plain reference run launched kernels")
+            _pos_check(f"HNEMD {label}, kernels vs plain", sysm.box, snap,
+                       snap_p)
+            _rows_check(f"{label}, kernels vs plain", out["ys"][:20], ys_p)
+            del sysm, ref, out
+
+
+def phase_drift(results):
+    """The NVE drift gate, 10 ps of PbTe 32,768 on the default rung with
+    compensated positions and velocities (scripts/drift_gate.py's twin at
+    a fifth of its length)."""
+    from gpumd_tpu_torch.engine import cuda_build
+    from gpumd_tpu_torch.scripts.drift_gate import run_drift
+
+    samples = []
+    cuda_build.reset_launches()
+    out = run_drift(32768, 10.0, samples=samples)
+    torch.cuda.synchronize()
+    counts = dict(cuda_build.launches)
+    for k in ("k1", "k2", "scatter", "fold", "compact_rows"):
+        results.setdefault(k, {})["launches_drift"] = counts[k]
+    n = out["n_atoms"]
+    print("[drift] total energy per atom a ps: " + ", ".join(
+        f"{e / n:.8f}" for _, e in samples) + " eV")
+    print(f"[drift] PbTe {n}, {out['sim_ps']:.1f} ps: drift "
+          f"{out['value']:.3e} eV/atom/ns (gate {out['gate']:.0e}) "
+          f"{'pass' if out['pass'] else 'FAIL'}; launches "
+          f"{ {k: counts[k] for k in ('k1', 'k2', 'compact_rows')} }")
+    if not out["pass"]:
+        raise RuntimeError("NVE drift above the gate")
 
 
 def _time_ms(fn, reps):
@@ -841,7 +1036,21 @@ def _with_windows(keep, cp):
     return keep
 
 
-def _time_rung(sysm, label, n_steps=50, ens=None):
+def _collect(hooked):
+    """A step with an observer as step(carry, aux) -> (carry, aux); the
+    observer's rows stay on the card, in step.rows."""
+    rows = []
+
+    def step(c, a):
+        c, a, _, y = hooked(c, a)
+        rows.append(y)
+        return c, a
+
+    step.rows = rows
+    return step
+
+
+def _time_rung(sysm, label, n_steps=50, ens=None, observer=None):
     from gpumd_tpu_torch.integrate.ensembles.nve import NVE
     from gpumd_tpu_torch.units import TIME_UNIT_CONVERSION
 
@@ -852,6 +1061,8 @@ def _time_rung(sysm, label, n_steps=50, ens=None):
     carry = carry._replace(state=md.compute(carry.state, carry.idx))
     aux = ens.init(carry.state)
     step = md.make_step(ens, dt)
+    if observer is not None:
+        step = _collect(md.make_step(ens, dt, observer))
     for _ in range(5):  # warm-up
         carry, aux = step(carry, aux)
     torch.cuda.synchronize()
@@ -874,6 +1085,8 @@ def _time_rung(sysm, label, n_steps=50, ens=None):
         state, aux = ens.step1(state, aux, dt)
         state = md.compute(state, carry.idx)
         state, aux = ens.step2(state, aux, dt)
+        if observer is not None:
+            observer(state)
     torch.cuda.synchronize()
     wall_ns = time.perf_counter() - t0
     print(f"[time] {label}: without the per-step rebuild check and its "
@@ -898,10 +1111,10 @@ def _time_rebuild(sysm, label, reps=3):
     return 1e3 * best
 
 
-def _long_run(sysm, carry, aux, step, rebuild_ms, label, n_steps=500):
-    """n_steps more steps with their rebuilds, counted by the carry's
-    reference positions, which only a rebuild replaces."""
-    md = sysm.md
+def _block(step, carry, aux, n_steps):
+    """n_steps steps ending in a synchronize: the carry, aux, ms/step and
+    the rebuilds, counted by the carry's reference positions, which only a
+    rebuild replaces."""
     rebuilds = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -910,18 +1123,75 @@ def _long_run(sysm, carry, aux, step, rebuild_ms, label, n_steps=500):
         carry, aux = step(carry, aux)
         rebuilds += carry.ref_frac is not ref
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    return carry, aux, 1e3 * (time.perf_counter() - t0) / n_steps, rebuilds
+
+
+def _long_run(sysm, carry, aux, step, rebuild_ms, label, n_steps=500):
+    """n_steps more steps with their rebuilds."""
+    md = sysm.md
+    carry, aux, ms, rebuilds = _block(step, carry, aux, n_steps)
     s = carry.state
     if bool(carry.overflow) or not bool(torch.isfinite(s.position).all()):
         raise RuntimeError(f"{label}: long run invalid")
     d = s.box.minimum_image(s.position - s.box.cartesian(carry.ref_frac))
     umax = float(torch.sqrt(torch.max(torch.sum(d * d, dim=-1) * s.mask)))
     print(f"[time] {label}: {n_steps} more steps, rebuilds included: "
-          f"{rebuilds} rebuilds, {sysm.n * n_steps / wall:.6e} atom-step/s "
-          f"({1e3 * wall / n_steps:.3f} ms/step); rebuild cost over these "
+          f"{rebuilds} rebuilds, {sysm.n / ms * 1e3:.6e} atom-step/s "
+          f"({ms:.3f} ms/step); rebuild cost over these "
           f"steps {rebuild_ms * rebuilds / n_steps:.3f} ms/step; largest "
           f"displacement since the last rebuild {umax:.4f} A (a rebuild "
           f"at {md.skin / 2:.4f} A)")
+    return carry, aux
+
+
+def _host_ops(step, carry, aux, n=5):
+    """Host time of n steps by operator (torch.profiler, CPU side only):
+    {op: (calls a step, self CPU ms a step)}, and the carry and aux.  A
+    sync's wait for the card shows as its op's self time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(n):
+            carry, aux = step(carry, aux)
+        torch.cuda.synchronize()
+    ops = {e.key: (e.count / n, e.self_cpu_time_total / 1e3 / n)
+           for e in prof.key_averages()}
+    return ops, carry, aux
+
+
+def _steps_in_turns(runs, n_steps=20, rounds=4):
+    """Runs [(label, step, carry, aux)] from their own warmed carries, in
+    turns in one process (forward, then backward, `rounds` times): each
+    block's ms/step and rebuilds, each run's median; then the host time
+    of a step by operator, and the operators where the runs differ most
+    against the first run."""
+    runs = [list(r) for r in runs]
+    ms = {r[0]: [] for r in runs}
+    for k in range(rounds):
+        for r in (runs if k % 2 == 0 else runs[::-1]):
+            r[2], r[3], t, rb = _block(r[1], r[2], r[3], n_steps)
+            ms[r[0]].append(t)
+            print(f"[time] in turns, round {k}: {r[0]}: {t:.3f} ms/step, "
+                  f"{rb} rebuilds in {n_steps} steps")
+    for label, ts in ms.items():
+        print(f"[time] in turns: {label}: median {np.median(ts):.3f} "
+              f"ms/step over {len(ts)} blocks of {n_steps}")
+    host = []
+    for r in runs:
+        ops, r[2], r[3] = _host_ops(r[1], r[2], r[3])
+        host.append(ops)
+        print(f"[time] host, {r[0]}: {sum(c for c, _ in ops.values()):.0f} "
+              f"ops a step, self CPU {sum(t for _, t in ops.values()):.3f} "
+              f"ms a step (profiled)")
+    for r, ops in zip(runs[1:], host[1:]):
+        base = host[0]
+        keys = sorted(set(ops) | set(base), key=lambda k: -abs(
+            ops.get(k, (0, 0))[1] - base.get(k, (0, 0))[1]))
+        for key in keys[:10]:
+            (c1, t1), (c0, t0) = ops.get(key, (0, 0)), base.get(key, (0, 0))
+            print(f"[time]   {r[0]} - {runs[0][0]}: {t1 - t0:+8.3f} ms, "
+                  f"{c1 - c0:+6.1f} calls a step  {key[:60]}")
 
 
 def _profile(step, carry, aux, n=5):
@@ -952,14 +1222,18 @@ def _profile(step, carry, aux, n=5):
                   f"{100 * ms / busy:5.1f}%  {e.key[:64]}")
 
 
-def _time_kernels(sysm, carry, results=None):
+def _time_kernels(sysm, carry, results=None, pav=False):
     """Every kernel of one rung against its plain version and library call,
-    per step; also its bound.  results=None prints without recording."""
+    per step; also its bound.  results=None prints without recording; with
+    `pav` only K2, the scatter and the fold, at 12 channels, recorded under
+    keys ending in _pav."""
     md = sysm.md
-    keep = sysm.pipeline(carry, False)
+    keep = sysm.pipeline(carry, pav)
     pairs = kernel_pairs(md, keep)
+    if pav:
+        pairs = [p for p in pairs if p[0] in ("k2", "scatter", "fold")]
     names = list(dict.fromkeys(name for name, _, _ in pairs))
-    if md.cplan.cl:
+    if md.cplan.cl and not pav:
         from gpumd_tpu_torch.engine import nep_compact as nc
 
         _with_windows(keep, md.cplan)
@@ -972,6 +1246,7 @@ def _time_kernels(sysm, carry, results=None):
                                   s, cidx, md.cplan),
                               lambda s=keep[key]: nc.compact_windows_plain(
                                   s, cidx, md.cplan)))
+    sfx = "_pav" if pav else ""
     for name in names:
         mine = [(k, p) for n, k, p in pairs if n == name]
         fast = name not in ("k1", "k2")
@@ -985,20 +1260,52 @@ def _time_kernels(sysm, carry, results=None):
         nbytes, nops = work(name, keep, md.cplan, md.spec)
         b_ms, b_by = bound(nbytes, nops)
         lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
-        print(f"[time] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+        print(f"[time] {name}{' at 12 channels' if pav else ''}: kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms "
               f"({p_ms / k_ms:.2f}x), library {lib_txt}, bound "
               f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
               f"{nops / 1e9:.3f} GFLOP; {100 * b_ms / k_ms:.1f}% of bound)")
         if results is not None:
-            results.setdefault(name, {}).update(
-                ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by)
+            results.setdefault(name, {}).update({
+                f"ms{sfx}": k_ms, f"plain_ms{sfx}": p_ms,
+                f"library_ms{sfx}": lib_ms, f"bound_ms{sfx}": b_ms,
+                f"bound_by{sfx}": b_by})
         if name == "fold":
-            _fold_design(sysm.describe(), keep, md.cplan, nbytes, k_ms)
+            _fold_design(sysm.describe() + (", 12 channels" if pav else ""),
+                         keep, md.cplan, nbytes, k_ms)
     return keep
 
 
+def _pav_bytes(sysm, carry, label):
+    """The per-pair and per-window tensors of one force pass with per-atom
+    virials off and on (K2's pvals, the scatter's dcand, the fold's
+    drows), and the growth of device memory over the pass (every
+    intermediate kept, so above a step's)."""
+    sizes = {}
+    for pav in (False, True):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        keep = sysm.pipeline(carry, pav)
+        torch.cuda.synchronize()
+        grow = torch.cuda.max_memory_allocated() - base
+        sizes[pav] = {k: _nbytes(keep[k]) for k in ("pvals", "dcand",
+                                                     "drows")}
+        print(f"[time] {label}, per-atom virials {'on' if pav else 'off'}: "
+              + ", ".join(f"{k} {tuple(keep[k].shape)} {v / 2 ** 30:.3f} GiB"
+                          for k, v in sizes[pav].items())
+              + f"; the pass's peak over its start {grow / 2 ** 30:.3f} GiB")
+        del keep
+    extra = sum(sizes[True].values()) - sum(sizes[False].values())
+    print(f"[time] {label}: 12 channels instead of 4 add {extra / 2 ** 30:.3f}"
+          f" GiB in pvals + dcand + drows")
+
+
 def phase_time(results):
+    from gpumd_tpu_torch.bench import HNEMD_FE, NPT_BARO
+    from gpumd_tpu_torch.integrate.ensembles.npt import NPTBerendsen
+    from gpumd_tpu_torch.measure.properties import heat_current_total
+
     with torch.no_grad():
         sysm = System(32)
         label = "262k default rung"
@@ -1008,7 +1315,9 @@ def phase_time(results):
         _k_design(sysm.md)
         _live_lines(label, keep, sysm.md.cplan, sysm.md.spec)
         del keep
-        _long_run(sysm, carry, aux, step, _time_rebuild(sysm, label), label)
+        carry, aux = _long_run(sysm, carry, aux, step,
+                               _time_rebuild(sysm, label), label)
+        nve = ("NVE", step, carry, aux)  # in turns with NPT below
         del sysm, carry, aux, step
         jit = System(32, jitter=0.1)
         label = "262k default rung, jittered start"
@@ -1023,12 +1332,35 @@ def phase_time(results):
         _time_kernels(full, carry)
         _long_run(full, carry, aux, step, _time_rebuild(full, label), label)
         del full, carry, aux, step
+        npt = System(32)
+        label = "262k default rung, NPT-Berendsen"
+        carry, aux, step, _ = _time_rung(npt, label,
+                                         ens=NPTBerendsen(**NPT_BARO))
+        _profile(step, carry, aux)
+        print(f"[time] {label}: box {npt.box.h.diagonal().tolist()} -> "
+              f"{carry.state.box.h.diagonal().tolist()} A")
+        _steps_in_turns([nve, ("NPT-Berendsen", step, carry, aux)])
+        del npt, carry, aux, step, nve
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        hn = System(32, per_atom_virial=True)
+        hn.md.hnemd_fe = HNEMD_FE
+        label = "262k default rung, HNEMD"
+        carry, aux, step, _ = _time_rung(hn, label,
+                                         observer=heat_current_total)
+        _profile(step, carry, aux)
+        print(f"[time] {label}: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; "
+              f"J of the last step {step.rows[-1].tolist()}")
+        _time_kernels(hn, carry, results, pav=True)
+        del hn, carry, aux, step
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         big = System(50)
-        _time_rung(big, "1M default rung", n_steps=20)
+        carry = _time_rung(big, "1M default rung", n_steps=20)[0]
         print(f"[time] 1M default rung: peak memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+        _pav_bytes(big, carry, "1M default rung")
 
 
 def dense_passes(sysm, carry):
@@ -1395,7 +1727,8 @@ def phase_tersoff_kernels(results, pot_path):
                       f"{past}")
             for name, kern, plain in tersoff_pairs(sysm.md, keep):
                 tag = f"{name}[tersoff{',pav' if pav else ''}]"
-                _compare(tag, name, kern(), plain(), results, failures)
+                _compare(tag, name, kern(), plain(), results, failures,
+                         pav=pav)
         del sysm, carry, keep
         # compressed: 16 live bonds a centre, every one on the general path
         dense = TersoffSystem(8, pot_path, jitter=0.05, a0=4.1)
@@ -1412,7 +1745,8 @@ def phase_tersoff_kernels(results, pot_path):
                                    "past the live cap, expected all")
             for name, kern, plain in tersoff_pairs(dense.md, keep)[:2]:
                 tag = f"{name}[tersoff a0 4.1{',pav' if pav else ''}]"
-                _compare(tag, name, kern(), plain(), results, failures)
+                _compare(tag, name, kern(), plain(), results, failures,
+                         pav=pav)
     if failures:
         raise RuntimeError(f"kernels disagree with plain versions: {failures}")
 
@@ -2184,8 +2518,8 @@ def phase_probes(results, parent=None):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,md,time,"
-                    "dense-kernels,dense-md,dense-time,"
+    ap.add_argument("--phases", default="build,kernels,md,npt-md,hnemd-md,"
+                    "drift,time,dense-kernels,dense-md,dense-time,"
                     "tersoff-kernels,tersoff-md,tersoff-time,probes")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: the probes "
@@ -2195,6 +2529,7 @@ def main():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port's smoke test needs one")
     from gpumd_tpu_torch.engine.nep_compact import pin_fp32_matmul
+    from gpumd_tpu_torch.potentials.tersoff import SI_TERSOFF
 
     pin_fp32_matmul()
     phases = args.phases.split(",")
@@ -2206,7 +2541,9 @@ def main():
         Path(pot_path).write_text(SI_TERSOFF)
         for name, fn in (
                 ("kernels", phase_kernels), ("md", phase_md),
-                ("time", phase_time),
+                ("npt-md", phase_npt_md),
+                ("hnemd-md", lambda r: phase_hnemd_md(r, pot_path)),
+                ("drift", phase_drift), ("time", phase_time),
                 ("dense-kernels", phase_dense_kernels),
                 ("dense-md", phase_dense_md),
                 ("dense-time", phase_dense_time),

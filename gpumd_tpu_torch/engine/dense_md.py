@@ -17,7 +17,7 @@ block.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -64,6 +64,8 @@ class DenseNEPMD:
     # the force path; subclasses that set none (CompactTersoffMD) run the
     # compact one
     engine = "compact"
+    _hnemd_fe: Optional[Tuple[float, float, float]] = None
+    _fe_t: Optional[torch.Tensor] = None  # hnemd_fe on the force's device
 
     def __init__(
         self,
@@ -116,6 +118,27 @@ class DenseNEPMD:
             self.plan, position=position, box=box,
             rc_angular=nep.model.rc_angular_max, mn_r=mn_r, mn_a=mn_a,
             compact_lists=compact_lists)
+
+    @property
+    def hnemd_fe(self) -> Optional[Tuple[float, float, float]]:
+        """The HNEMD driving force Fe (1/A), None when off.  `compute` then
+        adds W_i^T Fe to each force before removing the net force (ref:
+        src/force/force.cu:567-608).  It needs per-atom virials: the
+        compact engine with per_atom_virial=True."""
+        return self._hnemd_fe
+
+    @hnemd_fe.setter
+    def hnemd_fe(self, value):
+        if value is not None:
+            if self.engine != "compact":
+                raise ValueError(
+                    f"HNEMD needs per-atom virials, which engine="
+                    f"{self.engine!r} does not compute: use "
+                    f"engine=\"compact\"")
+            if not self.per_atom_virial:
+                raise ValueError("HNEMD needs per_atom_virial=True")
+            value = tuple(float(x) for x in value)
+        self._hnemd_fe, self._fe_t = value, None
 
     # ---- state management ------------------------------------------------
 
@@ -207,7 +230,17 @@ class DenseNEPMD:
             w = out.virial_atom
         else:
             w = (out.virial_total / n_real) * state.mask[:, None, None]
-        if self.zero_net_force:
+        if self.zero_net_force and self._hnemd_fe is None:
+            f = (f - torch.sum(f, dim=0) / n_real) * state.mask[:, None]
+        if self._hnemd_fe is not None:
+            # F_i += W_i^T Fe, then the net force goes (ref: force.cu:567-608)
+            fe = self._fe_t
+            if fe is None or fe.dtype != f.dtype or fe.device != f.device:
+                fe = self._fe_t = torch.as_tensor(self._hnemd_fe,
+                                                  dtype=f.dtype,
+                                                  device=f.device)
+            drive = torch.sum(w * fe[None, :, None], dim=1)
+            f = f + drive * state.mask[:, None]
             f = (f - torch.sum(f, dim=0) / n_real) * state.mask[:, None]
         # J_i = W_i v_i
         j = torch.sum(w * state.velocity[:, None, :], dim=2)
@@ -232,8 +265,16 @@ class DenseNEPMD:
 
     # ---- MD step ---------------------------------------------------------
 
-    def make_step(self, ensemble, dt):
-        """Returns step(carry, aux) -> (carry, aux).
+    def make_step(self, ensemble, dt, observer=None, measure=None):
+        """Returns step(carry, aux) -> (carry, aux) without hooks.
+
+        With hooks, step(carry, aux, maccs=None) -> (carry, aux, maccs, ys):
+        `observer(state)` -> a tensor of the step (ys, None without one;
+        the HNEMD heat current), `measure(maccs, state, orig_id)` -> the
+        measurement accumulators (maccs, passed through without one; SHC's
+        ring buffers).  Both run after step2, the reference's
+        measure-after-integrate order (run.cu:295-299), and neither reads
+        anything back: stack a block's ys on the card.
 
         Rebuild criterion (barostat-safe): the list built at the last rebin
         stays complete while 2*u_max <= smin*rc_out - rc, with u_i the
@@ -270,19 +311,39 @@ class DenseNEPMD:
                               ref_thick=reft, overflow=c.overflow | ov,
                               idx=idx), aux
 
-        return step
+        if observer is None and measure is None:
+            return step
 
-    def run(self, state: MDState, ensemble, dt, n_steps: int):
-        """One block from input-order state; returns (carry, aux)."""
+        def step_hooked(c: DenseCarry, aux, maccs=None):
+            c, aux = step(c, aux)
+            ys = observer(c.state) if observer is not None else None
+            if measure is not None:
+                maccs = measure(maccs, c.state, c.orig_id)
+            return c, aux, maccs, ys
+
+        return step_hooked
+
+    def run(self, state: MDState, ensemble, dt, n_steps: int,
+            observer=None, measure=None, maccs=None):
+        """One block from input-order state; returns (carry, aux), or with
+        hooks (carry, aux, maccs, ys): ys the observer's tensors stacked
+        over the steps (None without an observer)."""
         with torch.no_grad():
             carry = self.init_carry(state)
             carry = carry._replace(state=self.compute(carry.state,
                                                       carry.idx))
             aux = ensemble.init(carry.state)
-            step = self.make_step(ensemble, dt)
+            step = self.make_step(ensemble, dt, observer, measure)
+            if observer is None and measure is None:
+                for _ in range(n_steps):
+                    carry, aux = step(carry, aux)
+                return carry, aux
+            ys = []
             for _ in range(n_steps):
-                carry, aux = step(carry, aux)
-        return carry, aux
+                carry, aux, maccs, y = step(carry, aux, maccs)
+                ys.append(y)
+        return (carry, aux, maccs,
+                torch.stack(ys) if observer is not None and ys else None)
 
     def to_input_order(self, carry: DenseCarry, n: int) -> MDState:
         """Slot state -> input atom order."""

@@ -462,9 +462,12 @@ def compact_tersoff_compute(position_slots, type_slots, slot_mask, box: Box,
 
 class CompactTersoffMD(DenseNEPMD):
     """Tersoff MD on the compact engine: DenseNEPMD's carry, rebin,
-    rebuild criterion, step loop, `compute` (net-force zeroing, virials,
-    heat current) and input-order map, with the Tersoff force pass and
-    neighbour build.  `plain=True` runs every kernel's plain version."""
+    rebuild criterion, step loop and hooks, `compute` (net-force zeroing,
+    the HNEMD driving force `hnemd_fe`, virials, heat current J_i = W_i
+    v_i) and input-order map, with the Tersoff force pass and neighbour
+    build.  The pass's energy is already masked, so compute's mask leaves
+    it as the JAX package's unmasked one.  `plain=True` runs every
+    kernel's plain version."""
 
     def __init__(self, pot: Tersoff1989, box: Box, n_atoms: int,
                  position: Optional[np.ndarray] = None, skin: float = 1.0,
@@ -493,17 +496,6 @@ class CompactTersoffMD(DenseNEPMD):
             compact_lists=False)
         # one list: angular cap == radial cap
         self.cplan = self.cplan._replace(mn_a=self.cplan.mn_r)
-
-    @property
-    def hnemd_fe(self):
-        return None
-
-    @hnemd_fe.setter
-    def hnemd_fe(self, value):
-        if value is not None:
-            raise NotImplementedError(
-                "HNEMD driving force on the Tersoff engine is not ported "
-                "yet: ROADMAP queue 1, item 3")
 
     def _build_idx(self, sstate: MDState):
         garr = pack_ghost(sstate.position, sstate.type, sstate.mask,

@@ -65,6 +65,12 @@ class Box(NamedTuple):
         return Box.from_lattice(np.diag(np.asarray(lengths, np.float64)),
                                 pbc=pbc, dtype=dtype, device=device)
 
+    def with_h(self, h) -> "Box":
+        """A box with the lattice `h` (e.g. after a barostat step), on this
+        box's device and in its dtype."""
+        h = torch.as_tensor(h, dtype=self.h.dtype, device=self.h.device)
+        return Box(h=h, h_inv=inv3(h), pbc=self.pbc)
+
     @property
     def volume(self):
         a, b, c = self.h[:, 0], self.h[:, 1], self.h[:, 2]

@@ -15,6 +15,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+# The published Tersoff-1989 Si set (Phys. Rev. B 39, 5566 (1989), Table
+# I), in the format Tersoff1989.from_file reads
+SI_TERSOFF = """tersoff_1989 1 Si
+1830.8 471.18 2.4799 1.7322 1.1e-6 0.78734 1.0039e5 16.217 -0.59825 2.7 3.0
+"""
+
 
 class Tersoff1989(NamedTuple):
     # pair-indexed (T, T)
@@ -38,9 +44,16 @@ class Tersoff1989(NamedTuple):
         """Read a `tersoff_1989` file; the tables go on the card unless
         `device` says otherwise."""
         with open(path) as f:
-            tokens = f.read().split()
+            return Tersoff1989.from_text(f.read(), dtype, device, name=path)
+
+    @staticmethod
+    def from_text(text: str, dtype=torch.float64,
+                  device=torch.device("cuda"),
+                  name: str = "text") -> "Tersoff1989":
+        """Parse the text of a `tersoff_1989` file (e.g. SI_TERSOFF)."""
+        tokens = text.split()
         if tokens[0] != "tersoff_1989":
-            raise ValueError(f"{path}: not a tersoff_1989 file")
+            raise ValueError(f"{name}: not a tersoff_1989 file")
         t = int(tokens[1])
         if t not in (1, 2):
             raise ValueError("tersoff_1989 supports 1 or 2 types")

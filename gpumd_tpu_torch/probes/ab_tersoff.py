@@ -42,7 +42,6 @@ import ctypes
 import json
 import re
 import subprocess
-import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -52,9 +51,6 @@ from gpumd_tpu_torch.engine import cuda_build
 from gpumd_tpu_torch.engine.tersoff_compact import tersoff_entry
 from gpumd_tpu_torch.probes import device_name, probe_device
 
-SI_TERSOFF = """tersoff_1989 1 Si
-1830.8 471.18 2.4799 1.7322 1.1e-6 0.78734 1.0039e5 16.217 -0.59825 2.7 3.0
-"""
 OUT_DIR = cuda_build.BUILD_ROOT / "ab_tersoff"
 ROUNDS, REPS = 3, 10
 HBM_BYTES_PER_S = 3.35e12
@@ -164,24 +160,17 @@ def ptxas_entry(report: str, stem: str) -> dict:
 
 def si_inputs(nc: int, dev, a0: float = 5.431):
     """centers, cand, idx, plan and spec of diamond Si at nc^3 cells."""
+    from gpumd_tpu_torch.bench import build_diamond
     from gpumd_tpu_torch.engine.grid import pack_block_windows, pack_ghost
     from gpumd_tpu_torch.engine.nep_compact import block_centers
     from gpumd_tpu_torch.engine.tersoff_compact import CompactTersoffMD
     from gpumd_tpu_torch.model.box import Box
     from gpumd_tpu_torch.model.state import make_state
-    from gpumd_tpu_torch.potentials.tersoff import Tersoff1989
+    from gpumd_tpu_torch.potentials.tersoff import SI_TERSOFF, Tersoff1989
 
-    base = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5],
-                     [.25, .25, .25], [.75, .75, .25], [.75, .25, .75],
-                     [.25, .75, .75]])
-    cells = np.stack(np.meshgrid(*[np.arange(nc)] * 3, indexing="ij"),
-                     axis=-1).reshape(-1, 3)
-    pos = (cells[:, None, :] + base[None]).reshape(-1, 3) * a0
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "Si_Tersoff_1989.txt"
-        path.write_text(SI_TERSOFF)
-        pot = Tersoff1989.from_file(str(path), device=dev)
-    box = Box.orthogonal([nc * a0] * 3, dtype=torch.float32, device=dev)
+    pos, lengths = build_diamond(nc, a0)
+    pot = Tersoff1989.from_text(SI_TERSOFF, device=dev)
+    box = Box.orthogonal(lengths, dtype=torch.float32, device=dev)
     n = len(pos)
     md = CompactTersoffMD(pot, box, n, position=pos, skin=1.0)
     carry = md.init_carry(make_state(pos, np.full(n, 28.085),

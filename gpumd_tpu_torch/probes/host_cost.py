@@ -34,7 +34,9 @@ checkouts whose C signatures agree then run the same kernels): row 13's
 wrapper on (8, 1024); the NEP default rung's K1, K2, scatter, fold and
 compact_rows on one pass of PbTe 32,768 atoms on its lattice plan; and the
 Tersoff step's tersoff_scatter and fold on one pass of Si 32,768, the
-systems and passes as CHECKOUT's chip_smoke.py builds them.  It prints a
+systems and passes as CHECKOUT's chip_smoke.py builds them, with the Si
+set of CHECKOUT's gpumd_tpu_torch/potentials/tersoff.py (SI_TERSOFF; an
+older checkout without it cannot be measured).  It prints a
 [host] line a wrapper, the floor, for this checkout the in-process A/B
 and, last, one JSON object.
 """
@@ -300,6 +302,7 @@ def main(argv=None) -> dict:
     import chip_smoke as cs
     from gpumd_tpu_torch.engine import cuda_build as cb
     from gpumd_tpu_torch.engine.nep_compact import pin_fp32_matmul
+    from gpumd_tpu_torch.potentials.tersoff import SI_TERSOFF
     from gpumd_tpu_torch.probes import probe_transcendentals as PT
 
     if not cb.__file__.startswith(root):
@@ -312,7 +315,7 @@ def main(argv=None) -> dict:
     x = torch.linspace(1.0, 120.0, 8192, device=dev).reshape(8, 1024)
     with torch.no_grad(), tempfile.TemporaryDirectory() as tmp:
         pot = Path(tmp) / "Si_Tersoff_1989.txt"
-        pot.write_text(cs.SI_TERSOFF)
+        pot.write_text(SI_TERSOFF)
         calls = {"probe/transcendentals": lambda: PT.run(x),
                  **wrapper_calls(cs, str(pot))}
         res = {"root": root, "calls": args.calls, "wrappers": {}}

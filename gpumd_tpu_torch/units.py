@@ -12,3 +12,9 @@ K_C = 14.399645
 
 # natural time -> fs.
 TIME_UNIT_CONVERSION = 1.018051e1
+
+# eV/Angstrom^3 -> GPa.
+PRESSURE_UNIT_CONVERSION = 1.602177e2
+
+# natural thermal conductivity -> W/(m K).
+KAPPA_UNIT_CONVERSION = 1.573769e5

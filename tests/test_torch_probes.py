@@ -36,6 +36,7 @@ from gpumd_tpu_torch.probes import bench_gather as BG
 from gpumd_tpu_torch.probes import bench_mxu_probes as MX
 from gpumd_tpu_torch.probes import host_cost as HC
 from gpumd_tpu_torch.probes import probe_transcendentals as PT
+from torch_first_trig import warm_torch_transcendentals  # noqa: F401
 
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 

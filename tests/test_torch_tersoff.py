@@ -513,13 +513,22 @@ def test_md_matches_md_run(pots, ens):
 
 
 def test_hnemd_not_ported(pots):
+    """The HNEMD driving force on CompactTersoffMD: off by default, a
+    ValueError without per-atom virials, accepted with them (the name is
+    the one the test had while the driving force raised here);
+    tests/test_torch_hnemd.py holds the driven force pass against the JAX
+    package."""
     mine, _ = pots["Si"]
     pos, _, lengths = _diamond(3)
-    md = TT.CompactTersoffMD(mine, Box.orthogonal(lengths, device="cpu"),
-                             len(pos), position=pos, skin=0.5)
+    box = Box.orthogonal(lengths, device="cpu")
+    md = TT.CompactTersoffMD(mine, box, len(pos), position=pos, skin=0.5)
     assert md.hnemd_fe is None
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
+    with pytest.raises(ValueError, match="per_atom_virial=True"):
         md.hnemd_fe = (0.0, 0.0, 1e-5)
+    md = TT.CompactTersoffMD(mine, box, len(pos), position=pos, skin=0.5,
+                             per_atom_virial=True)
+    md.hnemd_fe = (0.0, 0.0, 1e-5)
+    assert md.hnemd_fe == (0.0, 0.0, 1e-5)
 
 
 def test_entry_points_default_to_the_card(tmp_path):

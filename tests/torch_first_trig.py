@@ -6,7 +6,11 @@ worker thread computes, values ~1e-8 off those the same call returns when
 made again.  The port's CPU tests hold f64 plain versions that use cos and
 sin against the JAX package at rtol 1e-9 and tighter, so each test module
 that does so imports `warm_torch_transcendentals`: an autouse fixture that
-makes one such call of each before any comparison.
+makes one such call of each before any comparison.  It makes them in f32
+too: in one run of the whole suite under pytest-xdist, the f32 torch.cos
+of test_torch_probes.py's transcendental check read up to 1.5e-4 off (in
+every row but the first, as a worker thread's part) and failed its 1e-6
+gate; 480 fresh f32 processes, loaded or not, did not repeat it.
 
 Run as a script, this module reproduces the fault with torch alone: it
 starts fresh processes that each compute torch.cos over 36,864 random f64
@@ -43,11 +47,12 @@ print(int((d > 0).sum()), float(d.max()))
 
 @pytest.fixture(scope="module", autouse=True)
 def warm_torch_transcendentals():
-    """One f64 torch.cos and torch.sin over more elements than a thread's
-    grain, before the module's first comparison."""
-    x = torch.zeros(1 << 17, dtype=torch.float64)
-    torch.cos(x)
-    torch.sin(x)
+    """One torch.cos and torch.sin over more elements than a thread's
+    grain, in f64 and in f32, before the module's first comparison."""
+    for dtype in (torch.float64, torch.float32):
+        x = torch.zeros(1 << 17, dtype=dtype)
+        torch.cos(x)
+        torch.sin(x)
 
 
 def _child(mode: str, seed: int):
