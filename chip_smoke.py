@@ -51,6 +51,20 @@ Phases:
              PbTe 32,768 with compensated positions and velocities
              (scripts/drift_gate.py's twin): drift in eV/atom/ns, failing
              above 1e-5, on overflow or a non-finite energy
+ 3d. list-md the general path (ForceField + integrate/run.py, plain
+             torch, none of the hand-written kernels: the phase fails if
+             one launches): LJ argon 4,000 (BASELINE config 1, the repo's
+             lj.txt, MN 160, skin 1.0, 80 K, 2 fs), its neighbour plan
+             printed, 200 NVE steps (finite, no overflow, |dE| within
+             2e-3 eV/(fs^2 atom) dt^2 N) and after 20 steps within 1e-3 A
+             of the same run on the CPU in f64; NEP PbTe 32,768 jittered
+             by 0.1 A on the list path (MN 112, skin 1.0, per-atom
+             virials): its first force pass against the compact rung's
+             (forces within 1e-3 of max |F|, per-atom energies and the
+             total virial within 1e-4), 200 NVE steps conserving energy,
+             and after 20 steps within 1e-3 A of the compact rung; the
+             three neighbour builders and the reverse map on a jittered
+             4,096-atom box in f64, the card's lists against the CPU's
   4. time    262,144 atoms, 50 steps of each rung after warm-up
              (atom-step/s, the cost of the per-step host sync, a device
              profile of 5 steps): the default rung from the lattice
@@ -73,7 +87,11 @@ Phases:
              bounds and library calls); then 1,000,000 atoms on the
              default rung, 20 steps (atom-step/s, peak memory), and the
              bytes of K2's pvals, the scatter's dcand and the fold's drows
-             with per-atom virials off and on
+             with per-atom virials off and on; last the list rung (the
+             general path, bench.py's: MN 112, skin 1.0, total virials) at
+             262,144 atoms, 50 NVE steps after warm-up (atom-step/s, the
+             rebuilds, one rebuild's time, the per-step sync, peak memory,
+             a device profile of 5 steps) and LJ argon 4,000 (atom-step/s)
 
 It then drives the dense-window engines on the same PbTe model: the
 round-2 engine of DenseNEPMD(engine="v2") (kernels K1b and K2b, the path
@@ -178,7 +196,7 @@ Last, the probes' path: the port's counterparts of the three probe scripts
              DIR's package, on this tree's kernels
 
 Usage: python3 chip_smoke.py [--phases build,kernels,md,npt-md,
-       hnemd-md,drift,time,dense-kernels,dense-md,dense-time,
+       hnemd-md,drift,list-md,time,dense-kernels,dense-md,dense-time,
        tersoff-kernels,tersoff-md,tersoff-time,probes] [--parent DIR]
 Prints the kernels' JSON line, then, last, {"ok": true, "device": {...}}.
 A kernel's "launches" are those of the 200-step NVE run of its path;
@@ -846,6 +864,369 @@ def phase_drift(results):
         raise RuntimeError("NVE drift above the gate")
 
 
+# ---- the general (list) path: ForceField + md_run ------------------------
+
+LJ_FILE = ROOT / "lj.txt"
+# BASELINE config 1's gate on the total-energy change of an NVE run:
+# 2e-3 eV/(fs^2 atom) x dt^2 x N (BASELINE.md; the unshifted LJ cutoff
+# leaks energy as pairs cross it)
+LJ_GATE = 2e-3
+# The list path's first force pass against the compact rung's on the same
+# f32 state: forces within 1e-3 of max |F|; per-atom energies and the
+# total virial within 1e-4 of their largest magnitude (the two paths sum
+# the same f32 terms in another order: ~1e-6 relative)
+LIST_F_TOL = 1e-3
+LIST_EW_TOL = 1e-4
+
+
+class LJArgon:
+    """BASELINE config 1: fcc argon at 10^3 cells (a0 5.26 A), the repo's
+    lj.txt, ForceField.create(mn=160, skin=1.0), 80 K; the velocities drawn
+    with numpy, so the card and the CPU start from the same state.  MN 128
+    would overflow: rc + skin = 10 A takes in the first seven fcc shells,
+    134 neighbours (the seventh at 9.84 A)."""
+
+    def __init__(self, dtype=torch.float32, device="cuda"):
+        from gpumd_tpu_torch.forcefield import ForceField
+        from gpumd_tpu_torch.integrate.velocity import initialize_velocity
+        from gpumd_tpu_torch.model.box import Box
+        from gpumd_tpu_torch.model.state import make_state
+        from gpumd_tpu_torch.potentials.lj import LJ
+        from gpumd_tpu_torch.units import K_B
+
+        nc, a0, mass = 10, 5.26, 39.948
+        base = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5]])
+        cells = np.stack(np.meshgrid(*[np.arange(nc)] * 3, indexing="ij"),
+                         axis=-1).reshape(-1, 3)
+        pos = (cells[:, None, :] + base[None]).reshape(-1, 3) * a0
+        self.n = n = len(pos)
+        v = np.random.default_rng(42).normal(0.0, np.sqrt(K_B * 80.0 / mass),
+                                             (n, 3))
+        self.box = Box.orthogonal([nc * a0] * 3, dtype=dtype, device=device)
+        lj = LJ.from_file(str(LJ_FILE), dtype=dtype, device=device)
+        self.ff = ForceField.create([lj], self.box, n, mn=160, skin=1.0)
+        state = make_state(pos, np.full(n, mass), np.zeros(n, int), self.box)
+        self.state = initialize_velocity(state, 80.0, velocity=v)
+
+
+def _list_run(ff, state, dt, n_steps, snap_at=None):
+    """n_steps of NVE through integrate/run.py's step from state (its
+    first force pass included): the final carry (state, aux, cache), the
+    starting total energy per atom, the positions after `snap_at` steps,
+    the rebuilds and whether any neighbour list overflowed MN."""
+    from gpumd_tpu_torch.integrate.ensembles.nve import NVE
+    from gpumd_tpu_torch.integrate.run import make_md_step
+
+    ens = NVE()
+    state = ff.compute(state)
+    cache = ff.refresh_cache(state)
+    carry = (state, ens.init(state), cache)
+    step = make_md_step(ff, ens, dt, observer=lambda s: None)
+    e0 = total_energy(state)
+    over = cache.count.max() > ff.neighbor.mn
+    snap, rebuilds = None, 0
+    for s in range(n_steps):
+        prev = carry[2]
+        carry, _ = step(carry)
+        if carry[2] is not prev:
+            rebuilds += 1
+            over = over | (carry[2].count.max() > ff.neighbor.mn)
+        if snap_at is not None and s + 1 == snap_at:
+            snap = carry[0].position.clone()
+    return carry, e0, snap, rebuilds, bool(over)
+
+
+def _list_gate(label, carry, e0, n_steps, rebuilds, over, bound):
+    """Finite, no overflow, |total energy change| per atom within bound."""
+    s = carry[0]
+    e1 = total_energy(s)
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (s.position, s.velocity, s.force, s.potential_energy))
+    print(f"[list-md] {label}: {n_steps} steps, {rebuilds} rebuilds, "
+          f"finite={finite} overflow={over}; total energy per atom start "
+          f"{e0:.8f} eV, end {e1:.8f} eV, change {e1 - e0:+.3e} eV (bound "
+          f"{bound:.3e}); temperature {float(s.temperature()):.2f} K")
+    if not finite or over:
+        raise RuntimeError(f"{label}: non-finite values or overflow")
+    if not abs(e1 - e0) <= bound:
+        raise RuntimeError(f"{label}: total energy not conserved")
+
+
+def _rel_check(what, got, ref, tol):
+    rel = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+    print(f"[list-md] {what}: max diff / max |ref| = {rel:.3e} (bound "
+          f"{tol:.0e})")
+    if not rel <= tol:
+        raise RuntimeError(f"{what}: departs")
+
+
+def _pair_keys(nbr, position, box):
+    """Per row the sorted keys j * 35937 + enc(shift) of the valid slots
+    (invalid slots last), the integer image shifts and the count."""
+    from gpumd_tpu_torch.neighbor.neighbor import _enc
+
+    jdx = nbr.idx.long()
+    d = nbr.r12 - (position[jdx] - position[:, None, :])
+    shift = torch.round(box.fractional(d)).long()
+    shift = torch.where(nbr.mask[..., None] > 0, shift,
+                        torch.zeros_like(shift))
+    key = torch.where(nbr.mask > 0, jdx * 35937 + _enc(shift),
+                      torch.full_like(jdx, 2 ** 62))
+    return torch.sort(key, dim=1).values, shift
+
+
+def _builders_check():
+    """The three builders and the reverse map on a jittered 4,096-atom
+    PbTe box (rc 9 A, MN 112), in f64 on the card and on the CPU: the same
+    (idx, shift) set a row and count, and a valid reverse map on the card,
+    equal to the CPU's where the slot layouts are equal."""
+    from gpumd_tpu_torch.bench import build_pbte
+    from gpumd_tpu_torch.model.box import Box
+    from gpumd_tpu_torch.neighbor import neighbor as nb
+
+    lattice, _, lengths = build_pbte(8, 8, 8)
+    pos = lattice + np.random.default_rng(7).normal(0, 0.1, lattice.shape)
+    rc, mn = 9.0, 112
+    out = {}
+    for dev in ("cuda", "cpu"):
+        box = Box.orthogonal(lengths, device=dev)
+        p = torch.as_tensor(pos, device=dev)
+        m = torch.ones(len(pos), dtype=torch.float64, device=dev)
+        grid = nb.choose_grid(box, rc)
+        cap = nb.default_cell_cap(box, grid, len(pos))
+        builders = {
+            "neighbor_brute": lambda: nb.neighbor_brute(p, box, m, rc=rc,
+                                                        mn=mn),
+            "neighbor_cell_list": lambda: nb.neighbor_cell_list(
+                p, box, m, rc=rc, mn=mn, grid=grid, cell_cap=cap),
+            "neighbor_cell_dense": lambda: nb.neighbor_cell_dense(
+                p, box, m, rc=rc, mn=mn, grid=grid, cell_cap=cap)}
+        for name, fn in builders.items():
+            nbr = fn()
+            keys, shift = _pair_keys(nbr, p, box)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                rev = nb.build_reverse_map(nbr, shift)
+                torch.cuda.synchronize()
+                ms_rev = 1e3 * (time.perf_counter() - t0)
+            else:
+                rev = nb.build_reverse_map(nbr, shift)
+                ms = ms_rev = None
+            out.setdefault(name, {})[dev] = dict(
+                nbr=nbr, keys=keys, shift=shift, rev=rev, ms=ms,
+                ms_rev=ms_rev)
+    for name, r in out.items():
+        g, c = r["cuda"], r["cpu"]
+        n_rows, width = g["nbr"].idx.shape
+        same_keys = torch.equal(g["keys"].cpu(), c["keys"])
+        same_count = torch.equal(g["nbr"].count.cpu(), c["nbr"].count)
+        valid = g["nbr"].mask > 0
+        rows = torch.arange(n_rows, device=valid.device)[:, None].expand(
+            -1, width)
+        rv = g["rev"].long()
+        mirror_ok = bool(((g["nbr"].idx.reshape(-1)[rv] == rows)
+                          & (g["shift"].reshape(-1, 3)[rv]
+                             == -g["shift"]).all(-1))[valid].all())
+        layout = (torch.equal(g["nbr"].idx.cpu(), c["nbr"].idx)
+                  and torch.equal(g["nbr"].mask.cpu(), c["nbr"].mask))
+        same_rev = (torch.equal(g["rev"].cpu(), c["rev"]) if layout
+                    else None)
+        over = int((g["nbr"].count > width).sum())
+        print(f"[list-md] {name} on PbTe {len(pos)} jittered (f64, rc {rc}, "
+              f"MN {mn}): card {g['ms']:.2f} ms, reverse map "
+              f"{g['ms_rev']:.2f} ms; same (idx, shift) sets {same_keys}, "
+              f"same counts {same_count} (max {int(g['nbr'].count.max())}, "
+              f"{over} over MN), card rev valid {mirror_ok}, same layout "
+              f"{layout}, same rev {same_rev}")
+        if not (same_keys and same_count and mirror_ok and over == 0
+                and same_rev is not False):
+            raise RuntimeError(f"{name}: the card's list differs from the "
+                               f"CPU's")
+
+
+def phase_list_md(results):
+    """The general path (ForceField + integrate/run.py): BASELINE config
+    1 (LJ argon 4,000, NVE) against the same run on the CPU in f64, NEP
+    PbTe 32,768 on the list path against the compact rung, and the
+    neighbour builders on the card against the CPU.  It launches none of
+    the hand-written kernels."""
+    from gpumd_tpu_torch.engine import cuda_build
+    from gpumd_tpu_torch.forcefield import ForceField
+    from gpumd_tpu_torch.units import TIME_UNIT_CONVERSION
+
+    with torch.no_grad():
+        cuda_build.reset_launches()
+        # LJ argon, BASELINE config 1
+        dt_fs = 2.0
+        dt = dt_fs / TIME_UNIT_CONVERSION
+        lj = LJArgon()
+        method = {"cell": "cell list", "brute": "brute force"}[
+            lj.ff.neighbor.method]
+        print(f"[list-md] LJ argon n={lj.n}: neighbour plan "
+              f"{lj.ff.neighbor} ({method})")
+        carry, e0, snap, rb, over = _list_run(lj.ff, lj.state, dt, 200,
+                                              snap_at=20)
+        bound = LJ_GATE * dt_fs ** 2 * lj.n
+        _list_gate("LJ argon NVE, 2 fs", carry, e0, 200, rb, over,
+                   bound / lj.n)
+        ref = LJArgon(dtype=torch.float64, device="cpu")
+        _, _, snap_c, _, over_c = _list_run(ref.ff, ref.state, dt, 20,
+                                            snap_at=20)
+        if over_c:
+            raise RuntimeError("LJ argon on the CPU: overflow")
+        _pos_check("LJ argon list path, card f32 vs CPU f64", lj.box,
+                   snap, snap_c.to(device=snap.device, dtype=snap.dtype))
+        del lj, ref, carry
+        # NEP PbTe on the list path, against the compact default rung (from
+        # a jittered lattice: a perfect one's forces are rounding noise)
+        sysm = System(16, jitter=0.1)
+        ff = ForceField.create([sysm.nep], sysm.box, sysm.n, mn=112,
+                               skin=1.0, per_atom_virial=True)
+        print(f"[list-md] NEP PbTe n={sysm.n}: neighbour plan {ff.neighbor}")
+        st = ff.compute(sysm.state)
+        counts = dict(cuda_build.launches)
+        md = sysm.md
+        c = md.init_carry(sysm.state)
+        c = c._replace(state=md.compute(c.state, c.idx))
+        ref = md.to_input_order(c, sysm.n)
+        _rel_check("NEP first force pass, list vs compact rung: forces",
+                   st.force, ref.force, LIST_F_TOL)
+        _rel_check("NEP first force pass, list vs compact rung: per-atom "
+                   "energies", st.potential_energy, ref.potential_energy,
+                   LIST_EW_TOL)
+        _rel_check("NEP first force pass, list vs compact rung: total "
+                   "virial", torch.sum(st.virial, 0), torch.sum(ref.virial, 0),
+                   LIST_EW_TOL)
+        cuda_build.reset_launches()
+        dt = 1.0 / TIME_UNIT_CONVERSION
+        carry, e0, snap, rb, over = _list_run(ff, sysm.state, dt, 200,
+                                              snap_at=20)
+        counts = {k: counts[k] + v for k, v in cuda_build.launches.items()}
+        _list_gate("NEP PbTe NVE, 1 fs, per-atom virials", carry, e0, 200,
+                   rb, over, DRIFT_TOL)
+        _, _, snap_r = _run_steps(sysm, 20, snap_at=20)
+        _pos_check("NEP PbTe, list path vs compact rung", sysm.box, snap,
+                   snap_r)
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"[list-md] hand-written kernels launched by the list path "
+              f"(LJ and NEP runs): {launched or 'none'}")
+        if launched:
+            raise RuntimeError("the list path launched hand-written kernels")
+        del sysm, ff, carry, st, ref, c
+        _builders_check()
+
+
+def pbte_list_state(nc):
+    """PbTe at nc^3 cells with the trained model, f32 on the card, 300 K
+    (System's state, without the compact engine's plan): (nep, box,
+    state)."""
+    from gpumd_tpu_torch.bench import build_pbte, pbte_mass
+    from gpumd_tpu_torch.integrate.velocity import initialize_velocity
+    from gpumd_tpu_torch.model.box import Box
+    from gpumd_tpu_torch.model.state import make_state
+    from gpumd_tpu_torch.potentials.nep.model import NEP
+
+    pos, types, lengths = build_pbte(nc, nc, nc)
+    nep = NEP.from_file(str(MODEL), dtype=torch.float32)
+    box = Box.orthogonal(lengths, dtype=torch.float32)
+    state = make_state(pos, pbte_mass(types), types, box)
+    return nep, box, initialize_velocity(state, 300.0, seed=3)
+
+
+def _time_list(results):
+    """The list rung at PbTe 262,144 (NVE, ForceField mn 112, skin 1.0,
+    total virials, as bench.py's): atom-step/s over 50 steps after
+    warm-up with the rebuilds counted, one rebuild, the per-step sync (10
+    steps without it), peak memory and a device profile of 5 steps; then
+    LJ argon 4,000."""
+    from gpumd_tpu_torch.forcefield import ForceField
+    from gpumd_tpu_torch.integrate.ensembles.nve import NVE
+    from gpumd_tpu_torch.integrate.run import make_md_step
+    from gpumd_tpu_torch.potentials.nep.model import CARD_BLOCK
+    from gpumd_tpu_torch.units import TIME_UNIT_CONVERSION
+
+    def timed(label, ff, state, dt, n, n_steps):
+        ens = NVE()
+        step = make_md_step(ff, ens, dt, observer=lambda s: None)
+        state = ff.compute(state)
+        carry = (state, ens.init(state), ff.refresh_cache(state))
+        for _ in range(5):  # warm-up
+            carry, _ = step(carry)
+        rebuilds = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            prev = carry[2]
+            carry, _ = step(carry)
+            rebuilds += carry[2] is not prev
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = carry[0]
+        if (bool(carry[2].count.max() > ff.neighbor.mn)
+                or not bool(torch.isfinite(s.position).all())):
+            raise RuntimeError(f"{label}: timed block invalid")
+        print(f"[time] {label}: {n_steps} steps in {wall:.4f} s, {rebuilds} "
+              f"rebuilds: {n * n_steps / wall:.6e} atom-step/s "
+              f"({1e3 * wall / n_steps:.3f} ms/step)")
+        return step, carry, ens, wall
+
+    with torch.no_grad():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        nep, box, state = pbte_list_state(32)
+        n = state.position.shape[0]
+        ff = ForceField.create([nep], box, n, mn=112, skin=1.0,
+                               per_atom_virial=False)
+        label = "262k list rung"
+        print(f"[time] {label}: PbTe n={n}, neighbour plan {ff.neighbor}, "
+              f"{CARD_BLOCK} atoms a block")
+        dt = 1.0 / TIME_UNIT_CONVERSION
+        step, carry, ens, wall = timed(label, ff, state, dt, n, 50)
+        print(f"[time] {label}: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache = ff.refresh_cache(carry[0])
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        print(f"[time] {label}: one rebuild (cell list, shifts, reverse "
+              f"map) {1e3 * best:.3f} ms")
+        # 10 steps without compute_cached's rebuild test and its sync
+        state, aux = carry[0], carry[1]
+        cache = carry[2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            state, aux = ens.step1(state, aux, dt)
+            state = ff._evaluate(state, ff.cache_r12(state, cache))
+            state, aux = ens.step2(state, aux, dt)
+        torch.cuda.synchronize()
+        ms_ns = 1e3 * (time.perf_counter() - t0) / 10
+        print(f"[time] {label}: without the per-step rebuild test and its "
+              f"host sync: {ms_ns:.3f} ms/step; sync cost "
+              f"{1e3 * wall / 50 - ms_ns:.3f} ms/step")
+
+        def adapter(c, a):
+            return step(c)[0], a
+
+        t0 = time.perf_counter()
+        _profile(adapter, carry, None)
+        print(f"[time] {label}: the profile took "
+              f"{time.perf_counter() - t0:.1f} s")
+        del nep, ff, carry, cache, state
+        torch.cuda.empty_cache()
+        lj = LJArgon()
+        timed("LJ argon 4,000 (list path, 2 fs)", lj.ff, lj.state,
+              2.0 / TIME_UNIT_CONVERSION, lj.n, 200)
+
+
 def _time_ms(fn, reps):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1361,6 +1742,8 @@ def phase_time(results):
         print(f"[time] 1M default rung: peak memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
         _pav_bytes(big, carry, "1M default rung")
+        del big, carry
+        _time_list(results)
 
 
 def dense_passes(sysm, carry):
@@ -2519,7 +2902,7 @@ def phase_probes(results, parent=None):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,md,npt-md,hnemd-md,"
-                    "drift,time,dense-kernels,dense-md,dense-time,"
+                    "drift,list-md,time,dense-kernels,dense-md,dense-time,"
                     "tersoff-kernels,tersoff-md,tersoff-time,probes")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: the probes "
@@ -2543,7 +2926,8 @@ def main():
                 ("kernels", phase_kernels), ("md", phase_md),
                 ("npt-md", phase_npt_md),
                 ("hnemd-md", lambda r: phase_hnemd_md(r, pot_path)),
-                ("drift", phase_drift), ("time", phase_time),
+                ("drift", phase_drift), ("list-md", phase_list_md),
+                ("time", phase_time),
                 ("dense-kernels", phase_dense_kernels),
                 ("dense-md", phase_dense_md),
                 ("dense-time", phase_dense_time),

@@ -27,8 +27,11 @@ device memory.  Environment: GPUMD_BENCH_N (atoms, default ~1M),
 GPUMD_BENCH_STEPS (100), GPUMD_BENCH_MODE (nep), GPUMD_BENCH_ENGINE
 (compact: the default rung, compact candidate lists; windows: the
 full-window rung; v2: the round-2 dense engine, NEP modes without
-per-atom virials only; tersoff has one rung, compact), GPUMD_BENCH_SKIN
-(1.5 A; tersoff 1.0).
+per-atom virials only; list: the general path, ForceField with mn 112,
+skin 1.0 and total virials, as bench.py's list rung, nep mode only;
+tersoff has one rung, compact), GPUMD_BENCH_SKIN (1.5 A; tersoff and
+list 1.0).  On the list rung the warm carry is the first force pass and
+neighbour cache, and a final cache that overflowed MN fails the run.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ METRICS = {"nep": "nep_pbte_md_throughput",
            "npt": "nep_pbte_npt_md_throughput",
            "hnemd": "nep_hnemd_md_throughput",
            "tersoff": "tersoff_si_md_throughput"}
-ENGINES = ("compact", "windows", "v2")
+ENGINES = ("compact", "windows", "v2", "list")
 BASELINE = 1e8  # atom-step/s (BASELINE.md)
 HNEMD_FE = (1.0e-4, 0.0, 0.0)  # 1/A, a typical kappa driving force
 # the npt mode's coupling: PbTe-like bulk modulus ~40 GPa, tau_p 1 ps
@@ -117,7 +120,8 @@ def bench_nep(device):
 
 def setup(mode: str, target_n: int, engine: str = "compact",
           skin=None, device="cuda"):
-    """(md, ensemble, input-order state, observer) of one mode."""
+    """(md, ensemble, input-order state, observer) of one mode; on the list
+    rung `md` is a ForceField."""
     from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
     from gpumd_tpu_torch.integrate.ensembles.npt import NPTBerendsen
     from gpumd_tpu_torch.integrate.ensembles.nve import NVE
@@ -156,6 +160,15 @@ def setup(mode: str, target_n: int, engine: str = "compact",
     box = Box.orthogonal(lengths, dtype=torch.float32, device=device)
     state = make_state(pos, pbte_mass(types), types, box)
     state = initialize_velocity(state, 300.0, seed=3)
+    if engine == "list":
+        from gpumd_tpu_torch.forcefield import ForceField
+
+        if mode != "nep":
+            raise ValueError("the list rung runs the nep mode only")
+        ff = ForceField.create([bench_nep(device)], box, n, mn=112,
+                               skin=1.0 if skin is None else skin,
+                               per_atom_virial=False)
+        return ff, NVE(), state, None
     hnemd = mode == "hnemd"
     if hnemd and engine == "v2":
         raise ValueError("the hnemd mode needs per-atom virials: "
@@ -174,6 +187,29 @@ def setup(mode: str, target_n: int, engine: str = "compact",
     return md, ens, state, observer
 
 
+def _list_block(ff, ens, dt, n_steps):
+    """(warm, block, check) of the list rung: the carry is (state, aux,
+    neighbour cache), as integrate/run.py's MD loop has it."""
+    from gpumd_tpu_torch.integrate.run import make_md_step
+
+    step = make_md_step(ff, ens, dt, observer=lambda s: None)
+
+    def warm(state):
+        state = ff.compute(state)
+        return (state, ens.init(state), ff.refresh_cache(state)), None
+
+    def block(carry, aux):
+        for _ in range(n_steps):
+            carry, _ = step(carry)
+        return carry, None
+
+    def check(carry, ys):
+        return (bool(carry[2].count.max() > ff.neighbor.mn),
+                carry[0].position)
+
+    return warm, block, check
+
+
 def run(mode: str, target_n: int, n_steps: int, engine: str = "compact",
         skin=None, device="cuda") -> dict:
     """Time one block of `n_steps` from a warmed carry; returns the atom
@@ -186,35 +222,45 @@ def run(mode: str, target_n: int, n_steps: int, engine: str = "compact",
         torch.cuda.reset_peak_memory_stats()
     md, ens, state, observer = setup(mode, target_n, engine, skin, device)
     dt = 1.0 / TIME_UNIT_CONVERSION
-    step = md.make_step(ens, dt, observer=observer)
+    if engine == "list":
+        warm, block, check = _list_block(md, ens, dt, n_steps)
+    else:
+        step = md.make_step(ens, dt, observer=observer)
 
-    def block(carry, aux):
-        if observer is None:
+        def warm(state):
+            carry = md.init_carry(state)
+            carry = carry._replace(state=md.compute(carry.state, carry.idx))
+            return carry, ens.init(carry.state)
+
+        def block(carry, aux):
+            if observer is None:
+                for _ in range(n_steps):
+                    carry, aux = step(carry, aux)
+                return carry, None
+            ys = []
             for _ in range(n_steps):
-                carry, aux = step(carry, aux)
-            return carry, None
-        ys = []
-        for _ in range(n_steps):
-            carry, aux, _, y = step(carry, aux)
-            ys.append(y)
-        return carry, torch.stack(ys)
+                carry, aux, _, y = step(carry, aux)
+                ys.append(y)
+            return carry, torch.stack(ys)
+
+        def check(carry, ys):
+            return (bool(carry.overflow),
+                    ys if ys is not None else carry.state.position)
 
     def sync():
         if cuda:
             torch.cuda.synchronize()
 
     with torch.no_grad():
-        carry0 = md.init_carry(state)
-        carry0 = carry0._replace(state=md.compute(carry0.state, carry0.idx))
-        aux0 = ens.init(carry0.state)
+        carry0, aux0 = warm(state)
         block(carry0, aux0)  # warm-up
         sync()
         t0 = time.perf_counter()
         carry, ys = block(carry0, aux0)
         sync()
         wall = time.perf_counter() - t0
-    out = ys if ys is not None else carry.state.position
-    if bool(carry.overflow) or not bool(torch.isfinite(out).all()):
+    overflow, out = check(carry, ys)
+    if overflow or not bool(torch.isfinite(out).all()):
         raise RuntimeError(f"{mode} benchmark invalid (overflow or "
                            f"non-finite)")
     return {"n": int(state.position.shape[0]), "steps": n_steps,

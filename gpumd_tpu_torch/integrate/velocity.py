@@ -56,3 +56,10 @@ def initialize_velocity(state: MDState, temperature: float,
     ke = 0.5 * torch.sum(state.mass * torch.sum(v * v, dim=-1) * state.mask)
     t_now = 2.0 * ke / (3.0 * torch.sum(state.mask) * K_B)
     return state._replace(velocity=v * torch.sqrt(temperature / t_now))
+
+
+def correct_velocity(state: MDState) -> MDState:
+    """Re-zero the total linear momentum (the `correct_velocity` keyword,
+    ref: run.cu:610-646)."""
+    return state._replace(velocity=_zero_linear_momentum(
+        state.velocity, state.mass, state.mask))

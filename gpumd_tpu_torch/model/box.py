@@ -106,3 +106,22 @@ class Box(NamedTuple):
 
     def cartesian(self, frac):
         return torch.stack(_matvec3(self.h, frac), dim=-1)
+
+
+def num_replicas_for_cutoff(box: Box, rc: float) -> tuple:
+    """Host-side: periodic images needed per direction so every neighbour
+    within rc is found (the reference's small-box expanded box, ref:
+    src/force/nep.cu:1141+).  0 for non-periodic directions.  Reads the
+    box's thickness back to the host."""
+    t = box.thickness().tolist()
+    pbc = box.pbc.tolist()
+    reps = []
+    for d in range(3):
+        if pbc[d] > 0:
+            # after MIC the fractional displacement is in [-1/2, 1/2]; an
+            # image shift n can still land within rc iff |n| <= rc/t + 1/2
+            m = int(np.ceil(rc / float(t[d]) + 0.5 - 1e-9)) - 1
+            reps.append(max(0, m))
+        else:
+            reps.append(0)
+    return tuple(reps)

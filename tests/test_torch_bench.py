@@ -2,7 +2,7 @@
 scripts/hnemd_kappa_sanity.py, on the CPU at a tiny size.
 
 Each mode of `gpumd_tpu_torch.bench` (nep, npt, hnemd, tersoff; the nep
-mode also on the full-window rung) runs 2 timed steps with device="cpu"
+mode also on the full-window and list rungs) runs 2 timed steps with device="cpu"
 and prints one well-formed JSON line with bench.py's metric name, and
 each engine picks its rung; the drift and kappa twins run a few steps in
 blocks of 1-2 and print their scripts' JSON lines.  The numbers are CPU timings of the plain
@@ -26,6 +26,7 @@ def _last_json(text):
 
 @pytest.mark.parametrize("mode,engine,n", [
     ("nep", "compact", 1000), ("nep", "windows", 1000),
+    ("nep", "list", 1000),
     ("npt", "compact", 1000), ("hnemd", "compact", 1000),
     ("tersoff", "compact", 216)])
 def test_bench_modes_print_their_json_line(monkeypatch, capsys, mode,
@@ -65,12 +66,28 @@ def test_bench_engines_pick_their_rung(engine, cl, name):
 @pytest.mark.parametrize("mode,engine", [("nep", "dense"),
                                          ("hnemd", "v2"),
                                          ("tersoff", "windows"),
-                                         ("list", "compact")])
+                                         ("list", "compact"),
+                                         ("npt", "list"),
+                                         ("hnemd", "list"),
+                                         ("tersoff", "list")])
 def test_bench_refuses_what_it_does_not_run(monkeypatch, mode, engine):
-    """No fallback: an unknown engine or mode, HNEMD on v2 and Tersoff on
-    another rung raise."""
+    """No fallback: an unknown engine or mode, HNEMD on v2, Tersoff on
+    another rung and the list rung outside the nep mode raise."""
     with pytest.raises(ValueError):
         bench.setup(mode, 1000, engine, device="cpu")
+
+
+def test_bench_list_rung_is_bench_py_s():
+    """GPUMD_BENCH_ENGINE=list: bench.py's list rung, a ForceField with MN
+    112, skin 1.0 and total virials, under NVE."""
+    from gpumd_tpu_torch.forcefield import ForceField
+    from gpumd_tpu_torch.integrate.ensembles.nve import NVE
+
+    ff, ens, state, observer = bench.setup("nep", 1000, "list", device="cpu")
+    assert isinstance(ff, ForceField) and isinstance(ens, NVE)
+    assert observer is None and state.position.shape == (1000, 3)
+    assert ff.neighbor.mn == 112 and ff.skin == 1.0
+    assert ff.neighbor.rc == 9.0 and not ff.per_atom_virial
 
 
 def test_drift_twin_prints_its_json_line(monkeypatch, capsys):
