@@ -65,6 +65,23 @@ Phases:
              and after 20 steps within 1e-3 A of the compact rung; the
              three neighbour builders and the reverse map on a jittered
              4,096-atom box in f64, the card's lists against the CPU's
+ 3e. train   BASELINE config 5, the NEP trainers through their entry
+             points at config 5's width (nep.in "type 2 Te Pb", every
+             other keyword at its default: D 3,033, population 50), plain
+             torch (the phase fails if a hand-written kernel launches
+             outside its MD run): a synthetic PbTe set (25 rocksalt
+             frames of 216 atoms, a0 6.46 A x U(0.97, 1.03), jittered
+             0.1 A) labelled by the trained model through the list path
+             in f64; batched_forward in f32 at the model's weights
+             against the labels (RMSE of E, F, V within their bounds) and
+             the chunked population evaluate against single evaluations;
+             app.nep.main for 20 SNES generations (loss.out rows 10 and
+             20 of 10 columns; s/generation, the population chunk, peak
+             memory), the written nep.txt in DenseNEPMD for 20 NVE steps
+             of 4,096 PbTe (finite, energy gate, K1/K2/scatter/fold every
+             step), a resume to generation 30 (the third row numbered
+             30); app.gnep.main for 3 epochs (s/epoch, peak memory), and
+             a run stopped after 2 and resumed against it
   4. time    262,144 atoms, 50 steps of each rung after warm-up
              (atom-step/s, the cost of the per-step host sync, a device
              profile of 5 steps): the default rung from the lattice
@@ -196,7 +213,7 @@ Last, the probes' path: the port's counterparts of the three probe scripts
              DIR's package, on this tree's kernels
 
 Usage: python3 chip_smoke.py [--phases build,kernels,md,npt-md,
-       hnemd-md,drift,list-md,time,dense-kernels,dense-md,dense-time,
+       hnemd-md,drift,list-md,train,time,dense-kernels,dense-md,dense-time,
        tersoff-kernels,tersoff-md,tersoff-time,probes] [--parent DIR]
 Prints the kernels' JSON line, then, last, {"ok": true, "device": {...}}.
 A kernel's "launches" are those of the 200-step NVE run of its path;
@@ -223,6 +240,7 @@ failed check.
 """
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -1119,6 +1137,243 @@ def phase_list_md(results):
             raise RuntimeError("the list path launched hand-written kernels")
         del sysm, ff, carry, st, ref, c
         _builders_check()
+
+
+# The trainer's f32 forward against labels from the same model through the
+# list path in f64: f32 rounding of energies of ~-3 eV/atom (~4e-7),
+# forces and virials of the same model (~1e-5); the bounds leave 20-50x.
+TRAIN_E_TOL = 2e-5  # eV/atom
+TRAIN_F_TOL = 2e-4  # eV/A
+TRAIN_V_TOL = 2e-4  # eV/atom
+# The chunked population evaluate against single evaluations in f32: the
+# same sums batched over individuals (bmm against mm), relative.
+TRAIN_CHUNK_TOL = 1e-4
+# Config 5: nep.in "type 2 Te Pb" with every other keyword at its default
+# (NEP4, cutoffs 8/4 A, n_max 6/6, basis 6/6, l_max 4 2 0, 30 neurons,
+# population 50, batch 1000), generation cut to what a smoke run affords.
+TRAIN_NEP_IN = "type 2 Te Pb\n"
+
+
+def _card():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "?"
+
+
+def _trained_md(path, n_steps=20):
+    """20 NVE steps of 4,096 PbTe (300 K, 1 fs) on the compact engine with
+    the nep.txt at `path`, counts from 0: (counts, energy change per
+    atom, finite)."""
+    from gpumd_tpu_torch.bench import build_pbte, pbte_mass
+    from gpumd_tpu_torch.engine import cuda_build
+    from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
+    from gpumd_tpu_torch.integrate.ensembles.nve import NVE
+    from gpumd_tpu_torch.integrate.velocity import initialize_velocity
+    from gpumd_tpu_torch.model.box import Box
+    from gpumd_tpu_torch.model.state import make_state
+    from gpumd_tpu_torch.potentials.nep.model import NEP
+    from gpumd_tpu_torch.units import TIME_UNIT_CONVERSION
+
+    pos, types, lengths = build_pbte(8, 8, 8, 6.46)
+    n = len(pos)
+    nep = NEP.from_file(path, dtype=torch.float32)
+    box = Box.orthogonal(lengths, dtype=torch.float32)
+    state = initialize_velocity(make_state(pos, pbte_mass(types), types,
+                                           box), 300.0, seed=3)
+    md = DenseNEPMD(nep, box, n, position=pos, skin=1.5)
+    ens = NVE()
+    cuda_build.reset_launches()
+    carry = md.init_carry(state)
+    carry = carry._replace(state=md.compute(carry.state, carry.idx))
+    aux = ens.init(carry.state)
+    step = md.make_step(ens, 1.0 / TIME_UNIT_CONVERSION)
+    e0 = total_energy(carry.state)
+    for _ in range(n_steps):
+        carry, aux = step(carry, aux)
+    torch.cuda.synchronize()
+    counts = dict(cuda_build.launches)
+    s = carry.state
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (s.position, s.velocity, s.force, s.potential_energy))
+    return counts, total_energy(s) - e0, finite and not bool(carry.overflow)
+
+
+def _loss_rows(path):
+    return [ln for ln in Path(path).read_text().splitlines() if ln.strip()]
+
+
+def phase_train(results):
+    """BASELINE config 5, the NEP trainers, through their entry points on
+    the card at config 5's width (plain torch: no hand-written kernel runs
+    on the trainer path, and the phase fails if one launches).  A
+    synthetic PbTe set (25 rocksalt frames of 216 atoms, a0 6.46 A scaled
+    by U(0.97, 1.03), jittered 0.1 A) labelled by the artifacts model
+    through the list path in f64; batched_forward at that model's weights
+    reproduces the labels, and the chunked population evaluate equals
+    single evaluations; app.nep.main trains 20 SNES generations (rows 10
+    and 20, the nep.txt it writes runs 20 NVE steps of 4,096 PbTe on the
+    compact engine) and resumes to 30; app.gnep.main runs 3 epochs, and a
+    run stopped after 2 and resumed writes the same rows, nep.txt and
+    gnep.restart."""
+    from gpumd_tpu_torch.app import gnep as app_gnep
+    from gpumd_tpu_torch.app import nep as app_nep
+    from gpumd_tpu_torch.engine import cuda_build
+    from gpumd_tpu_torch.io.nep_input import parse_nep_in
+    from gpumd_tpu_torch.io.xyz import read_xyz_frames
+    from gpumd_tpu_torch.potentials.nep.model import NEP
+    from gpumd_tpu_torch.potentials.nep.params import (
+        num_trainable, params_from_vector,
+    )
+    from gpumd_tpu_torch.scripts.pbte_train_set import write_train_set
+    from gpumd_tpu_torch.train import snes
+    from gpumd_tpu_torch.train.nep_train import batched_forward
+
+    card = _card()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        snes_dir, ga, gb = tmp / "nep", tmp / "gnep_a", tmp / "gnep_b"
+        for d in (snes_dir, ga, gb):
+            d.mkdir()
+        cuda_build.reset_launches()
+        # 1. the data, labelled on the card in f64
+        t0 = time.perf_counter()
+        nep64 = NEP.from_file(str(MODEL), dtype=torch.float64)
+        write_train_set(snes_dir / "train.xyz", nep64, n_frames=25, cells=3)
+        frames = read_xyz_frames(str(snes_dir / "train.xyz"))
+        print(f"[train] data: {len(frames)} PbTe frames of "
+              f"{frames[0].n_atoms} atoms labelled by {MODEL.name} through "
+              f"the list path in f64 in {time.perf_counter() - t0:.1f} s")
+        # 2. the trainer's forward in f32 at the model's weights
+        nep32 = NEP.from_file(str(MODEL), dtype=torch.float32)
+        (snes_dir / "nep.in").write_text(TRAIN_NEP_IN)
+        cfg = parse_nep_in(str(snes_dir / "nep.in"))
+        batch, = app_nep.build_batches(frames, cfg.symbols, rc=8.0,
+                                       batch_size=cfg.batch_size,
+                                       device="cuda")
+        with torch.no_grad():
+            out = batched_forward(nep32.model, nep32.params, batch)
+        na = batch.n_atoms.float()
+        rmse_e = float(torch.sqrt(torch.mean(
+            ((out.energy - batch.energy_ref) / na) ** 2)))
+        rmse_f = float(torch.sqrt(torch.mean(
+            (out.force - batch.force_ref) ** 2)))
+        rmse_v = float(torch.sqrt(torch.mean(
+            ((out.virial - batch.virial_ref) / na[:, None]) ** 2)))
+        print(f"[train] batched_forward (f32, MN cut to "
+              f"{batch.idx.shape[2]}) vs the labels: RMSE E "
+              f"{rmse_e:.3e} eV/atom (bound {TRAIN_E_TOL:.0e}), F "
+              f"{rmse_f:.3e} eV/A (bound {TRAIN_F_TOL:.0e}), V "
+              f"{rmse_v:.3e} eV/atom (bound {TRAIN_V_TOL:.0e})")
+        if not (rmse_e <= TRAIN_E_TOL and rmse_f <= TRAIN_F_TOL
+                and rmse_v <= TRAIN_V_TOL):
+            raise RuntimeError("the trainer's forward departs from the "
+                               "list path's labels")
+        model = nep32.model
+        d = num_trainable(model)
+        rng = np.random.default_rng(9)
+        thetas = torch.as_tensor(rng.normal(0, 0.3, (4, d)),
+                                 dtype=torch.float32, device="cuda")
+        qs = torch.ones(model.dim, device="cuda")
+        cfg4 = dataclasses.replace(cfg, population_size=4)
+        _, evaluate, _ = snes.make_population_pieces(model, cfg4, qs, 0.0,
+                                                     0.0, chunk=2)
+        got = evaluate(thetas, batch)
+        worst = 0.0
+        with torch.no_grad():
+            for i in range(4):
+                ref = snes.per_type_rmses(model, cfg4, batched_forward(
+                    model, params_from_vector(model, thetas[i], qs),
+                    batch), batch, do_shift=True)
+                for g, r in zip(got, ref):
+                    worst = max(worst, float((g[i] - r).abs().max()
+                                             / r.abs().max().clamp(
+                                                 min=1e-30)))
+        print(f"[train] chunked population evaluate (4 individuals, "
+              f"chunks of 2) vs single evaluations: max relative "
+              f"difference {worst:.3e} (bound {TRAIN_CHUNK_TOL:.0e})")
+        if not worst <= TRAIN_CHUNK_TOL:
+            raise RuntimeError("the chunked evaluate departs")
+        del out, got
+        # 3. SNES through app.nep.main: 20 generations, then resume to 30
+        (snes_dir / "nep.in").write_text(
+            TRAIN_NEP_IN + "generation 20\noutput_interval 10\n")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = app_nep.main([str(snes_dir)])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows = _loss_rows(snes_dir / "loss.out")
+        gens = [int(r.split()[0]) for r in rows]
+        ncols = {len(r.split()) for r in rows}
+        chunk = snes.population_chunk(cfg.population_size, trainer.batches[0])
+        slots = trainer.batches[0].idx.numel()
+        per_gen = trainer.train_seconds / trainer.generations_run
+        per_slot = peak * 2 ** 30 / (chunk * slots)
+        print(f"[train] SNES config 5: D={trainer.d}, population "
+              f"{cfg.population_size} in chunks of {chunk}, 1 batch of "
+              f"{trainer.batches[0].num_configs} configs, MN "
+              f"{trainer.batches[0].idx.shape[2]} ({slots} pair slots); 20 "
+              f"generations: {per_gen:.4f} s/generation "
+              f"({trainer.train_seconds:.2f} s for the loop, {wall:.2f} s "
+              f"for app.nep.main), peak {peak:.3f} GiB ({per_slot:.0f} B "
+              f"a slot of a chunk's individual; BYTES_PER_SLOT "
+              f"{snes.BYTES_PER_SLOT}); loss.out rows {gens}, columns "
+              f"{ncols}; {card}")
+        print("[train] loss.out:\n" + "\n".join(rows))
+        if gens != [10, 20] or ncols != {10}:
+            raise RuntimeError("loss.out rows are not at 10 and 20 with 10 "
+                               "columns")
+        counts = dict(cuda_build.launches)
+        md_counts, de, ok = _trained_md(str(snes_dir / "nep.txt"))
+        print(f"[train] the trained nep.txt in DenseNEPMD, 4,096 PbTe, 20 "
+              f"NVE steps: finite and no overflow {ok}, total energy "
+              f"change {de:+.3e} eV/atom (bound {DRIFT_TOL}), launches "
+              f"{ {k: v for k, v in md_counts.items() if v} }")
+        if not ok or not abs(de) <= DRIFT_TOL:
+            raise RuntimeError("the trained model's MD run failed its gate")
+        if min(md_counts[k] for k in ("k1", "k2", "scatter", "fold")) < 20:
+            raise RuntimeError("the MD run did not launch its kernels")
+        cuda_build.reset_launches()
+        (snes_dir / "nep.in").write_text(
+            TRAIN_NEP_IN + "generation 30\noutput_interval 10\n")
+        app_nep.main([str(snes_dir)])
+        gens = [int(r.split()[0]) for r in _loss_rows(snes_dir / "loss.out")]
+        print(f"[train] resumed to generation 30: loss.out rows {gens}")
+        if gens != [10, 20, 30]:
+            raise RuntimeError("the resumed run's row is not numbered 30")
+        # 4. gnep: 3 epochs straight; stopped after 2 and resumed
+        for g in (ga, gb):
+            (g / "train.xyz").symlink_to(snes_dir / "train.xyz")
+            (g / "nep.in").write_text(TRAIN_NEP_IN + "epoch 3\n")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        app_gnep.main([str(ga)])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        app_gnep.main([str(gb)], stop_after=2)
+        app_gnep.main([str(gb)])
+        ra, rb = _loss_rows(ga / "loss.out"), _loss_rows(gb / "loss.out")
+        epoch_s = [float(r.split()[-1]) for r in ra]
+        cut = 8 + 7 * 13 + 15  # the row's text before the wall time
+        same = ([r[:cut] for r in ra] == [r[:cut] for r in rb]
+                and all((ga / f).read_bytes() == (gb / f).read_bytes()
+                        for f in ("nep.txt", "gnep.restart")))
+        print(f"[train] gnep config 5: 3 epochs of 1 batch, s/epoch "
+              f"{epoch_s} ({wall:.1f} s for app.gnep.main), peak "
+              f"{peak:.2f} GiB; stopped after 2 and resumed equals the "
+              f"straight run (rows before the time column, nep.txt, "
+              f"gnep.restart): {same}; {card}")
+        print("[train] gnep loss.out:\n" + "\n".join(ra))
+        if len(ra) != 3 or {len(r.split()) for r in ra} != {10} or not same:
+            raise RuntimeError("gnep: rows or the resumed run differ")
+        counts = {k: counts[k] + v for k, v in cuda_build.launches.items()}
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"[train] hand-written kernels launched on the trainer path "
+              f"(data, forward, SNES, gnep): {launched or 'none'}")
+        if launched:
+            raise RuntimeError("the trainer path launched hand-written "
+                               "kernels")
 
 
 def pbte_list_state(nc):
@@ -2902,7 +3157,8 @@ def phase_probes(results, parent=None):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,md,npt-md,hnemd-md,"
-                    "drift,list-md,time,dense-kernels,dense-md,dense-time,"
+                    "drift,list-md,train,time,dense-kernels,dense-md,"
+                    "dense-time,"
                     "tersoff-kernels,tersoff-md,tersoff-time,probes")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: the probes "
@@ -2927,6 +3183,7 @@ def main():
                 ("npt-md", phase_npt_md),
                 ("hnemd-md", lambda r: phase_hnemd_md(r, pot_path)),
                 ("drift", phase_drift), ("list-md", phase_list_md),
+                ("train", phase_train),
                 ("time", phase_time),
                 ("dense-kernels", phase_dense_kernels),
                 ("dense-md", phase_dense_md),

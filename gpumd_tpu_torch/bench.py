@@ -189,23 +189,31 @@ def setup(mode: str, target_n: int, engine: str = "compact",
 
 def _list_block(ff, ens, dt, n_steps):
     """(warm, block, check) of the list rung: the carry is (state, aux,
-    neighbour cache), as integrate/run.py's MD loop has it."""
+    neighbour cache), as integrate/run.py's MD loop has it.  A block
+    records, on the device, whether the cache it starts from or any cache
+    a rebuild made in it holds an over-full row (ForceField keeps the
+    first MN neighbours of such a row and goes on), and check refuses the
+    run if one did."""
     from gpumd_tpu_torch.integrate.run import make_md_step
 
     step = make_md_step(ff, ens, dt, observer=lambda s: None)
+    mn = ff.neighbor.mn
 
     def warm(state):
         state = ff.compute(state)
         return (state, ens.init(state), ff.refresh_cache(state)), None
 
     def block(carry, aux):
+        over = carry[2].count.max() > mn
         for _ in range(n_steps):
+            cache = carry[2]
             carry, _ = step(carry)
-        return carry, None
+            if carry[2] is not cache:  # rebuilt: no sync, one device op
+                over = over | (carry[2].count.max() > mn)
+        return carry, over
 
-    def check(carry, ys):
-        return (bool(carry[2].count.max() > ff.neighbor.mn),
-                carry[0].position)
+    def check(carry, over):
+        return bool(over), carry[0].position
 
     return warm, block, check
 

@@ -380,15 +380,16 @@ class NEP(NamedTuple):
 
     def per_atom_energy(self, r12, t1, t2, block: Optional[int] = None):
         """Per-atom energies (N,) from r12 (N, MN, 3), in blocks of
-        `block` atoms (default `block_size`; no gradient: `compute` takes
-        energy and gradient a block at a time)."""
+        `block` atoms (default `block_size`).  The blocks are joined by
+        one cat, with no write into a preallocated tensor, so torch.func
+        can map the function over a population of parameters (the SNES
+        trainer) and differentiate it twice (gnep)."""
         n = r12.shape[0]
         block = block or block_size(r12)
-        out = torch.empty(n, dtype=r12.dtype, device=r12.device)
-        for s in range(0, n, block):
-            rows = slice(s, min(s + block, n))
-            out[rows] = self._block_energy(r12[rows], t1[rows], t2[rows])
-        return out
+        return torch.cat([self._block_energy(r12[s:s + block],
+                                             t1[s:s + block],
+                                             t2[s:s + block])
+                          for s in range(0, max(n, 1), block)])
 
     def raw_descriptors(self, r12, t1, t2):
         """Unscaled per-atom descriptors q (B, dim) and distances d (B, MN)

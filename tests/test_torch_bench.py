@@ -90,6 +90,37 @@ def test_bench_list_rung_is_bench_py_s():
     assert ff.neighbor.rc == 9.0 and not ff.per_atom_virial
 
 
+@pytest.mark.parametrize("over_at", [6, None])
+def test_bench_list_rung_refuses_an_overflow_at_a_middle_rebuild(
+        monkeypatch, over_at):
+    """At skin 1e-4 A every step rebuilds: the warm state's cache is the
+    1st, the warm-up block's 3 steps make the 2nd-4th and the timed
+    block's the 5th-7th.  An over-full row in the 6th cache, which the
+    7th (final) one replaces, refuses the run; without it the run
+    passes."""
+    from gpumd_tpu_torch.forcefield import ForceField
+
+    real = ForceField.refresh_cache
+    made = []
+
+    def refresh_cache(self, state):
+        cache = real(self, state)
+        made.append(cache)
+        if len(made) == over_at:
+            cache = cache._replace(count=cache.count + self.neighbor.mn)
+        return cache
+
+    monkeypatch.setattr(ForceField, "refresh_cache", refresh_cache)
+    if over_at is None:
+        assert bench.run("nep", 1000, 3, "list", skin=1e-4,
+                         device="cpu")["steps"] == 3
+    else:
+        with pytest.raises(RuntimeError, match="overflow"):
+            bench.run("nep", 1000, 3, "list", skin=1e-4, device="cpu")
+    assert len(made) == 7
+    assert not bool((made[-1].count > 112).any())
+
+
 def test_drift_twin_prints_its_json_line(monkeypatch, capsys):
     monkeypatch.setenv("GPUMD_DRIFT_N", "1000")
     monkeypatch.setenv("GPUMD_DRIFT_PS", "0.003")

@@ -1144,3 +1144,56 @@ def test_probe_wrappers_reject_wrong_inputs(dev):
                               "highest"),
                 PM.onehot_dot_plain(odd[:, :, :96].contiguous(), 128,
                                     3)) <= 1e-5
+
+
+def test_trainer_forward_and_gnep_step_match_cpu_f64(dev):
+    """The trainers' path on the card (plain torch, f32, TF32 off) at the
+    artifacts model's width against the CPU in f64: batched_forward on two
+    64-atom PbTe frames with random labels, and one gnep step's loss,
+    gradient norm and Adam moments (m = 0.1 g, v = 0.001 g^2: the
+    gradients through the forces).  Bounds: f32 rounding, relative to each
+    quantity's largest value: 1e-5 (energies), 1e-4 (forces, virials,
+    losses), 1e-3 (the second-order gradients).  No kernel launches."""
+    from gpumd_tpu_torch.engine.nep_compact import pin_fp32_matmul
+    from gpumd_tpu_torch.io.xyz import XYZFrame
+    from gpumd_tpu_torch.potentials.nep.params import load_nep_txt
+    from gpumd_tpu_torch.scripts.pbte_train_set import pbte_frames
+    from gpumd_tpu_torch.train import nep_train as TT
+    from gpumd_tpu_torch.train.dataset import batch_structures
+
+    pin_fp32_matmul()
+    rng = np.random.default_rng(14)
+    frames = [XYZFrame(symbols=["Pb" if t else "Te" for t in ty],
+                       positions=pos, lattice=np.diag([edge] * 3),
+                       forces=rng.normal(0, 0.5, (len(pos), 3)),
+                       info={"energy": f"{-3.5 * len(pos):.6f}",
+                             "virial": " ".join(f"{x:.6f}" for x in
+                                                rng.normal(0, 2.0, 9))})
+              for pos, ty, edge in pbte_frames(2, 2, seed=15)]
+    out, steps = {}, {}
+    for where, dtype in ((dev, torch.float32),
+                         (torch.device("cpu"), torch.float64)):
+        model, params = load_nep_txt(MODEL, dtype=dtype, device=where)
+        batch = batch_structures(frames, model.symbols, rc=8.0, mn=200,
+                                 dtype=dtype, device=where)
+        before = dict(cuda_build.launches)
+        out[where.type] = TT.batched_forward(model, params, batch)
+        zeros = TT.with_leaves(params, [torch.zeros_like(x) for x in
+                                        TT.param_leaves(params)])
+        state = TT.GnepState(
+            params=params, m=zeros, v=zeros,
+            step=torch.zeros((), dtype=torch.int32, device=where),
+            avg_norm=torch.tensor(-1.0, device=where))
+        steps[where.type] = TT.make_gnep_step(
+            model, TT.LossWeights(), 0.0)(state, batch, 1e-3)
+        assert cuda_build.launches == before
+    g, c = out["cuda"], out["cpu"]
+    assert _rel(g.energy.cpu().double(), c.energy) <= 1e-5
+    assert _rel(g.force.cpu().double(), c.force) <= 1e-4
+    assert _rel(g.virial.cpu().double(), c.virial) <= 1e-4
+    (gs, gm), (cs, cm) = steps["cuda"], steps["cpu"]
+    for k in ("loss", "mse_e", "mse_f", "mse_v"):
+        assert _rel(gm[k].cpu().double(), cm[k]) <= 1e-4, k
+    assert _rel(gs.avg_norm.cpu().double(), cs.avg_norm) <= 1e-3
+    for a, b in zip(TT.param_leaves(gs.m), TT.param_leaves(cs.m)):
+        assert _rel(a.cpu().double(), b) <= 1e-3

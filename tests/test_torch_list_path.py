@@ -162,20 +162,41 @@ def dense_pbte():
     return pos, types, jl, tl
 
 
+@pytest.fixture(scope="module")
+def artifacts_oracle(dense_pbte):
+    """The artifacts model's JAX results on dense_pbte, compiled once for
+    the tests that read them: raw descriptors, compute with the reverse
+    map and with the scatter (total virial), and b_projection."""
+    pos, types, jl, _ = dense_pbte
+    jnep, _ = _nep_pair("artifacts")
+    jt = jnp.asarray(types, jnp.int32)
+    jmask = jnp.ones(len(pos))
+    with jax_oracle_state():
+        return _jit(lambda: (
+            *jnep.raw_descriptors(jl.r12, jt, jt[jl.idx]),
+            jnep.compute(jt, jl, jmask),
+            jnep.compute(jt, jl._replace(rev=None), jmask,
+                         per_atom_virial=False),
+            jnep.b_projection(jl.r12, jt, jt[jl.idx])))
+
+
 @pytest.mark.parametrize("name", list(MODELS) + ["artifacts"])
-def test_nep_list_path_matches(dense_pbte, name):
+def test_nep_list_path_matches(dense_pbte, artifacts_oracle, name):
     pos, types, jl, tl = dense_pbte
     jnep, nep = _nep_pair(name)
     n = len(pos)
     jt, tt = jnp.asarray(types, jnp.int32), torch.as_tensor(types)
     jmask, tmask = jnp.ones(n), torch.ones(n, dtype=torch.float64)
-    with jax_oracle_state():
-        jq, jd, jout, jtot = _jit(lambda: (
-            *jnep.raw_descriptors(jl.r12, jt, jt[jl.idx]),
-            jnep.compute(jt, jl, jmask),
-            # the scatter reduction, total virial
-            jnep.compute(jt, jl._replace(rev=None), jmask,
-                         per_atom_virial=False)))
+    if name == "artifacts":
+        jq, jd, jout, jtot, _ = artifacts_oracle
+    else:
+        with jax_oracle_state():
+            jq, jd, jout, jtot = _jit(lambda: (
+                *jnep.raw_descriptors(jl.r12, jt, jt[jl.idx]),
+                jnep.compute(jt, jl, jmask),
+                # the scatter reduction, total virial
+                jnep.compute(jt, jl._replace(rev=None), jmask,
+                             per_atom_virial=False)))
     tt2 = tt[tl.idx.long()]
     q, d = nep.raw_descriptors(tl.r12, tt, tt2)
     assert q.shape == (n, nep.model.dim - (nep.model.model_type == 3))
@@ -200,12 +221,11 @@ def test_nep_list_path_matches(dense_pbte, name):
                       - out.force).abs().max()) > 1e-3
 
 
-def test_b_projection_matches(dense_pbte):
+def test_b_projection_matches(dense_pbte, artifacts_oracle):
     pos, types, jl, tl = dense_pbte
-    jnep, nep = _nep_pair("artifacts")
-    jt, tt = jnp.asarray(types, jnp.int32), torch.as_tensor(types)
-    with jax_oracle_state():
-        want = _jit(lambda: jnep.b_projection(jl.r12, jt, jt[jl.idx]))
+    _, nep = _nep_pair("artifacts")
+    tt = torch.as_tensor(types)
+    want = artifacts_oracle[-1]
     got = nep.b_projection(tl.r12, tt, tt[tl.idx.long()])
     assert got.shape == (len(pos), nep.model.neurons * (nep.model.dim + 2))
     np.testing.assert_allclose(_np(got), np.asarray(want), **F_TOL)
@@ -425,6 +445,15 @@ def ff_pair():
     return jff, js, ff, ts
 
 
+@pytest.fixture(scope="module")
+def j_first_pass(ff_pair):
+    """The JAX force field's first pass on ff_pair's state, compiled once
+    for the tests that start from it."""
+    jff, js, _, _ = ff_pair
+    with jax_oracle_state():
+        return _jit(jff.compute, js)
+
+
 def _same_state(ts, js, traj=False):
     np.testing.assert_allclose(_np(ts.potential_energy),
                                np.asarray(js.potential_energy), **E_TOL)
@@ -439,12 +468,12 @@ def _same_state(ts, js, traj=False):
                                    rtol=0, atol=1e-9)
 
 
-def test_compute_cached_across_rebuild(ff_pair):
+def test_compute_cached_across_rebuild(ff_pair, j_first_pass):
     """A small move keeps the cache, a move past skin/2 rebuilds it: the
     states and the caches (shifts, reverse map) as the JAX package's."""
     jff, js, ff, ts = ff_pair
+    j0 = j_first_pass
     with jax_oracle_state():
-        j0 = _jit(jff.compute, js)
         jc = _jit(jff.refresh_cache, j0)
         cached = jax.jit(jff.compute_cached)
     t0 = ff.compute(ts)
@@ -511,7 +540,7 @@ def test_hnemdec_coefficients(mode):
 
 
 @pytest.mark.parametrize("ens", ["nve", "nvt_ber"])
-def test_nep_md_run_matches(ff_pair, ens):
+def test_nep_md_run_matches(ff_pair, j_first_pass, ens):
     """20 steps of 1 fs from the same state, velocities and thermo."""
     jff, js, ff, ts = ff_pair
     dt = 1.0 / TIME_UNIT_CONVERSION
@@ -519,7 +548,7 @@ def test_nep_md_run_matches(ff_pair, ens):
                   (JBer(t0=250.0, coupling=10.0),
                    NVTBerendsen(t0=250.0, coupling=10.0)))
     with jax_oracle_state():
-        jf, _, jth = jmd_run(_jit(jff.compute, js), jff, jens, dt, 20)
+        jf, _, jth = jmd_run(j_first_pass, jff, jens, dt, 20)
     tf, _, th = md_run(ff.compute(ts), ff, tens, dt, 20)
     _same_state(tf, jf, traj=True)
     np.testing.assert_allclose(_np(th.temperature),

@@ -26,6 +26,9 @@ from gpumd_tpu_torch.neighbor import neighbor as TN
 from torch_one_thread import one_torch_thread  # noqa: F401
 
 R12_ATOL = 1e-12
+# the JAX reverse map compiled once a shape for the module (op by op it
+# dispatches a few hundred small programs a call)
+J_REVERSE_MAP = jax.jit(JN.build_reverse_map)
 
 
 @contextlib.contextmanager
@@ -196,7 +199,7 @@ def test_reverse_map_matches(built):
         with jax_oracle_state():
             jnbr = JN.NeighborList(*(jnp.asarray(getattr(j, f)) for f in
                                      ("idx", "r12", "mask", "count")))
-            jrev = np.asarray(JN.build_reverse_map(jnbr, jnp.asarray(shift)))
+            jrev = np.asarray(J_REVERSE_MAP(jnbr, jnp.asarray(shift)))
         trev = TN.build_reverse_map(t, torch.as_tensor(shift))
         assert trev.dtype == torch.int32
         np.testing.assert_array_equal(_np(trev), jrev, err_msg=name)
