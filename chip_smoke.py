@@ -212,14 +212,65 @@ Last, the probes' path: the port's counterparts of the three probe scripts
              tree's (probes/ab_bgather.py) and runs the [host] block for
              DIR's package, on this tree's kernels
 
+Last, the app: run.in + model.xyz decks through the port's `gpumd`
+application (gpumd_tpu_torch/app/gpumd.py, Session(dir, device="cuda"),
+`engine auto`), each in a temporary work directory, its model.xyz
+written with velocities drawn by numpy:
+
+ 12. app      (a) BASELINE config 3 as a deck: PbTe 32,768 from the
+             lattice with the trained model, `ensemble npt_ber 300 300 100
+             0 40 1000`, dump_thermo 20, dump_restart 200, run 200: the
+             route is the compact engine, compact_rows/K1/K2/scatter/fold
+             launch every step, thermo.out has 10 finite rows of 18 and
+             the box changed; the same start driven directly (DenseNEPMD +
+             NPTBerendsen, chunks of 20) gives the same rows (1e-6) and
+             restart positions (4 float32 ulps of the box edge); (b)
+             config 4's path as a deck:
+             NVE, compute_hnemd 10 (1e-4, 0, 0), compute_shc with phase
+             3b's parameters, 100 steps: K2/scatter/fold at 12 channels
+             every step, kappa.out and shc.out well formed, J (kappa.out's
+             10-step sums) within 1e-3 of the direct run's; (c) nvt_lan
+             and nvt_bao at 300 K, coupling 100: a 20-step run with
+             dump_restart from the lattice (compact_rows), then 980 steps
+             from where it ended (a windows plan: compact_windows): the
+             kernels every step, the
+             mean T of the last 500 steps within 5% of 300 K, the 20-step
+             positions within 1e-3 A of the all-plain run with the same
+             generator seed; (d) Tersoff Si 32,768 under nvt_nhc, 200
+             steps: tersoff_scatter and the fold every step, the rows
+             against the direct CompactTersoffMD run (5e-6); (e) LJ argon
+             4,000 (config 1, MN from _auto_mn), NVE with add_force on the
+             half x < L/2: the route reason is the list path's, no
+             hand-written kernel launches, the total energy less the
+             force's work within list-md's gate, the total momentum equal
+             to the group's impulse (1e-3); (f) PbTe 262,144 NVE,
+             dump_thermo 100, run 500, in turns with the same run driven
+             directly (direct, app, direct): atom-step/s of each and the
+             app loop's overhead
+
+Not among the default phases (ask for it with --phases):
+
+ app-spread  (a)'s config 3 deck and (d)'s Tersoff deck, each run three
+             times through Session and three times driven directly (a new
+             engine each time), in turns: the largest thermo-row and
+             position differences between two app runs, two direct runs
+             and an app run and a direct run, at step 20 and step 200;
+             and one force pass repeated on one state, which shows what
+             varies from run to run (the bounds of (a) and (d) rest on
+             these readings)
+
 Usage: python3 chip_smoke.py [--phases build,kernels,md,npt-md,
        hnemd-md,drift,list-md,train,time,dense-kernels,dense-md,dense-time,
-       tersoff-kernels,tersoff-md,tersoff-time,probes] [--parent DIR]
+       tersoff-kernels,tersoff-md,tersoff-time,probes,app,app-spread]
+       [--parent DIR]
 Prints the kernels' JSON line, then, last, {"ok": true, "device": {...}}.
 A kernel's "launches" are those of the 200-step NVE run of its path;
 "launches_npt", "launches_hnemd" (PbTe), "launches_hnemd_tersoff" and
 "launches_drift" those of the new phases' runs, where the kernel is on
-them.  "max_abs_err_pav" is the largest error of a kernel's instances at
+them; "launches_app" those of the app phase's config-3 deck (compact
+rows, K1, K2, scatter, fold; compact_windows: the Langevin deck),
+"launches_app_hnemd" of its HNEMD deck and "launches_app_tersoff" of its
+Tersoff deck.  "max_abs_err_pav" is the largest error of a kernel's instances at
 12 channels (per-atom virials: K2, scatter, fold, the tersoff modes), and
 K2's, the scatter's and the fold's "ms_pav", "plain_ms_pav",
 "library_ms_pav", "bound_ms_pav" and "bound_by_pav" their step at 12
@@ -3154,12 +3205,622 @@ def phase_probes(results, parent=None):
     _host_block(results, parent)
 
 
+# ---- the gpumd app: run.in + model.xyz through app/gpumd.py's Session -----
+
+# A deck's thermo rows against the same start driven directly.  Both build
+# the same start and run the same step: at step 20 they agree to
+# thermo.out's printed digits; then the order of the shared-memory float
+# atomics (scatter.cu, tersoff.cu's fused mode), which varies from run to
+# run, parts them, and two app runs or two direct runs part as far
+# (app-spread).  T, KE, PE and the box within the bound of their column's
+# largest magnitude, the stress within the bound of the largest stress
+# component.  NEP: 1e-6, ~10x the largest reading (1.05e-7, stress);
+# Tersoff under NHC: 5e-6, ~4x the largest (1.29e-6, stress; the chain
+# feeds the kinetic energy back every half step).
+APP_ROW_TOL = 1e-6
+APP_ROW_TOL_TERSOFF = 5e-6
+# The restart's positions against the direct run's after 200 steps: the
+# same run-to-run parting, in float32 ulps of the box edge (7.6e-6 A at
+# 105.6 A).  NEP pairs (app-app, direct-direct, app-direct) part by 1-2
+# ulps, Tersoff pairs by 1-4 (app-spread), so 4 ulps, 3.1e-5 A at PbTe
+# 32,768: 1e-5 A would sit between 1 and 2 ulps.
+APP_POS_ULPS = 4
+# Langevin and BAOAB hold 300 K: the mean T of the last 500 steps within
+# 5% (32,768 atoms fluctuate by ~0.5%).
+APP_T_TOL = 0.05
+# LJ with a constant force on a group: the total momentum equals the
+# impulse n_g f (t - dt/2) (internal forces cancel; the first half kick
+# has no driver force) to 1e-3 of it.
+APP_P_TOL = 1e-3
+NEP_BASE = ("k1", "k2", "scatter", "fold")
+
+
+def _write_model(d, symbols, pos, mass, lengths, temperature, seed,
+                 groups=None):
+    """model.xyz with velocities at `temperature` (numpy, no net
+    momentum), through the port's extended-XYZ writer."""
+    from gpumd_tpu_torch.io.xyz import XYZFrame, write_xyz
+    from gpumd_tpu_torch.units import K_B, TIME_UNIT_CONVERSION
+
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=pos.shape) * np.sqrt(K_B * temperature / mass)[:, None]
+    v -= (mass[:, None] * v).sum(0) / mass.sum()
+    d.mkdir(parents=True, exist_ok=True)
+    write_xyz(str(d / "model.xyz"), XYZFrame(
+        symbols=list(symbols), positions=pos, lattice=np.diag(lengths),
+        pbc=(True, True, True), velocities=v / TIME_UNIT_CONVERSION,
+        groups=groups), with_velocities=True, with_groups=groups is not None)
+
+
+def _pbte_deck(d, nc, deck, jitter=0.0, seed=3):
+    """PbTe nc^3 cells (a0 6.57 A) at 300 K with the trained model."""
+    import shutil
+
+    from gpumd_tpu_torch.bench import build_pbte
+
+    pos, types, lengths = build_pbte(nc, nc, nc)
+    if jitter:
+        pos = pos + np.random.default_rng(seed).normal(0, jitter, pos.shape)
+    symbols = np.where(types == 1, "Pb", "Te")
+    _write_model(d, symbols, pos, np.where(types == 1, 207.2, 127.6),
+                 lengths, 300.0, seed)
+    shutil.copy(MODEL, d / "nep.txt")
+    (d / "run.in").write_text(deck)
+
+
+def _session(d, count=True):
+    """Session(d, device="cuda").execute() from launch counts of 0: the
+    session and the counts read just after."""
+    from gpumd_tpu_torch.app.gpumd import Session
+    from gpumd_tpu_torch.engine import cuda_build
+
+    s = Session(str(d), quiet=True, device="cuda")
+    if count:
+        cuda_build.reset_launches()
+    s.execute()
+    torch.cuda.synchronize()
+    return s, dict(cuda_build.launches)
+
+
+def _direct_start(d, names):
+    """The deck's start built directly: model.xyz, the box and the state
+    (types by the potential's species `names`) as a user of the library
+    would, f32 on the card."""
+    from gpumd_tpu_torch.io.xyz import read_xyz
+    from gpumd_tpu_torch.model.box import Box
+    from gpumd_tpu_torch.model.state import make_state
+    from gpumd_tpu_torch.units import TIME_UNIT_CONVERSION
+
+    fr = read_xyz(str(d / "model.xyz"))
+    box = Box.from_lattice(fr.lattice, dtype=torch.float32)
+    types = np.array([names.index(s) for s in fr.symbols])
+    state = make_state(fr.positions, fr.default_masses(), types, box,
+                       velocity=fr.velocities * TIME_UNIT_CONVERSION)
+    return state._replace(unwrapped_position=state.position.clone()), fr
+
+
+def _pos64(state):
+    """The positions as the app hands them to an engine's planner: a
+    float64 numpy array (a float32 one can bin a boundary atom into
+    another cell and give another plan)."""
+    return state.position.cpu().numpy().astype(np.float64)
+
+
+def _plan(md):
+    cp = md.cplan
+    return (f"grid {cp.base.grid} cap {cp.base.cap} bx {cp.bx} mn_r "
+            f"{cp.mn_r} cl {cp.cl}")
+
+
+def _direct_rows(md, state, ens, n_steps, chunk, observer=None):
+    """n_steps driven directly on md from state, chunk by chunk: thermo
+    rows at each chunk's end (app.gpumd.thermo_row), the final
+    input-order state and the observer's rows."""
+    from gpumd_tpu_torch.app.gpumd import thermo_row
+    from gpumd_tpu_torch.units import TIME_UNIT_CONVERSION
+
+    n = state.position.shape[0]
+    dt = 1.0 / TIME_UNIT_CONVERSION
+    rows, ys = [], []
+    with torch.no_grad():
+        carry = md.init_carry(state)
+        carry = carry._replace(state=md.compute(carry.state, carry.idx))
+        aux = ens.init(carry.state)
+        step = md.make_step(ens, dt, observer=observer)
+        for _ in range(n_steps // chunk):
+            for _ in range(chunk):
+                if observer is not None:
+                    carry, aux, _, y = step(carry, aux)
+                    ys.append(y)
+                else:
+                    carry, aux = step(carry, aux)
+            snap = md.to_input_order(carry, n)
+            rows.append(thermo_row(snap))
+    return (np.array(rows), snap,
+            torch.stack(ys).cpu().numpy() if ys else None)
+
+
+def _row_diff(got, want):
+    """Largest row difference over its scale, for T/KE/PE, the stress and
+    the box (see APP_ROW_TOL)."""
+    scale = np.maximum(np.abs(want).max(0), 1e-30)
+    scale[3:9] = np.abs(want[:, 3:9]).max()
+    rel = np.abs(got - want).max(0) / scale
+    return rel[:3].max(), rel[3:9].max(), rel[9:].max()
+
+
+def _rows_match(what, got, want, tol):
+    """thermo.out rows against the direct run's."""
+    if got.shape != want.shape:
+        raise RuntimeError(f"{what}: rows {got.shape} vs {want.shape}")
+    rel = _row_diff(got, want)
+    print(f"[app] {what}: thermo rows vs the direct run, max diff / scale "
+          f"(T KE PE, stress, box): {rel[0]:.3e}, {rel[1]:.3e}, "
+          f"{rel[2]:.3e} (bound {tol})")
+    if not max(rel) <= tol:
+        raise RuntimeError(f"{what}: the deck departs from the direct run")
+
+
+def _launch_check(what, counts, need, never=()):
+    low = {k: counts[k] for k, c in need.items() if counts[k] < c}
+    off = {k: counts[k] for k in never if counts[k]}
+    print(f"[app] {what}: launches "
+          f"{ {k: v for k, v in counts.items() if v} or 'none'}")
+    if low or off:
+        raise RuntimeError(f"{what}: launches below {need}: {low}; "
+                           f"off the path: {off}")
+
+
+def _thermo(d, n_rows):
+    rows = np.atleast_2d(np.loadtxt(d / "thermo.out", comments="#"))
+    if rows.shape != (n_rows, 18) or not np.isfinite(rows).all():
+        raise RuntimeError(f"{d.name}: thermo.out {rows.shape}, expected "
+                           f"{n_rows} finite rows of 18")
+    return rows
+
+
+def _restart_check(what, d, snap):
+    """restart.xyz against the direct run's final positions."""
+    from gpumd_tpu_torch.io.xyz import read_xyz
+
+    box = snap.box
+    pos = torch.as_tensor(read_xyz(str(d / "restart.xyz")).positions,
+                          dtype=torch.float32, device="cuda")
+    # restart.xyz holds wrapped positions: wrap the direct run's the same
+    # way (the f32 wrap alone moves a coordinate by an ulp)
+    dx = float(box.minimum_image(pos - box.wrap(snap.position)).abs().max())
+    edge = float(box.h.abs().max())
+    bound = APP_POS_ULPS * float(np.spacing(np.float32(edge)))
+    print(f"[app] {what}: restart.xyz vs the direct run: max |dx| = "
+          f"{dx:.3e} A (bound {bound:.3e} A, {APP_POS_ULPS} float32 ulps "
+          f"at {edge:.3f} A)")
+    if not dx <= bound:
+        raise RuntimeError(f"{what}: restart positions depart")
+
+
+CONFIG3_DECK = ("potential nep.txt\ntime_step 1\n"
+                "ensemble npt_ber 300 300 100 0 40 1000\ndump_thermo 20\n"
+                "dump_restart 200\nrun 200\n")
+
+
+def _config3_direct(d, n):
+    """(a)'s start driven directly, DenseNEPMD + NPTBerendsen in chunks of
+    20: the rows, the final input-order state and the engine."""
+    from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
+    from gpumd_tpu_torch.integrate.ensembles.npt import NPTBerendsen
+    from gpumd_tpu_torch.potentials.nep.model import NEP
+
+    nep = NEP.from_file(str(d / "nep.txt"), dtype=torch.float32)
+    state, _ = _direct_start(d, nep.model.symbols)
+    md = DenseNEPMD(nep, state.box, n, position=_pos64(state))
+    ens = NPTBerendsen(t0=300.0, t1=300.0, coupling=100.0, n_steps=200,
+                       target_pressure=(0.0,) * 3,
+                       elastic_modulus=(40.0,) * 3, tau_p=1000.0,
+                       isotropic=True)
+    rows, snap, _ = _direct_rows(md, state, ens, 200, 20)
+    return rows, snap, md
+
+
+def _tersoff_deck(d, pot_path):
+    """(d)'s deck: Si 32,768 (diamond, 16^3 cells) at 300 K, nvt_nhc."""
+    import shutil
+
+    from gpumd_tpu_torch.bench import build_diamond
+
+    pos, lengths = build_diamond(16)
+    _write_model(d, ["Si"] * len(pos), pos, np.full(len(pos), 28.085),
+                 lengths, 300.0, 3)
+    shutil.copy(pot_path, d / "si.txt")
+    (d / "run.in").write_text("potential si.txt\ntime_step 1\n"
+                              "ensemble nvt_nhc 300 300 100\n"
+                              "dump_thermo 20\nrun 200\n")
+
+
+def _tersoff_direct(d, n):
+    """(d)'s start driven directly, CompactTersoffMD + NVTNoseHooverChain
+    in chunks of 20: as _config3_direct."""
+    from gpumd_tpu_torch.engine.tersoff_compact import CompactTersoffMD
+    from gpumd_tpu_torch.integrate.ensembles.nvt import NVTNoseHooverChain
+    from gpumd_tpu_torch.potentials.tersoff import Tersoff1989
+
+    pot = Tersoff1989.from_file(str(d / "si.txt"), dtype=torch.float32)
+    state, _ = _direct_start(d, ["Si"])
+    md = CompactTersoffMD(pot, state.box, n, position=_pos64(state))
+    ens = NVTNoseHooverChain(t0=300.0, t1=300.0, coupling=100.0,
+                             n_steps=200)
+    rows, snap, _ = _direct_rows(md, state, ens, 200, 20)
+    return rows, snap, md
+
+
+def _app_config3(tmp, results):
+    """(a) BASELINE config 3 as a deck: PbTe 32,768, npt_ber, 200 steps."""
+    d = tmp / "config3"
+    _pbte_deck(d, 16, CONFIG3_DECK)
+    t0 = time.time()
+    s, counts = _session(d)
+    n = s._n
+    print(f"[app] (a) config 3 deck: PbTe {n}, npt_ber, 200 steps in "
+          f"{time.time() - t0:.1f} s (run {s.run_seconds[0]:.2f} s); "
+          f"route: {s.route_reason or 'compact engine'}; "
+          f"{type(s.md).__name__} per_atom_virial={s.md.per_atom_virial}")
+    if s.route_reason is not None:
+        raise RuntimeError("config 3 deck: not on the compact engine")
+    _launch_check("(a) config 3 deck", counts,
+                  {**{k: 200 for k in NEP_BASE}, "compact_rows": 400})
+    for k in NEP_BASE + ("compact_rows",):
+        results.setdefault(k, {})["launches_app"] = counts[k]
+    rows = _thermo(d, 10)
+    change = abs(rows[-1, 9] - rows[0, 9]) / rows[0, 9]
+    print(f"[app] (a) box a_x {rows[0, 9]:.6f} -> {rows[-1, 9]:.6f} A "
+          f"(relative {change:.3e}); T at the last row "
+          f"{rows[-1, 0]:.2f} K")
+    if not change > 1e-6:
+        raise RuntimeError("config 3 deck: the box did not change")
+    want, snap, _ = _config3_direct(d, n)
+    _rows_match("(a) config 3 deck", rows, want, APP_ROW_TOL)
+    _restart_check("(a) config 3 deck", d, snap)
+
+
+def _app_hnemd(tmp, results):
+    """(b) config 4's path as a deck: NVE, compute_hnemd, compute_shc."""
+    import types as pytypes
+
+    from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
+    from gpumd_tpu_torch.integrate.ensembles.nve import NVE
+    from gpumd_tpu_torch.measure.properties import HNEMDKappa, heat_current_5
+    from gpumd_tpu_torch.potentials.nep.model import NEP
+    from gpumd_tpu_torch.units import TIME_UNIT_CONVERSION
+
+    d = tmp / "hnemd"
+    _pbte_deck(d, 16, "potential nep.txt\ntime_step 1\nensemble nve\n"
+               "compute_hnemd 10 1e-4 0 0\ncompute_shc 2 10 0 20 40\n"
+               "run 100\n")
+    s, counts = _session(d)
+    n = s._n
+    print(f"[app] (b) HNEMD deck: route {s.route_reason or 'compact engine'}"
+          f"; per_atom_virial={s.md.per_atom_virial} (12 channels)")
+    if s.route_reason is not None or not s.md.per_atom_virial:
+        raise RuntimeError("HNEMD deck: not on the compact engine at 12 "
+                           "channels")
+    _launch_check("(b) HNEMD deck", counts,
+                  {**{k: 100 for k in NEP_BASE}, "compact_rows": 200})
+    for k in NEP_BASE + ("compact_rows",):
+        results.setdefault(k, {})["launches_app_hnemd"] = counts[k]
+    kappa = np.atleast_2d(np.loadtxt(d / "kappa.out"))
+    shc = np.loadtxt(d / "shc.out", comments="#")
+    print(f"[app] (b) kappa.out {kappa.shape}, shc.out {shc.shape}; the last "
+          f"kappa row {kappa[-1].tolist()}")
+    if kappa.shape != (10, 5) or shc.shape != (2 * 10 - 1 + 20, 3) or not (
+            np.isfinite(kappa).all() and np.isfinite(shc).all()):
+        raise RuntimeError("HNEMD deck: kappa.out or shc.out malformed")
+    nep = NEP.from_file(str(d / "nep.txt"), dtype=torch.float32)
+    state, _ = _direct_start(d, nep.model.symbols)
+    md = DenseNEPMD(nep, state.box, n, position=_pos64(state),
+                    per_atom_virial=True)
+    md.hnemd_fe = (1e-4, 0.0, 0.0)
+    _, snap, ys = _direct_rows(md, state, NVE(), 100, 100,
+                               observer=heat_current_5)
+    ref = HNEMDKappa(10, (1e-4, 0.0, 0.0), 1.0 / TIME_UNIT_CONVERSION, 300.0)
+    (d / "direct").mkdir()
+    sess = pytypes.SimpleNamespace(workdir=str(d / "direct"), state=snap)
+    for k in range(0, 100, 10):  # the app's chunks of 10 steps
+        ref.consume_heat(ys[k:k + 10], k)
+        ref.maybe_output(sess)
+    want = np.loadtxt(d / "direct" / "kappa.out")
+    rel = float(np.abs(kappa - want).max() / np.abs(want).max())
+    print(f"[app] (b) kappa.out (J summed over 10 steps) vs the direct run: "
+          f"max diff / max = {rel:.3e} (bound {J_TOL})")
+    if not rel <= J_TOL:
+        raise RuntimeError("HNEMD deck: J departs from the direct run")
+
+
+def _app_langevin(tmp, results):
+    """(c) nvt_lan and nvt_bao on PbTe 32,768, 1,000 steps at 300 K."""
+    from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
+    from gpumd_tpu_torch.integrate.ensembles.nvt import NVTBAOAB, NVTLangevin
+    from gpumd_tpu_torch.potentials.nep.model import NEP
+    from gpumd_tpu_torch.units import TIME_UNIT_CONVERSION
+
+    dt = 1.0 / TIME_UNIT_CONVERSION
+    # each run block plans its engine on the positions it starts from: the
+    # lattice (compact_rows) for the first, thermalized positions (a
+    # windows plan, compact_windows) for the second
+    for name, cls in (("nvt_lan", NVTLangevin), ("nvt_bao", NVTBAOAB)):
+        d = tmp / name
+        _pbte_deck(d, 16, f"potential nep.txt\ntime_step 1\n"
+                   f"ensemble {name} 300 300 100\ndump_restart 20\n"
+                   f"run 20\ndump_thermo 10\nrun 980\n")
+        t0 = time.time()
+        s, counts = _session(d)
+        n = s._n
+        rows = _thermo(d, 98)
+        t_mean = float(rows[-50:, 0].mean())
+        print(f"[app] (c) {name}: PbTe {n}, 1,000 steps in "
+              f"{time.time() - t0:.1f} s; route "
+              f"{s.route_reason or 'compact engine'}; mean T of the last "
+              f"500 steps {t_mean:.2f} K (bound 300 +- {APP_T_TOL:.0%})")
+        if s.route_reason is not None:
+            raise RuntimeError(f"{name} deck: not on the compact engine")
+        _launch_check(f"(c) {name}", counts,
+                      {**{k: 1000 for k in NEP_BASE}, "compact_rows": 40,
+                       "compact_windows": 1960})
+        results.setdefault("compact_windows", {}).setdefault(
+            "launches_app", counts["compact_windows"])
+        if not abs(t_mean - 300.0) <= APP_T_TOL * 300.0:
+            raise RuntimeError(f"{name}: the thermostat misses 300 K")
+        # 20 steps of the all-plain run with the same generator seed
+        nep = NEP.from_file(str(d / "nep.txt"), dtype=torch.float32)
+        state, _ = _direct_start(d, nep.model.symbols)
+        md = DenseNEPMD(nep, state.box, n,
+                        position=_pos64(state), plain=True)
+        from gpumd_tpu_torch.engine import cuda_build
+
+        cuda_build.reset_launches()
+        with torch.no_grad():
+            carry, _ = md.run(state, cls(t0=300.0, t1=300.0, coupling=100.0,
+                                         n_steps=20), dt, 20)
+        if any(cuda_build.launches.values()):
+            raise RuntimeError("the plain reference run launched kernels")
+        from gpumd_tpu_torch.io.xyz import read_xyz
+
+        pos = torch.as_tensor(read_xyz(str(d / "restart.xyz")).positions,
+                              dtype=torch.float32, device="cuda")
+        _pos_check(f"(c) {name} deck vs the all-plain run (seed 12345)",
+                   state.box, pos, md.to_input_order(carry, n).position)
+
+
+def _app_tersoff(tmp, results, pot_path):
+    """(d) Tersoff Si 32,768 under nvt_nhc, 200 steps."""
+    d = tmp / "tersoff"
+    _tersoff_deck(d, pot_path)
+    s, counts = _session(d)
+    n = s._n
+    print(f"[app] (d) Tersoff deck: Si {n}, nvt_nhc, route "
+          f"{s.route_reason or 'compact engine'} "
+          f"({type(s.md).__name__})")
+    if s.route_reason is not None:
+        raise RuntimeError("Tersoff deck: not on the compact engine")
+    _launch_check("(d) Tersoff deck", counts,
+                  {"tersoff_scatter": 200, "fold": 200},
+                  never=("tersoff", "scatter", "k1", "k2"))
+    for k in ("tersoff_scatter", "fold"):
+        results.setdefault(k, {})["launches_app_tersoff"] = counts[k]
+    rows = _thermo(d, 10)
+    want, _, _ = _tersoff_direct(d, n)
+    _rows_match("(d) Tersoff deck", rows, want, APP_ROW_TOL_TERSOFF)
+
+
+def _app_lj(tmp):
+    """(e) LJ argon 4,000 (config 1) under NVE with add_force on a group."""
+    import shutil
+
+    from gpumd_tpu_torch.app.gpumd import _auto_mn
+    from gpumd_tpu_torch.forcefield import ForceField
+    from gpumd_tpu_torch.potentials.lj import LJ
+    from gpumd_tpu_torch.units import TIME_UNIT_CONVERSION
+
+    nc, a0, mass = 10, 5.26, 39.948
+    base = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5]])
+    cells = np.stack(np.meshgrid(*[np.arange(nc)] * 3, indexing="ij"),
+                     axis=-1).reshape(-1, 3)
+    pos = (cells[:, None, :] + base[None]).reshape(-1, 3) * a0
+    n, f, steps, dt_fs = len(pos), 1e-3, 200, 2.0
+    grp = (pos[:, :1] < nc * a0 / 2).astype(int)  # group 1: x < L/2
+    d = tmp / "lj"
+    _write_model(d, ["Ar"] * n, pos, np.full(n, mass), [nc * a0] * 3, 80.0,
+                 42, groups=grp)
+    shutil.copy(LJ_FILE, d / "lj.txt")
+    (d / "run.in").write_text(f"potential lj.txt\ntime_step {dt_fs}\n"
+                              f"ensemble nve\nadd_force 0 1 {f} 0 0\n"
+                              f"dump_thermo 20\nrun {steps}\n")
+    s, counts = _session(d)
+    print(f"[app] (e) LJ argon {n}: MN {s.ff.neighbor.mn} (_auto_mn "
+          f"{_auto_mn(s.potentials, n, s.box)}), {s.ff.neighbor.method}; "
+          f"engine auto: list path ({s.route_reason})")
+    if s.route_reason is None or s.md is not None:
+        raise RuntimeError("LJ deck: not on the list path")
+    _launch_check("(e) LJ deck", counts, {}, never=tuple(counts))
+    _thermo(d, steps // 20)
+    lj = LJ.from_file(str(d / "lj.txt"), dtype=torch.float32)
+    state0, _ = _direct_start(d, ["Ar"])
+    ff = ForceField.create([lj], state0.box, n, mn=s.ff.neighbor.mn,
+                           skin=1.0)
+    with torch.no_grad():
+        e0 = total_energy(ff.compute(state0))
+    st = s.state
+    sel = torch.as_tensor(grp[:, 0] == 1, device="cuda")
+    work = f * float((st.unwrapped_position[:n, 0]
+                      - state0.position[:, 0])[sel].sum()) / n
+    e1 = total_energy(st)
+    bound = LJ_GATE * dt_fs ** 2
+    print(f"[app] (e) total energy per atom {e0:.8f} -> {e1:.8f} eV, work "
+          f"of add_force {work:.8f} eV/atom; change less work "
+          f"{e1 - e0 - work:+.3e} (bound {bound:.3e})")
+    if not abs(e1 - e0 - work) <= bound:
+        raise RuntimeError("LJ deck: energy less work not conserved")
+    p = torch.sum(st.mass[:n, None] * st.velocity[:n], dim=0).tolist()
+    # the run's first half kick uses the force of the start, which has no
+    # driver in it (the drivers act after each step's force pass)
+    impulse = (int(grp.sum()) * f * (steps - 0.5) * dt_fs
+               / TIME_UNIT_CONVERSION)
+    rel = max(abs(p[0] - impulse), abs(p[1]), abs(p[2])) / impulse
+    print(f"[app] (e) total momentum {p} against the group's impulse "
+          f"({impulse:.6f}, 0, 0): max diff / impulse {rel:.3e} (bound "
+          f"{APP_P_TOL})")
+    if not rel <= APP_P_TOL:
+        raise RuntimeError("LJ deck: momentum does not grow as F t")
+
+
+def _app_time(tmp):
+    """(f) PbTe 262,144 NVE, dump_thermo 100, run 500: the app's run block
+    and the same run driven directly, in turns (direct, app, direct)."""
+    from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
+    from gpumd_tpu_torch.integrate.ensembles.nve import NVE
+    from gpumd_tpu_torch.potentials.nep.model import NEP
+    from gpumd_tpu_torch.units import TIME_UNIT_CONVERSION
+
+    d = tmp / "time"
+    steps = 500
+    _pbte_deck(d, 32, "potential nep.txt\ntime_step 1\nensemble nve\n"
+               f"dump_thermo 100\nrun {steps}\n")
+    nep = NEP.from_file(str(d / "nep.txt"), dtype=torch.float32)
+    state, _ = _direct_start(d, nep.model.symbols)
+    n = state.position.shape[0]
+    # timed as the app times a run block: from the first rebin (the engine
+    # built before the clock starts) to the run's last read
+    md = DenseNEPMD(nep, state.box, n, position=_pos64(state))
+
+    def direct():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with torch.no_grad():
+            carry, _ = md.run(state, NVE(), 1.0 / TIME_UNIT_CONVERSION,
+                              steps)
+        bool(carry.overflow)
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    first = direct()
+    s, _ = _session(d, count=False)
+    walls = {"direct": [first, direct()], "app": s.run_seconds}
+    a, b = min(walls["app"]), min(walls["direct"])
+    print(f"[app] (f) plans: app {_plan(s.md)}; direct {_plan(md)}")
+    print(f"[app] (f) PbTe {n} NVE, {steps} steps a block, dump_thermo 100, "
+          f"in turns (direct, app, direct): app "
+          f"{[f'{w:.4f}' for w in walls['app']]} s, direct "
+          f"{[f'{w:.4f}' for w in walls['direct']]} s; best "
+          f"{n * steps / a:.6e} vs {n * steps / b:.6e} atom-step/s; the app "
+          f"loop's overhead {100.0 * (a - b) / b:+.2f}% "
+          f"({1e3 * (a - b) / (steps // 100):+.2f} ms a chunk of 100 steps)")
+
+
+def phase_app(results, pot_path):
+    """The gpumd app: run.in + model.xyz decks through Session on the card,
+    engine auto (phases (a)-(f) of the module docstring)."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for label, fn in (("a", lambda: _app_config3(tmp, results)),
+                          ("b", lambda: _app_hnemd(tmp, results)),
+                          ("c", lambda: _app_langevin(tmp, results)),
+                          ("d", lambda: _app_tersoff(tmp, results, pot_path)),
+                          ("e", lambda: _app_lj(tmp)),
+                          ("f", lambda: _app_time(tmp))):
+            t1 = time.time()
+            fn()
+            print(f"[app] ({label}) done in {time.time() - t1:.1f} s")
+    print(f"[app] phase done in {time.time() - t0:.1f} s")
+
+
+def _force_repeats(md, state, k=5):
+    """One force pass on one state repeated k times: the largest
+    difference of the forces, per-atom energies and virials from the
+    first pass's, over each one's largest magnitude (0: bit for bit).  A
+    lattice start has net forces near 0 against pair terms of eV/A, so
+    the state is a run's last, thermalized."""
+    with torch.no_grad():
+        carry = md.init_carry(state)
+        outs = [md.compute(carry.state, carry.idx) for _ in range(k)]
+    diff = {}
+    for f in ("force", "potential_energy", "virial"):
+        a = [getattr(o, f) for o in outs]
+        scale = float(a[0].abs().max())
+        diff[f] = max(float((b - a[0]).abs().max()) for b in a[1:]) / scale
+    return diff
+
+
+def _spread_pairs(runs, i, j):
+    """Rows and final positions of run i against run j: the max diff /
+    scale (T KE PE, stress, box) at step 20 and over all rows, and the
+    largest |dx| at the end."""
+    (ra, sa), (rb, sb) = runs[i], runs[j]
+    dx = float(sa.box.minimum_image(sa.position - sb.position).abs().max())
+    return _row_diff(ra[:1], rb[:1]), _row_diff(ra, rb), dx
+
+
+def phase_app_spread(results, pot_path, repeats=3):
+    """The app against the direct run, each repeated (app-spread in the
+    module docstring): what separates the app's rows and positions from
+    the direct run's, beside what separates two app runs and two direct
+    runs."""
+    import itertools
+
+    from gpumd_tpu_torch.engine import cuda_build
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, make, direct in (
+                ("config 3 deck", lambda d: _pbte_deck(d, 16, CONFIG3_DECK),
+                 _config3_direct),
+                ("Tersoff deck", lambda d: _tersoff_deck(d, pot_path),
+                 _tersoff_direct)):
+            app, drv = [], []
+            for r in range(repeats):  # in turns: app, direct, app, ...
+                d = tmp / f"{name.split()[0]}{r}"
+                make(d)
+                s, _ = _session(d, count=False)
+                app.append((_thermo(d, 10), s.state))
+                rows, snap, md = direct(d, s._n)
+                drv.append((rows, snap))
+            # the force pass on the last direct run's final state
+            cuda_build.reset_launches()
+            rep = _force_repeats(md, snap)
+            launched = {k: v for k, v in cuda_build.launches.items() if v}
+            print(f"[spread] {name}: one force pass repeated 5 times on the "
+                  f"state of step 200 (launches {launched}): max diff "
+                  f"/ max |value| from the first pass: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in rep.items()))
+            both = app + drv
+            k = len(app)
+            for kind, pairs in (
+                    ("app-app", itertools.combinations(range(k), 2)),
+                    ("direct-direct",
+                     itertools.combinations(range(k, 2 * k), 2)),
+                    ("app-direct",
+                     itertools.product(range(k), range(k, 2 * k)))):
+                got = [_spread_pairs(both, i, j) for i, j in pairs]
+                first = np.max([g[0] for g in got], axis=0)
+                last = np.max([g[1] for g in got], axis=0)
+                dxs = [g[2] for g in got]
+                same = sum(1 for g in got
+                           if not (max(g[1]) or g[2]))
+                print(f"[spread] {name}, {kind} ({len(got)} pairs, "
+                      f"{same} the same to the bit): max diff / scale (T KE "
+                      f"PE, stress, box) at step 20 {first[0]:.3e}, "
+                      f"{first[1]:.3e}, {first[2]:.3e}; over 200 steps "
+                      f"{last[0]:.3e}, {last[1]:.3e}, {last[2]:.3e}; max "
+                      f"|dx| at step 200 "
+                      f"{[float(f'{x:.3e}') for x in dxs]} A")
+    print(f"[app-spread] phase done in {time.time() - t0:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,md,npt-md,hnemd-md,"
                     "drift,list-md,train,time,dense-kernels,dense-md,"
                     "dense-time,"
-                    "tersoff-kernels,tersoff-md,tersoff-time,probes")
+                    "tersoff-kernels,tersoff-md,tersoff-time,probes,app")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: the probes "
                     "phase then times its blocked gather and its wrappers' "
@@ -3192,7 +3853,9 @@ def main():
                  lambda r: phase_tersoff_kernels(r, pot_path)),
                 ("tersoff-md", lambda r: phase_tersoff_md(r, pot_path)),
                 ("tersoff-time", lambda r: phase_tersoff_time(r, pot_path)),
-                ("probes", lambda r: phase_probes(r, args.parent))):
+                ("probes", lambda r: phase_probes(r, args.parent)),
+                ("app", lambda r: phase_app(r, pot_path)),
+                ("app-spread", lambda r: phase_app_spread(r, pot_path))):
             if name in phases:
                 fn(results)
                 print(f"[{name}] done at {time.time() - t0:.1f} s")

@@ -1,0 +1,1113 @@
+"""The `gpumd` application: execute run.in against model.xyz.
+
+    python -m gpumd_tpu_torch.app.gpumd [workdir] [--device cpu]
+
+Counterpart of gpumd_tpu/app/gpumd.py.  Keyword-stream execution as in the
+reference (ref: src/main_gpumd/run.cu:343-575): state keywords apply at
+once, property keywords register observers, `run N` performs a run block.
+The handlers keep the JAX module's names (`kw_<keyword>`).
+
+`engine auto` (the default) sends a run that the compact engine takes
+(one NEP or Tersoff-1989 potential, an ensemble of DENSE_ENSEMBLES, no
+fix/move group, no driver, a box of >= 3 cells of rc + skin an axis) to
+DenseNEPMD or CompactTersoffMD, whose steps launch the hand-written CUDA
+kernels on the card; anything else runs the general (list) path,
+ForceField + integrate/run.py, and the log says why
+(`dense_route_reason`).  On the CPU `engine auto` always takes the list
+path; `engine dense` forces the compact engine (its kernels' plain
+versions on the CPU), `engine list` the list path.
+
+The run loop goes in chunks whose length is the gcd of the observers'
+intervals, at most MAX_CHUNK steps: the host reads the state (overflow,
+a finite-energy check, the input-order snapshot) and writes the .out
+files once a chunk, never once a step.
+
+Keywords whose modules are not ported raise NotImplementedError naming
+the ROADMAP item that ports them; an unknown keyword raises ValueError.
+The session runs on the card unless the caller asks for the CPU
+(`device="cpu"`), and raises without a card.  Randomness comes from
+torch generators seeded from the keyword's seed; the stochastic ensembles
+and drivers take an injected `draw` for tests.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import math
+import os
+import sys
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from gpumd_tpu_torch.bench import prepare_device
+from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
+from gpumd_tpu_torch.engine.nep_compact import CompactSpec, plan_grid_compact
+from gpumd_tpu_torch.engine.tersoff_compact import CompactTersoffMD
+from gpumd_tpu_torch.forcefield import ForceField
+from gpumd_tpu_torch.integrate.drivers import (
+    AddEfield,
+    AddForce,
+    AddRandomForce,
+    AddSpring,
+    ElectronStop,
+    parse_table_or_values,
+)
+from gpumd_tpu_torch.integrate.ensembles.npt import NPTSCR, NPTBerendsen
+from gpumd_tpu_torch.integrate.ensembles.nve import NVE
+from gpumd_tpu_torch.integrate.ensembles.nvt import (
+    NVTBAOAB,
+    NVTBDP,
+    NVTBerendsen,
+    NVTLangevin,
+    NVTNoseHooverChain,
+)
+from gpumd_tpu_torch.integrate.run import MDRunner
+from gpumd_tpu_torch.integrate.thermo import compute_thermo
+from gpumd_tpu_torch.integrate.velocity import (
+    correct_velocity,
+    initialize_velocity,
+)
+from gpumd_tpu_torch.io.xyz import XYZFrame, read_xyz, write_xyz
+from gpumd_tpu_torch.measure.properties import (
+    HAC,
+    SHC,
+    HNEMDKappa,
+    heat_current_5,
+)
+from gpumd_tpu_torch.model.box import Box
+from gpumd_tpu_torch.model.groups import Groups
+from gpumd_tpu_torch.model.state import MDState, make_state
+from gpumd_tpu_torch.potentials.lj import LJ
+from gpumd_tpu_torch.potentials.nep.model import NEP
+from gpumd_tpu_torch.potentials.tersoff import Tersoff1989
+from gpumd_tpu_torch.units import PRESSURE_UNIT_CONVERSION, TIME_UNIT_CONVERSION
+
+# the session's floating-point type: the kernels take float32, and the JAX
+# package runs float32 on the TPU
+DTYPE = torch.float32
+
+# At most this many steps between two host reads of the state.
+MAX_CHUNK = 1000
+
+# ensembles the compact engine integrates: constant-box thermostats and the
+# Berendsen/SCR barostats (the rebuild criterion is barostat-safe)
+DENSE_ENSEMBLES = (
+    "NVE", "NVTBerendsen", "NVTLangevin", "NVTBDP", "NVTBAOAB",
+    "NVTNoseHooverChain", "NPTBerendsen", "NPTSCR",
+)
+
+# run.in keywords of the JAX app whose modules are not ported yet, and the
+# ROADMAP queue 1 item that ports each
+UNPORTED = {
+    # item 6: the rest of the app surface
+    **{kw: 6 for kw in (
+        "compute", "compute_chunk", "compute_cohesive", "compute_elastic",
+        "change_box", "deposit", "deform", "dump_observer", "active",
+        "compute_extrapolation", "compute_dpdt", "compute_es", "dump_cg",
+        "dump_shock_nemd", "dump_beads", "dump_dipole",
+        "dump_polarizability", "kspace", "plumed", "dump_netcdf")},
+    # item 8: measure
+    **{kw: 8 for kw in (
+        "compute_msd", "compute_sdc", "compute_dos", "compute_viscosity",
+        "compute_rdf", "compute_angular_rdf", "compute_adf",
+        "compute_orientorder", "compute_hnema", "compute_gkma",
+        "compute_hnemdec", "compute_lsqt", "compute_ic")},
+    # item 9: potentials
+    "dftd3": 9,
+    # item 10: MC, minimize, phonon
+    **{kw: 10 for kw in ("minimize", "mc", "compute_phonon")},
+}
+
+# potential file headers not ported yet: all ROADMAP queue 1, item 9
+_UNPORTED_POTENTIALS = (
+    "tersoff_1988", "tersoff_mini", "eam_zhou_2004", "adp", "eam/alloy",
+    "eam_dai_2006", "dp", "tersoff_ilp", "nep_ilp", "sw_ilp", "sw_1985",
+    "fcp",
+)
+
+# ensembles not ported yet: ROADMAP queue 1, item 7
+_UNPORTED_ENSEMBLES = (
+    "nvt_qtb", "npt_qtb", "pimd", "rpmd", "trpmd", "heat_lan", "heat_nhc",
+    "heat_bdp", "heat_hybrid", "nvt_mttk", "npt_mttk", "nph_mttk",
+    "ti_spring", "ti", "ti_liquid", "ti_rs", "ti_as", "nphug", "ttm",
+    "heat_ttm", "wall_piston", "wall_mirror", "wall_harmonic", "msst",
+)
+
+
+def _not_ported(what: str, item: int):
+    return NotImplementedError(
+        f"{what} is not ported to gpumd_tpu_torch yet (ROADMAP queue 1, "
+        f"item {item})")
+
+
+def _np(t) -> np.ndarray:
+    """A tensor (on any device) as a float64 numpy array."""
+    return t.detach().cpu().numpy().astype(np.float64)
+
+
+def parse_run_in(path: str) -> List[List[str]]:
+    """Tokenize run.in: whitespace tokens, '#' comments (ref: read_file.cu).
+    Returns a list of keyword lines."""
+    lines = []
+    with open(path) as f:
+        for raw in f:
+            body = raw.split("#", 1)[0].strip()
+            if not body:
+                continue
+            toks = body.split()
+            if len(toks) > 32:
+                raise ValueError(f"run.in line has > 32 tokens: {body!r}")
+            lines.append(toks)
+    return lines
+
+
+@dataclass
+class PropertyRequest:
+    interval: int
+    process: Callable  # (session, state, global_step) -> None
+    finalize: Optional[Callable] = None
+
+
+def _bounded_chunk(interval_gcd: int, n_steps: int) -> int:
+    """Chunk length: the observer-interval gcd, bounded by MAX_CHUNK.  When
+    the gcd exceeds the cap, its largest divisor under the cap, so chunk
+    boundaries still land exactly on every observer interval."""
+    chunk = max(1, min(interval_gcd, n_steps))
+    if chunk <= MAX_CHUNK:
+        return chunk
+    best = 1
+    for d in range(1, int(math.isqrt(chunk)) + 1):
+        if chunk % d == 0:
+            if d <= MAX_CHUNK:
+                best = max(best, d)
+            q = chunk // d
+            if q <= MAX_CHUNK:
+                best = max(best, q)
+    return best
+
+
+def thermo_row(state: MDState) -> List[float]:
+    """A thermo.out row: T KE PE, the stress sxx syy szz syz sxz sxy (GPa)
+    and the lattice vectors a, b, c (columns of h); one read from the
+    device."""
+    th = compute_thermo(state)
+    vals = torch.cat([torch.stack([th.temperature, th.kinetic_energy,
+                                   th.potential_energy]),
+                      th.pressure.reshape(-1), state.box.h.reshape(-1)])
+    v = vals.to(torch.float64).cpu().numpy()
+    p = v[3:12].reshape(3, 3) * PRESSURE_UNIT_CONVERSION
+    h = v[12:21].reshape(3, 3)
+    return [v[0], v[1], v[2],
+            p[0, 0], p[1, 1], p[2, 2], p[1, 2], p[0, 2], p[0, 1],
+            h[0, 0], h[1, 0], h[2, 0], h[0, 1], h[1, 1], h[2, 1],
+            h[0, 2], h[1, 2], h[2, 2]]
+
+
+def _dense_blocker(session) -> Optional[str]:
+    """What keeps a run off the compact engine whatever the device: the
+    engine does not carry these into its slot order."""
+    if getattr(session, "move_pin", None) is not None:
+        return "move groups"
+    if session.mobile_mask is not None:
+        # the engine's state is permuted into padded slots and nothing
+        # permutes `mobile` with it (ROADMAP queue 3, item 10)
+        return "fix groups"
+    if session.drivers:
+        return "add_force/add_efield/add_random_force/electron_stop/" \
+               "add_spring drivers"
+    return None
+
+
+def dense_route_reason(session, ens, device) -> Optional[str]:
+    """None when `engine auto` on `device` runs this block on the compact
+    engine, else why it takes the list path.  Asks nothing of the card: a
+    test on the CPU can ask what the card would do.
+
+    The reference has one hot path, every deck on the production kernels
+    (ref: src/force/force.cu:514-565); on the card `engine auto` does the
+    same.  On the CPU the kernels' plain versions run slower than the list
+    path, so auto takes the list path there."""
+    if torch.device(device).type != "cuda":
+        return ("CPU device (the kernels' plain versions run slower than "
+                "the list path there)")
+    pot = session.potentials[0]
+    if isinstance(pot, NEP):
+        try:
+            CompactSpec.from_model(pot.model, pot.params)
+        except NotImplementedError as e:
+            return f"model not compact-eligible ({e})"
+    elif not isinstance(pot, Tersoff1989):
+        return f"potential {type(pot).__name__} has no compact engine"
+    if type(ens).__name__ not in DENSE_ENSEMBLES:
+        return f"ensemble {type(ens).__name__} runs on the list path"
+    blocker = _dense_blocker(session)
+    if blocker is not None:
+        return blocker
+    rc = pot.model.rc_radial_max if isinstance(pot, NEP) else pot.rc
+    n = session._n
+    plan = plan_grid_compact(session.state.box, rc, 1.0, n,
+                             position=_np(session.state.position)[:n])
+    if plan is None:
+        return "box too thin for the cell grid (< 3 cells per axis)"
+    return None
+
+
+class Session:
+    """One gpumd run: model.xyz + run.in in a working directory, on
+    `device` (the card unless the CPU is asked for)."""
+
+    def __init__(self, workdir: str = ".", quiet: bool = False,
+                 device="cuda"):
+        self.device = torch.device(device)
+        prepare_device(self.device)
+        self.workdir = workdir
+        self.quiet = quiet
+        if self.device.type == "cuda":
+            # device banner (ref: the reference's GPU-info print at startup)
+            self.log(f"gpumd_tpu_torch on cuda: "
+                     f"{torch.cuda.device_count()} device(s) "
+                     f"[{torch.cuda.get_device_name()}]")
+        else:
+            self.log("gpumd_tpu_torch on cpu")
+        frame = read_xyz(os.path.join(workdir, "model.xyz"))
+        self.frame = frame
+        self.box = self._box(frame)
+        self.symbols: List[str] = frame.symbols
+        self.type_names: List[str] = []
+        self.potentials: list = []
+        self.ff: Optional[ForceField] = None
+        self.state: Optional[MDState] = None
+        self.dt = 1.0 / TIME_UNIT_CONVERSION  # natural units (default 1 fs)
+        self.ensemble = None
+        self.drivers = []
+        self.groups = Groups(frame.groups, frame.n_atoms)
+        self.mobile_mask = None  # set by `fix`
+        self.move_pin = None  # set by `move`
+        self.properties: List[PropertyRequest] = []
+        self.measure_props: list = []
+        self.global_step = 0
+        self.engine_mode = "auto"
+        self.route_reason: Optional[str] = None  # the last run's, or None
+        self.md = None  # the last compact run's engine (None: list path)
+        self.run_seconds: List[float] = []  # each run block's wall time
+        self._n = frame.n_atoms
+        self._files: Dict[str, object] = {}
+
+    # ------------------------------------------------------------------ utils
+
+    def log(self, *msg):
+        if not self.quiet:
+            print(*msg)
+
+    def _box(self, frame) -> Box:
+        return Box.from_lattice(frame.lattice, pbc=frame.pbc, dtype=DTYPE,
+                                device=self.device)
+
+    def _gmask(self, method: int, gid: int) -> torch.Tensor:
+        """(N,) group membership on the session's device."""
+        return self.groups.mask(method, gid, dtype=DTYPE, device=self.device)
+
+    def _file(self, name: str, header: Optional[str] = None):
+        if name not in self._files:
+            f = open(os.path.join(self.workdir, name), "w")
+            if header:
+                f.write(header)
+            self._files[name] = f
+        return self._files[name]
+
+    def _require_state(self):
+        if self.state is None:
+            raise ValueError("no potential defined yet (potential keyword)")
+
+    def _types_from_symbols(self) -> np.ndarray:
+        if not self.type_names:
+            raise ValueError("potential must be declared before this keyword")
+        index = {s: i for i, s in enumerate(self.type_names)}
+        try:
+            return np.array([index[s] for s in self.symbols])
+        except KeyError as e:
+            raise ValueError(f"element {e} not covered by the potential")
+
+    def _make_state(self, velocity=None) -> MDState:
+        """State from the current frame, unwrapped positions tracked."""
+        state = make_state(self.frame.positions, self.frame.default_masses(),
+                           self._types_from_symbols(), self.box,
+                           velocity=velocity, n_pad=self._n)
+        return state._replace(unwrapped_position=state.position.clone())
+
+    # -------------------------------------------------------------- keywords
+
+    def kw_potential(self, args):
+        if self.potentials:
+            # several potentials drive in the reference's observe/average
+            # modes, which need dump_observer
+            raise _not_ported("a second potential (dump_observer's "
+                              "observe/average modes)", 6)
+        path = os.path.join(self.workdir, args[0])
+        with open(path) as f:
+            head = f.readline().split()
+        name = head[0]
+        dev = dict(dtype=DTYPE, device=self.device)
+        if name == "lj":
+            pot = LJ.from_file(path, **dev)
+            self.type_names = head[2:2 + int(head[1])]
+        elif name == "tersoff_1989":
+            pot = Tersoff1989.from_file(path, **dev)
+            self.type_names = head[2:2 + int(head[1])]
+        elif name == "nnap":
+            raise RuntimeError(
+                "nnap requires the external Java NNAP runtime (the "
+                "reference gates it behind USE_NNAP + a JVM, nnap.cu:21); "
+                "it is not bridged in this build")
+        elif name in _UNPORTED_POTENTIALS or (
+                name.startswith("nep") and "charge" in name):
+            raise _not_ported(f"potential {name!r}", 9)
+        elif name.startswith("nep"):
+            pot = NEP.from_file(path, **dev)
+            # foundation models: slice the type tables down to the species
+            # present in model.xyz (the same numbers; the compact engine
+            # stays open)
+            present = set(self.symbols)
+            syms = list(pot.model.symbols)
+            if 0 < len(present & set(syms)) < pot.model.num_types \
+                    and present <= set(syms):
+                pot = pot.restrict(sorted(present, key=syms.index))
+            self.type_names = list(pot.model.symbols)
+        else:
+            raise ValueError(f"unsupported potential type {name!r}")
+        self.potentials.append(pot)
+        vel = (self.frame.velocities * TIME_UNIT_CONVERSION
+               if self.frame.velocities is not None else None)
+        self.state = self._make_state(velocity=vel)
+        self._rebuild_ff()
+        self.log(f"potential: {name} ({path})")
+
+    def _rebuild_ff(self):
+        self.ff = ForceField.create(
+            self.potentials, self.box, self._n,
+            mn=_auto_mn(self.potentials, self._n, self.box), skin=1.0)
+
+    def kw_velocity(self, args):
+        self._require_state()
+        t = float(args[0])
+        seed = 12345
+        if len(args) >= 3 and args[1] == "seed":
+            seed = int(args[2])
+        self.state = initialize_velocity(self.state, t, seed=seed)
+        self.log(f"velocity: {t} K (seed {seed})")
+
+    def kw_time_step(self, args):
+        self.dt = float(args[0]) / TIME_UNIT_CONVERSION
+        self.log(f"time_step: {args[0]} fs")
+
+    def kw_ensemble(self, args):
+        name = args[0]
+        if name in _UNPORTED_ENSEMBLES:
+            raise _not_ported(f"ensemble {name!r}", 7)
+        p = [float(x) for x in args[1:]]
+        if name == "nve":
+            self.ensemble = NVE()
+        elif name in ("nvt_ber", "nvt_lan", "nvt_bdp", "nvt_nhc", "nvt_bao"):
+            cls = {"nvt_ber": NVTBerendsen, "nvt_lan": NVTLangevin,
+                   "nvt_bdp": NVTBDP, "nvt_nhc": NVTNoseHooverChain,
+                   "nvt_bao": NVTBAOAB}[name]
+            self.ensemble = cls(t0=p[0], t1=p[1], coupling=p[2])
+        elif name in ("npt_ber", "npt_scr"):
+            cls = NPTBerendsen if name == "npt_ber" else NPTSCR
+            t1, t2, tc = p[0], p[1], p[2]
+            rest = p[3:]
+            if len(rest) == 3:  # isotropic: p C tau_p
+                ens = cls(t0=t1, t1=t2, coupling=tc,
+                          target_pressure=(rest[0],) * 3,
+                          elastic_modulus=(rest[1],) * 3, tau_p=rest[2],
+                          isotropic=True)
+            elif len(rest) == 7:  # px py pz Cx Cy Cz tau_p
+                ens = cls(t0=t1, t1=t2, coupling=tc,
+                          target_pressure=tuple(rest[0:3]),
+                          elastic_modulus=tuple(rest[3:6]), tau_p=rest[6])
+            else:
+                raise ValueError(f"{name} needs 6 or 10 parameters")
+            self.ensemble = ens
+        else:
+            raise ValueError(f"unsupported ensemble {name!r}")
+        self.log(f"ensemble: {name} {args[1:]}")
+
+    def kw_dump_thermo(self, args):
+        interval = int(args[0])
+        f = self._file(
+            "thermo.out",
+            f"# dump_thermo {interval}\n# format_version 1\n"
+            f"# num_atoms {self._n}\n"
+            f"# dt_output {self.dt * interval * TIME_UNIT_CONVERSION:.10e} fs\n"
+            "# columns T KE PE sxx syy szz syz sxz sxy "
+            "ax ay az bx by bz cx cy cz\n",
+        )
+
+        def process(session, state, step):
+            f.write("".join(f"{x:20.10e}" for x in thermo_row(state)) + "\n")
+            f.flush()
+
+        self.properties.append(PropertyRequest(interval, process))
+        self.log(f"dump_thermo every {interval}")
+
+    def _dump_frame(self, state: MDState, filename, with_vel, with_forces):
+        n = self._n
+        frame = XYZFrame(
+            symbols=self.symbols,
+            positions=_np(state.box.wrap(state.position))[:n],
+            lattice=_np(state.box.h).T,
+            pbc=self.frame.pbc,
+            velocities=(_np(state.velocity)[:n] / TIME_UNIT_CONVERSION
+                        if with_vel else None),
+            forces=_np(state.force)[:n] if with_forces else None,
+            masses=_np(state.mass)[:n],
+        )
+        write_xyz(os.path.join(self.workdir, filename), frame, append=True,
+                  with_velocities=with_vel, with_forces=with_forces)
+
+    def kw_dump_exyz(self, args):
+        interval = int(args[0])
+        with_vel = len(args) > 1 and args[1] == "1"
+        with_f = len(args) > 2 and args[2] == "1"
+
+        def process(session, state, step):
+            self._dump_frame(state, "dump.xyz", with_vel, with_f)
+
+        self.properties.append(PropertyRequest(interval, process))
+        self.log(f"dump_exyz every {interval}")
+
+    def kw_dump_xyz(self, args):
+        """dump_xyz grouping_method group_id interval filename [quantities]
+
+        Group-selective extended-XYZ dump (ref: dump_xyz.cu:73-160).
+        grouping_method < 0 dumps the whole system; a trailing '*' on the
+        filename writes one file per frame.  Quantities: velocity, force,
+        mass, potential, unwrapped_position."""
+        if len(args) < 4:
+            raise ValueError("dump_xyz needs at least 4 parameters")
+        gm, gid, interval = int(args[0]), int(args[1]), int(args[2])
+        filename = args[3]
+        if interval <= 0:
+            raise ValueError("dump interval should be > 0")
+        if gm >= 0:
+            if gm >= self.groups.n_methods:
+                raise ValueError("grouping method exceeds the bound")
+            if not 0 <= gid < self.groups.num_groups(gm):
+                raise ValueError("group id exceeds the bound")
+        quantities = set(args[4:])
+        known = {"velocity", "force", "mass", "potential",
+                 "unwrapped_position", "charge", "bec", "group", "virial"}
+        unknown = quantities - known
+        if unknown:
+            raise ValueError(f"unknown dump_xyz quantities {sorted(unknown)}")
+        separated = filename.endswith("*")
+        base = filename[:-1] if separated else filename
+        first = [True]
+
+        def process(session, state, step):
+            n = session._n
+            if gm >= 0:
+                sel = np.where(session.groups.labels[:n, gm] == gid)[0]
+            else:
+                sel = np.arange(n)
+            prop = "species:S:1:pos:R:3"
+            cols = [_np(state.box.wrap(state.position))[:n][sel]]
+            if "mass" in quantities:
+                prop += ":mass:R:1"
+                cols.append(_np(state.mass)[:n][sel, None])
+            if "velocity" in quantities:
+                prop += ":vel:R:3"
+                cols.append(_np(state.velocity)[:n][sel]
+                            / TIME_UNIT_CONVERSION)
+            if "force" in quantities:
+                prop += ":forces:R:3"
+                cols.append(_np(state.force)[:n][sel])
+            if "potential" in quantities:
+                prop += ":energy_atom:R:1"
+                cols.append(_np(state.potential_energy)[:n][sel, None])
+            if "unwrapped_position" in quantities:
+                prop += ":unwrapped_position:R:3"
+                up = (state.unwrapped_position
+                      if state.unwrapped_position is not None
+                      else state.position)
+                cols.append(_np(up)[:n][sel])
+            h = _np(state.box.h)
+            lat = " ".join(f"{x:.15g}" for x in h.T.ravel())
+            pb = " ".join("T" if p else "F" for p in session.frame.pbc)
+            path = os.path.join(session.workdir,
+                                f"{base}{step}" if separated else base)
+            mode = "w" if separated or first[0] else "a"
+            first[0] = False
+            with open(path, mode) as f:
+                f.write(f"{len(sel)}\n")
+                f.write(f'Lattice="{lat}" Properties={prop} pbc="{pb}"\n')
+                data = np.concatenate(cols, axis=1)
+                for k, i in enumerate(sel):
+                    f.write(f"{session.symbols[i]:<2s} "
+                            + " ".join(f"{x:.15g}" for x in data[k]) + "\n")
+
+        self.properties.append(PropertyRequest(interval, process))
+        self.log(f"dump_xyz group {gm}/{gid} every {interval} into {filename}")
+
+    def kw_dump_position(self, args):
+        interval = int(args[0])
+
+        def process(session, state, step):
+            self._dump_frame(state, "movie.xyz", False, False)
+
+        self.properties.append(PropertyRequest(interval, process))
+
+    def kw_dump_velocity(self, args):
+        """velocity.out: one row per atom per frame, A/fs."""
+        interval = int(args[0])
+        f = self._file("velocity.out")
+
+        def process(session, state, step):
+            v = _np(state.velocity)[:session._n] / TIME_UNIT_CONVERSION
+            for row in v:
+                f.write(" ".join(f"{x:g}" for x in row) + "\n")
+            f.flush()
+
+        self.properties.append(PropertyRequest(interval, process))
+
+    def kw_dump_force(self, args):
+        interval = int(args[0])
+        f = self._file("force.out")
+
+        def process(session, state, step):
+            for row in _np(state.force)[:session._n]:
+                f.write(" ".join(f"{x:g}" for x in row) + "\n")
+            f.flush()
+
+        self.properties.append(PropertyRequest(interval, process))
+
+    def kw_dump_restart(self, args):
+        interval = int(args[0])
+
+        def process(session, state, step):
+            n = self._n
+            frame = XYZFrame(
+                symbols=self.symbols,
+                positions=_np(state.box.wrap(state.position))[:n],
+                lattice=_np(state.box.h).T,
+                pbc=self.frame.pbc,
+                velocities=_np(state.velocity)[:n] / TIME_UNIT_CONVERSION,
+                masses=_np(state.mass)[:n],
+            )
+            write_xyz(os.path.join(self.workdir, "restart.xyz"), frame,
+                      append=False, with_velocities=True, with_masses=True)
+
+        self.properties.append(PropertyRequest(interval, process))
+
+    def kw_correct_velocity(self, args):
+        interval = int(args[0])
+
+        def process(session, state, step):
+            session.state = correct_velocity(state)
+
+        self.properties.append(PropertyRequest(interval, process))
+
+    def kw_engine(self, args):
+        """engine dense|list|auto [n_devices]: route `run` through the
+        compact engine (engine/dense_md.py, the kernels' path), the list
+        path, or let `dense_route_reason` choose (the default)."""
+        mode = args[0]
+        ndev = int(args[1]) if len(args) > 1 else 1
+        if mode not in ("dense", "list", "auto"):
+            raise ValueError("engine must be 'dense', 'list' or 'auto'")
+        if ndev > 1:
+            raise _not_ported("engine on several devices (the slab-sharded "
+                              "compact engine)", 11)
+        self.engine_mode = mode
+        self.log(f"engine: {mode}")
+
+    def kw_replicate(self, args):
+        """replicate cx cy cz: build a supercell (basis-inner atom order;
+        ref: src/main_gpumd/replicate.cu)."""
+        cx, cy, cz = int(args[0]), int(args[1]), int(args[2])
+        f = self.frame
+        lat = np.asarray(f.lattice)
+        cells = np.array([[i, j, k] for i in range(cx) for j in range(cy)
+                          for k in range(cz)])
+        shifts = cells @ lat  # (C, 3)
+        pos = (shifts[:, None, :] + f.positions[None, :, :]).reshape(-1, 3)
+        symbols = [s for _ in range(len(cells)) for s in f.symbols]
+        self.frame = dataclasses.replace(
+            f, positions=pos, symbols=symbols,
+            lattice=lat * np.array([cx, cy, cz])[:, None],
+            velocities=(np.tile(f.velocities, (len(cells), 1))
+                        if f.velocities is not None else None),
+            groups=(np.tile(f.groups, (len(cells), 1))
+                    if f.groups is not None else None),
+            masses=(np.tile(f.masses, len(cells))
+                    if f.masses is not None else None))
+        self.symbols = symbols
+        self._n = len(pos)
+        self.box = self._box(self.frame)
+        self.groups = Groups(self.frame.groups, self._n)
+        if self.potentials:  # rebuild the state with the new geometry
+            self.state = self._make_state()
+            self._rebuild_ff()
+        self.log(f"replicate: {cx} x {cy} x {cz} -> {self._n} atoms")
+
+    def kw_fix(self, args):
+        """fix [grouping_method] group_id: freeze a group
+        (ref: integrate.cu:1272-1300)."""
+        if self.groups.n_methods == 0:
+            raise ValueError("cannot use 'fix' without grouping methods")
+        if len(args) == 2:
+            method, gid = int(args[0]), int(args[1])
+        else:
+            method, gid = 0, int(args[0])
+        self.mobile_mask = 1.0 - self._gmask(method, gid)
+        self.log(f"fix: group {gid} (method {method}) frozen")
+
+    def kw_move(self, args):
+        """move [method] group vx vy vz (A/fs): constant-velocity group
+        (ref: integrate.cu:1315-1378)."""
+        if len(args) == 5:
+            method, gid = int(args[0]), int(args[1])
+            v = [float(x) for x in args[2:5]]
+        else:
+            method, gid = 0, int(args[0])
+            v = [float(x) for x in args[1:4]]
+        vel = np.asarray(v) * TIME_UNIT_CONVERSION  # A/fs -> natural
+        self.move_pin = (self._gmask(method, gid), vel)
+        self.log(f"move: group {gid} at {v} A/fs")
+
+    # ----------------------------------------------------------- the route
+
+    def _run_dense(self, n_steps, ens):
+        """MD block on the compact engine (one NEP or Tersoff-1989
+        potential); properties observe input-order snapshots at chunk
+        boundaries, SHC accumulates on the card inside the chunk."""
+        if len(self.potentials) != 1 or not isinstance(
+                self.potentials[0], (NEP, Tersoff1989)):
+            raise ValueError("engine dense: exactly one driving NEP or "
+                             "Tersoff1989 potential")
+        pot = self.potentials[0]
+        needs_heat = any(getattr(m, "needs_heat", False)
+                         for m in self.measure_props)
+        needs_av = any(getattr(m, "needs_atom_virial", False)
+                       for m in self.measure_props)
+        hnemd_fe = self.ff.hnemd_fe
+        pav = needs_heat or needs_av or hnemd_fe is not None
+        n = self._n
+        state = self.state
+        # measures with a device_init accumulate on the card inside the
+        # chunk; the others sample at chunk boundaries
+        dev_props = [m for m in self.measure_props
+                     if hasattr(m, "device_init")]
+        host_props = [m for m in self.measure_props if m not in dev_props]
+        intervals = [p.interval for p in self.properties] + [
+            m.interval for m in host_props]
+        chunk = _bounded_chunk(
+            math.gcd(*intervals) if intervals else n_steps, n_steps)
+        position = _np(state.position)[:n]
+        if isinstance(pot, Tersoff1989):
+            md = CompactTersoffMD(pot, state.box, n, position=position,
+                                  per_atom_virial=pav)
+        else:
+            md = DenseNEPMD(pot, state.box, n, position=position,
+                            per_atom_virial=pav)
+            if pav and md.engine != "compact":
+                raise ValueError(
+                    "engine dense: per-atom heat-current observables need "
+                    "the compact engine (this model fell back to the window "
+                    "engine); use `engine list`")
+        md.hnemd_fe = hnemd_fe
+        self.md = md
+        heat_props = [m for m in self.measure_props
+                      if hasattr(m, "consume_heat")]
+        observer = heat_current_5 if heat_props else None
+        if dev_props:
+            def measure(maccs, st, orig_id):
+                return tuple(m.device_update(a, st, orig_id)
+                             for m, a in zip(dev_props, maccs))
+            maccs = tuple(m.device_init(self, n) for m in dev_props)
+        else:
+            measure, maccs = None, ()
+        hooked = observer is not None or measure is not None
+        t0 = time.time()
+        with torch.no_grad():
+            carry = md.init_carry(state)
+            carry = carry._replace(state=md.compute(carry.state, carry.idx))
+            aux = ens.init(carry.state)
+            step = md.make_step(ens, self.dt, observer=observer,
+                                measure=measure)
+            done = 0
+            while done < n_steps:
+                ys = []
+                for _ in range(chunk):
+                    if hooked:
+                        carry, aux, maccs, y = step(carry, aux, maccs)
+                        ys.append(y)
+                    else:
+                        carry, aux = step(carry, aux)
+                if heat_props:
+                    rows = torch.stack(ys)  # (chunk, 5), read once
+                    for m in heat_props:
+                        m.consume_heat(rows, self.global_step)
+                        if hasattr(m, "maybe_output"):
+                            m.maybe_output(self)
+                done += chunk
+                self.global_step += chunk
+                if bool(carry.overflow):
+                    raise RuntimeError(
+                        "dense engine: cell capacity overflow; rerun with "
+                        "engine list or a larger skin")
+                snap = md.to_input_order(carry, n)
+                pe = float(torch.sum(snap.potential_energy * snap.mask))
+                if not np.isfinite(pe):
+                    raise RuntimeError(f"non-finite potential energy at "
+                                       f"step {self.global_step}")
+                self.state = snap
+                for prop in self.properties:
+                    if done % prop.interval == 0:
+                        prop.process(self, snap, self.global_step)
+                for m in host_props:
+                    if done % m.interval == 0 and hasattr(m, "sample_state"):
+                        m.sample_state(self, snap, self.global_step)
+        wall = time.time() - t0
+        self.run_seconds.append(wall)
+        self.log(f"Speed of this run = {n * n_steps / max(wall, 1e-9):.5g} "
+                 f"atom*step/second (dense)")
+        for m, a in zip(dev_props, maccs):
+            m.device_postprocess(self, a)
+        self._finish_run()
+
+    def _finish_run(self):
+        """Reset the per-run observers and drivers (ref: run.cu:329-340
+        finalize()); the HNEMD driving force is per run too."""
+        for m in self.measure_props:
+            m.postprocess(self)
+        self.measure_props = []
+        for prop in self.properties:
+            if prop.finalize:
+                prop.finalize(self)
+        self.properties = []
+        self.drivers = []
+        if self.ff is not None and self.ff.hnemd_fe is not None:
+            self.ff = dataclasses.replace(self.ff, hnemd_fe=None)
+
+    def _wire_nep_temperature(self, ens):
+        """Temperature-dependent NEP (model_type 3): feed the ensemble's
+        target temperature (ref: run.cu:679-681 sets force.temperature =
+        temperature1), on both routes."""
+        if not any(isinstance(p, NEP) and p.model.model_type == 3
+                   for p in self.potentials):
+            return
+        t_tgt = getattr(ens, "t0", None) or getattr(ens, "t1", None)
+        if t_tgt is None:
+            raise ValueError(
+                "temperature-mode NEP needs a thermostatted ensemble")
+        self.potentials = [
+            p._replace(temperature=float(t_tgt))
+            if isinstance(p, NEP) and p.model.model_type == 3 else p
+            for p in self.potentials]
+        self.ff = dataclasses.replace(self.ff,
+                                      potentials=tuple(self.potentials))
+
+    def kw_run(self, args):
+        self._require_state()
+        n_steps = int(args[0])
+        if self.ensemble is None:
+            self.ensemble = NVE()
+        ens = self.ensemble
+        # temperature ramp length = this run's steps
+        if hasattr(ens, "n_steps"):
+            ens = dataclasses.replace(ens, n_steps=n_steps)
+        mode = self.engine_mode
+        if mode == "dense":
+            blocker = _dense_blocker(self)
+            if blocker is not None:
+                raise ValueError(f"engine dense: the compact engine does "
+                                 f"not take {blocker}; use `engine list` "
+                                 f"or `engine auto`")
+            self.route_reason = None
+            self._wire_nep_temperature(ens)
+            return self._run_dense(n_steps, ens)
+        if mode == "auto":
+            self.route_reason = dense_route_reason(self, ens, self.device)
+            if self.route_reason is None:
+                self.log("engine auto: compact engine")
+                self._wire_nep_temperature(ens)
+                return self._run_dense(n_steps, ens)
+            self.log(f"engine auto: list path ({self.route_reason})")
+        else:
+            self.route_reason = "engine list"
+        self.md = None
+        self._run_list(n_steps, ens)
+
+    def _run_list(self, n_steps, ens):
+        """MD block on the general path: ForceField + integrate/run.py,
+        chunk by chunk."""
+        if any(isinstance(p, Tersoff1989) for p in self.potentials):
+            raise _not_ported("Tersoff-1989 on the list path (its "
+                              "ForceField force)", 9)
+        if self.mobile_mask is not None and hasattr(ens, "mobile"):
+            ens = dataclasses.replace(ens, mobile=self.mobile_mask)
+        if self.move_pin is not None and hasattr(ens, "pinned"):
+            ens = dataclasses.replace(ens, pinned=self.move_pin)
+        self._wire_nep_temperature(ens)
+        intervals = [p.interval for p in self.properties] + [
+            m.interval for m in self.measure_props]
+        chunk = _bounded_chunk(
+            math.gcd(*intervals) if intervals else n_steps, n_steps)
+        needs_heat = any(getattr(m, "needs_heat", False)
+                         for m in self.measure_props)
+        observer = heat_current_5 if needs_heat else (lambda s: None)
+        st = self.state
+        with torch.no_grad():
+            # loud neighbour-capacity check: the reference aborts on
+            # overflow; a silently truncated list corrupts forces
+            nbr0 = self.ff.neighbor.build(st.box.wrap(st.position), st.box,
+                                          st.mask)
+            counts = nbr0.count[st.mask > 0]
+            cmin, cmax, cmean = torch.stack(
+                [counts.min().double(), counts.max().double(),
+                 counts.double().mean()]).tolist()
+            cap = nbr0.idx.shape[1]
+            if cmax > cap:
+                raise RuntimeError(
+                    f"neighbor overflow: an atom has {int(cmax)} neighbors "
+                    f"but the list capacity is {cap}; increase mn")
+            # neighbor.out: one occupancy row per `run` (ref: nep.cu:
+            # 1014-1034 logs every 1000 calls)
+            fnb = self._file("neighbor.out")
+            fnb.write(f"step {self.global_step}: min {int(cmin)} "
+                      f"mean {cmean:.1f} max {int(cmax)} capacity {cap}\n")
+            fnb.flush()
+            del nbr0
+            state = self.ff.compute(self.state)
+            cache = (self.ff.refresh_cache(state) if self.ff.skin > 0
+                     else None)
+        runner = MDRunner(self.ff, ens, self.dt, chunk, observer=observer,
+                          drivers=tuple(self.drivers))
+        aux = None
+        t0 = time.time()
+        done = 0
+        while done < n_steps:
+            step0 = self.global_step
+            state, (aux, cache), obs = runner(state, aux=aux, cache=cache)
+            done += chunk
+            self.global_step += chunk
+            self.state = state
+            pe = float(torch.sum(state.potential_energy * state.mask))
+            if not np.isfinite(pe):
+                raise RuntimeError(
+                    f"non-finite potential energy at step "
+                    f"{self.global_step}: the system blew up (check "
+                    f"time_step, initial overlaps, or neighbor capacity)")
+            # 10%-progress prints (ref: run.cu:313-317)
+            decile = max(n_steps // 10, 1)
+            if done % decile < chunk and n_steps >= 10:
+                self.log(f"    {int(100 * done / n_steps)}% of the run "
+                         f"completed ({done}/{n_steps} steps)")
+            if needs_heat:
+                for m in self.measure_props:
+                    if getattr(m, "needs_heat", False):
+                        m.consume_heat(obs, step0)
+                        if hasattr(m, "maybe_output"):
+                            m.maybe_output(self)
+            for m in self.measure_props:
+                if hasattr(m, "sample_state") and done % m.interval == 0:
+                    m.sample_state(self, state, self.global_step)
+            for prop in self.properties:
+                if done % prop.interval == 0:
+                    prop.process(self, state, self.global_step)
+                    state = self.state  # processors may replace it
+        if state.position.is_cuda:
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        self.run_seconds.append(wall)
+        self.log(f"Speed of this run = "
+                 f"{self._n * n_steps / max(wall, 1e-9):.5g} atom*step/second")
+        self._finish_run()
+
+    # ------------------------------------------------------- measure keywords
+
+    def _ensemble_temperature(self) -> float:
+        ens = self.ensemble
+        if ens is not None and hasattr(ens, "t1"):
+            return float(ens.t1)
+        return 300.0
+
+    def kw_compute_hac(self, args):
+        self.measure_props.append(
+            HAC(int(args[0]), int(args[1]), int(args[2]), self.dt,
+                self._ensemble_temperature()))
+        self.log(f"compute_hac {args}")
+
+    def kw_compute_hnemd(self, args):
+        self._require_state()
+        fe = (float(args[1]), float(args[2]), float(args[3]))
+        self.ff = dataclasses.replace(self.ff, hnemd_fe=fe)
+        self.measure_props.append(
+            HNEMDKappa(int(args[0]), fe, self.dt,
+                       self._ensemble_temperature()))
+        self.log(f"compute_hnemd {args}")
+
+    def kw_compute_shc(self, args):
+        group_mask = None
+        if len(args) >= 8 and args[5] == "group":
+            method, gid = int(args[6]), int(args[7])
+            group_mask = self.groups.labels[:, method] == gid
+        self.measure_props.append(
+            SHC(int(args[0]), int(args[1]), int(args[2]), int(args[3]),
+                float(args[4]), self.dt, group_mask=group_mask))
+        self.log(f"compute_shc {args}")
+
+    # --------------------------------------------------------------- drivers
+
+    def kw_add_force(self, args):
+        """add_force <gm> <gid> (fx fy fz | file) (ref: add_force.cu)."""
+        gm, gid = int(args[0]), int(args[1])
+        table = parse_table_or_values(args[2:], self.workdir)
+        self.drivers.append(AddForce(gmask=self._gmask(gm, gid), table=table))
+        self.log(f"add_force {args}")
+
+    def kw_add_efield(self, args):
+        """add_efield <gm> <gid> (Ex Ey Ez | file) [charge|bec]
+        (ref: add_efield.cu)."""
+        gm, gid = int(args[0]), int(args[1])
+        rest = list(args[2:])
+        mode = "charge"
+        if rest and rest[-1] in ("charge", "bec"):
+            mode = rest.pop()
+        table = parse_table_or_values(rest, self.workdir)
+        self.drivers.append(AddEfield(gmask=self._gmask(gm, gid), table=table,
+                                      use_bec=(mode == "bec")))
+        self.log(f"add_efield {args}")
+
+    def kw_add_spring(self, args):
+        """add_spring ghost_com <gm> <gid> vx vy vz couple k R0 x0 y0 z0 |
+        add_spring ghost_com <gm> <gid> vx vy vz decouple kx ky kz x0 y0 z0
+        (ref: add_spring.cu)."""
+        self._require_state()
+        if args[0] != "ghost_com":
+            raise ValueError(
+                f"add_spring mode {args[0]!r} not supported (ghost_com only)")
+        gm, gid = int(args[1]), int(args[2])
+        vel = tuple(float(x) for x in args[3:6])
+        stiff = args[6]
+        gmask = self._gmask(gm, gid)
+        pos = _np(self.state.position)
+        m = _np(self.state.mass) * _np(gmask)
+        com0 = (m[:, None] * pos).sum(0) / max(m.sum(), 1e-30)
+        if stiff == "couple":
+            k, r0 = float(args[7]), float(args[8])
+            off = tuple(float(x) for x in args[9:12])
+            drv = AddSpring(gmask=gmask, com0=tuple(com0), velocity=vel,
+                            offset=off, couple=True, k=k, r0=r0)
+        elif stiff == "decouple":
+            k3 = tuple(float(x) for x in args[7:10])
+            off = tuple(float(x) for x in args[10:13])
+            drv = AddSpring(gmask=gmask, com0=tuple(com0), velocity=vel,
+                            offset=off, couple=False, k3=k3)
+        else:
+            raise ValueError("add_spring: expected couple|decouple")
+        self.drivers.append(drv)
+        self.log(f"add_spring {args}")
+
+    def kw_add_random_force(self, args):
+        self.drivers.append(AddRandomForce(variance=float(args[0])))
+        self.log(f"add_random_force {args}")
+
+    def kw_electron_stop(self, args):
+        path = args[0]
+        if not os.path.isabs(path):
+            path = os.path.join(self.workdir, path)
+        self.drivers.append(
+            ElectronStop.from_file(path, max(1, len(self.type_names))))
+        self.log(f"electron_stop {args}")
+
+    # ----------------------------------------------------------------- driver
+
+    KEYWORDS = {
+        "potential": kw_potential,
+        "velocity": kw_velocity,
+        "time_step": kw_time_step,
+        "ensemble": kw_ensemble,
+        "dump_thermo": kw_dump_thermo,
+        "dump_exyz": kw_dump_exyz,
+        "dump_position": kw_dump_position,
+        "dump_xyz": kw_dump_xyz,
+        "dump_restart": kw_dump_restart,
+        "dump_velocity": kw_dump_velocity,
+        "engine": kw_engine,
+        "dump_force": kw_dump_force,
+        "correct_velocity": kw_correct_velocity,
+        "fix": kw_fix,
+        "replicate": kw_replicate,
+        "compute_hac": kw_compute_hac,
+        "compute_hnemd": kw_compute_hnemd,
+        "add_force": kw_add_force,
+        "add_spring": kw_add_spring,
+        "add_efield": kw_add_efield,
+        "add_random_force": kw_add_random_force,
+        "electron_stop": kw_electron_stop,
+        "compute_shc": kw_compute_shc,
+        "move": kw_move,
+        "run": kw_run,
+    }
+
+    def execute(self, runfile: str = "run.in"):
+        try:
+            for toks in parse_run_in(os.path.join(self.workdir, runfile)):
+                kw, args = toks[0], toks[1:]
+                if kw in UNPORTED:
+                    raise _not_ported(f"run.in keyword {kw!r}", UNPORTED[kw])
+                handler = self.KEYWORDS.get(kw)
+                if handler is None:
+                    raise ValueError(
+                        f"unknown or unsupported run.in keyword {kw!r}")
+                handler(self, args)
+        finally:
+            for f in self._files.values():
+                f.close()
+            self._files.clear()
+
+
+def _auto_mn(potentials, n_atoms=None, box=None) -> int:
+    """Neighbour capacity: NEP files carry MN hints, otherwise 256; and at
+    least a density bound, so the list cannot silently truncate."""
+    mn = 0
+    rc_max = max((getattr(p, "rc", 0.0) for p in potentials), default=0.0)
+    rc_base = 0.0
+    for p in potentials:
+        if hasattr(p, "model"):
+            mn = max(mn, p.model.mn_radial)
+            rc_base = max(rc_base, p.rc)
+    if mn and rc_base and rc_max > rc_base:
+        mn = int(mn * (rc_max / rc_base) ** 3)
+    out = int(mn * 1.3) if mn else 256
+    if n_atoms and box is not None and rc_max > 0.0:
+        dens = n_atoms / float(box.volume)
+        bound = dens * 4.0 / 3.0 * math.pi * (rc_max + 1.5) ** 3
+        # images of a small periodic cell can exceed n_atoms, so no clamp
+        # by atom count here
+        out = max(out, int(bound * 1.5) + 8)
+    return out
+
+
+def main(argv=None):
+    """Execute argv's work directory's run.in on the card, or on the CPU
+    with --device cpu.  Returns the session."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("workdir", nargs="?", default=".")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv if argv is not None else sys.argv[1:])
+    session = Session(args.workdir, device=args.device or "cuda")
+    session.execute()
+    return session
+
+
+if __name__ == "__main__":
+    main()

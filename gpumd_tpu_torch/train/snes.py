@@ -548,10 +548,16 @@ class SNESTrainer:
         return row
 
     def train_fused(self, generations: Optional[int] = None, log=print):
-        """Single-batch training.  The JAX package fuses output_interval
-        generations into one device program (lax.scan) to save host round
-        trips; here `train` already reads nothing back between report rows,
-        so this is `train`: the same generations and the same rows."""
+        """Single-batch training in whole report intervals, as the JAX
+        package's fused loop runs them (one lax.scan of `output_interval`
+        generations a dispatch): each interval ends in a loss.out row, so
+        a `generation` that is not a multiple of the interval trains past
+        it to the next multiple (25 at interval 10: rows 10, 20 and 30).
+        Several batches or use_full_batch take `train`."""
+        gens = (generations or self.cfg.maximum_generation) - self.gen_offset
+        if len(self.batches) == 1 and not self.cfg.use_full_batch and gens > 0:
+            report = max(1, min(self.cfg.output_interval, gens))
+            generations = self.gen_offset + -(-gens // report) * report
         return self.train(generations, log=log)
 
     def save_restart(self):

@@ -155,3 +155,49 @@ def test_apps_refuse_without_a_card(tmp_path, train_xyz, app):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         app.main([str(d)])
     assert not Path(d / "loss.out").exists()
+
+
+def test_train_fused_runs_whole_intervals_as_jax(tmp_path, train_xyz,
+                                                 monkeypatch,
+                                                 restore_matmul_precision):
+    """generation 25 at output_interval 10: both packages' apps train 30
+    generations and write loss.out rows 10, 20 and 30; with JAX's z draws
+    injected into the port, the final nep.restart (mu, sigma) agrees to
+    the prediction test's bound."""
+    import jax.numpy as jnp
+
+    from gpumd_tpu.app import nep as jnep
+    from gpumd_tpu_torch.io.nep_input import parse_nep_in
+    from gpumd_tpu_torch.potentials.nep.params import num_trainable
+    from gpumd_tpu_torch.train import snes as tsnes
+
+    # population 8: the JAX trainer rounds it up to a multiple of the
+    # suite's 8 virtual devices
+    nep_in = "population 8\ngeneration 25\noutput_interval 10\n"
+    dirs = {k: _workdir(tmp_path / k, train_xyz, nep_in) for k in "tj"}
+    jnep.main([str(dirs["j"])])
+    model = model_from_config(parse_nep_in(str(dirs["t"] / "nep.in")))
+    key, zs = jax.random.PRNGKey(12345678), []  # nep.in's default seed
+    for _ in range(30):
+        key, sub = jax.random.split(key)
+        zs.append(np.asarray(jax.random.normal(
+            sub, (8, num_trainable(model)), jnp.float32)))
+    orig = tsnes.make_population_pieces
+
+    def injected(*args, **kw):
+        _, evaluate, update = orig(*args, **kw)
+
+        def sample(state):
+            z = torch.as_tensor(np.array(zs.pop(0)), dtype=state.mu.dtype)
+            return z, state.mu[None, :] + state.sigma[None, :] * z
+        return sample, evaluate, update
+
+    monkeypatch.setattr(tsnes, "make_population_pieces", injected)
+    trainer = tnep.main([str(dirs["t"])], device="cpu")
+    assert not zs and trainer.state.generation == 30
+    for k in "tj":
+        rows = _rows(dirs[k])
+        assert list(rows[:, 0]) == [10, 20, 30] and rows.shape[1] == 10, k
+    got, want = (np.loadtxt(dirs[k] / "nep.restart") for k in "tj")
+    bound = 1e-6 * np.abs(want) + 2e-6 * np.abs(want).max()
+    assert np.max(np.abs(got - want) / bound) <= 1.0
