@@ -247,6 +247,36 @@ written with velocities drawn by numpy:
              dump_thermo 100, run 500, in turns with the same run driven
              directly (direct, app, direct): atom-step/s of each and the
              app loop's overhead
+ 13. measure  the measure keywords as decks through Session, engine auto,
+             a recorder property copying to the host every snapshot the
+             measures see; the outputs recomputed on the CPU in float64
+             from the recorded snapshots by fresh instances of the same
+             classes (the keywords of the deck on a CPU session): (a)
+             PbTe 32,768 (16^3 cells, a0 6.57 A, groups: the two halves
+             along x), nvt_ber 300 K, 1,000 steps in chunks of 5, with
+             compute_msd, _sdc, _dos, _ic, _rdf, _adf, _angular_rdf,
+             _orientorder, compute and compute_chunk: the compact route,
+             K1/K2/scatter/fold every step and compact_rows twice;
+             msd/sdc/dos/mvac/ic/compute/compute_chunk.out against the
+             CPU's files; the neighbour measures' last sample (histogram
+             counts, per-atom q_l) against the CPU's; the physics (the
+             Pb-Te peak of g(r) at a0/2, the ADF's maxima near 90 and
+             180 degrees, q4 and q6 within 15% of simple cubic, mvac's
+             first row summing to 3, compute_chunk's counts to 32,768,
+             the momentum to ~0); beside it, first, the same deck with
+             only dump_thermo 100 (both decks' atom-step/s); (b) PbTe
+             1,728 (6^3 cells) NVE, 200 steps, compute_gkma over 5,184
+             identity modes and compute virial jp: the kernels at 12
+             channels every step, the modes' sum against
+             heat_current_5 of every recorded snapshot, heatmode.out
+             and compute.out against the CPU's; then 100 steps of
+             compute_hnema on the same modes (kappamode.out finite, 5
+             outputs); (c) PbTe 32,768 NVE on the list path, 100 steps
+             each of compute_viscosity 1 50 and compute_hnemdec 1 20
+             (1e-4, 0, 0): the route reasons, no hand-written kernel
+             launched, stress_6 / onsager_flux of every recorded
+             snapshot on the card against the CPU's, viscosity.out and
+             onsager.out against the CPU's
 
 Not among the default phases (ask for it with --phases):
 
@@ -261,7 +291,8 @@ Not among the default phases (ask for it with --phases):
 
 Usage: python3 chip_smoke.py [--phases build,kernels,md,npt-md,
        hnemd-md,drift,list-md,train,time,dense-kernels,dense-md,dense-time,
-       tersoff-kernels,tersoff-md,tersoff-time,probes,app,app-spread]
+       tersoff-kernels,tersoff-md,tersoff-time,probes,app,measure,
+       app-spread]
        [--parent DIR]
 Prints the kernels' JSON line, then, last, {"ok": true, "device": {...}}.
 A kernel's "launches" are those of the 200-step NVE run of its path;
@@ -270,7 +301,8 @@ A kernel's "launches" are those of the 200-step NVE run of its path;
 them; "launches_app" those of the app phase's config-3 deck (compact
 rows, K1, K2, scatter, fold; compact_windows: the Langevin deck),
 "launches_app_hnemd" of its HNEMD deck and "launches_app_tersoff" of its
-Tersoff deck.  "max_abs_err_pav" is the largest error of a kernel's instances at
+Tersoff deck; "launches_measure" those of the measure phase's deck (a)
+and "launches_measure_modal" of its deck (b), at 12 channels.  "max_abs_err_pav" is the largest error of a kernel's instances at
 12 channels (per-atom virials: K2, scatter, fold, the tersoff modes), and
 K2's, the scatter's and the fold's "ms_pav", "plain_ms_pav",
 "library_ms_pav", "bound_ms_pav" and "bound_by_pav" their step at 12
@@ -3252,8 +3284,9 @@ def _write_model(d, symbols, pos, mass, lengths, temperature, seed,
         groups=groups), with_velocities=True, with_groups=groups is not None)
 
 
-def _pbte_deck(d, nc, deck, jitter=0.0, seed=3):
-    """PbTe nc^3 cells (a0 6.57 A) at 300 K with the trained model."""
+def _pbte_deck(d, nc, deck, jitter=0.0, seed=3, halves=False):
+    """PbTe nc^3 cells (a0 6.57 A) at 300 K with the trained model;
+    `halves`: a grouping method, group 1 the atoms with x < L/2."""
     import shutil
 
     from gpumd_tpu_torch.bench import build_pbte
@@ -3262,8 +3295,10 @@ def _pbte_deck(d, nc, deck, jitter=0.0, seed=3):
     if jitter:
         pos = pos + np.random.default_rng(seed).normal(0, jitter, pos.shape)
     symbols = np.where(types == 1, "Pb", "Te")
+    groups = ((pos[:, :1] < lengths[0] / 2).astype(int) if halves
+              else None)
     _write_model(d, symbols, pos, np.where(types == 1, 207.2, 127.6),
-                 lengths, 300.0, seed)
+                 lengths, 300.0, seed, groups=groups)
     shutil.copy(MODEL, d / "nep.txt")
     (d / "run.in").write_text(deck)
 
@@ -3732,6 +3767,519 @@ def phase_app(results, pot_path):
     print(f"[app] phase done in {time.time() - t0:.1f} s")
 
 
+# ---- the measure keywords: decks whose measures sample the app's snapshots --
+
+# Card against the CPU's float64 recomputation from the same recorded
+# snapshots.  Files whose per-sample work is float64 on both sides (msd,
+# sdc, dos, mvac, ic, compute: the frames are the card's float32 values,
+# correlated in float64; compute's sums run in float64 on the card) within
+# 1e-6 of each column's largest magnitude: the printed digits.  Files
+# whose per-sample work is float32 on the card: compute_chunk 1e-4 (an atom
+# within float32 rounding of a bin edge may bin apart: one atom of ~2,048
+# for one of 100 samples, 5e-6), heatmode 1e-5 (one float32 product a mode
+# and value), viscosity.out and onsager.out 1e-3 (sums over 32,768 atoms
+# cancelling to ~1% of their terms, then to fluctuations: 1e-6 of the
+# terms becomes ~1e-4 of the result).
+MEASURE_FILE_TOL = {"msd.out": 1e-6, "sdc.out": 1e-6, "dos.out": 1e-6,
+                    "mvac.out": 1e-6, "ic.out": 1e-6, "compute.out": 1e-6,
+                    "compute_chunk.out": 1e-4, "heatmode.out": 1e-5,
+                    "viscosity.out": 1e-3, "onsager.out": 1e-3}
+# The neighbour measures' last sample, card against the CPU: histogram
+# counts differ only by pairs within float32 rounding of a bin edge (a
+# boundary-crossing displacement carries one ulp of the box edge, 7.6e-6 A
+# at 105 A, against bins of 0.05 A and 2 degrees): the summed |difference|
+# within 1e-3 of the counts; q_l within 1e-4 (the bond directions to
+# float32, no neighbour within rounding of rc = 4.0 A in PbTe).
+MEASURE_HIST_TOL = 1e-3
+MEASURE_Q_TOL = 1e-4
+# stress_6 and onsager_flux of a recorded snapshot, card against CPU f64,
+# against the sum of the magnitudes of their terms (what float32 rounds)
+MEASURE_FLUX_TOL = 1e-5
+# the completeness of the identity modes: sum over modes of heatmode.out
+# against heat_current_5, over the largest |component| of the sample's J
+MODAL_SUM_TOL = 1e-4
+MEASURE_A = (
+    "potential nep.txt\ntime_step 1\nensemble nvt_ber 300 300 100\n"
+    "compute_msd 10 50\ncompute_sdc 5 100\ncompute_dos 5 100 40\n"
+    "compute_ic 10 50 1 2.0\ncompute_rdf 8.0 160 100\n"
+    "compute_adf 100 90 2.5 4.0\ncompute_angular_rdf 6.0 60 36 100\n"
+    "compute_orientorder 100 cutoff 4.0 2 4 6\n"
+    "compute 0 10 100 temperature potential force jk momentum\n"
+    "compute_chunk 10 100 bin/1d x lower 6.57 temperature density/number "
+    "vx\nrun {steps}\n")
+# the decks' sizes: (a) PbTe 16^3 cells, 1,000 steps; (b) 6^3 cells, 200
+# steps, its hnema deck 100; (c) 16^3 cells, 100 steps each
+MEASURE_CELLS, MEASURE_STEPS = 16, 1000
+MODAL_CELLS, MODAL_STEPS, HNEMA_STEPS = 6, 200, 100
+LIST_STEPS = 100
+NEIGHBOR_KEYWORDS = ("compute_rdf", "compute_adf", "compute_angular_rdf",
+                     "compute_orientorder")
+SNAP_FIELDS = ("position", "velocity", "force", "mass", "type",
+               "potential_energy", "virial", "mask", "unwrapped_position")
+
+
+class _Recorder:
+    """A PropertyRequest's process that copies every snapshot the
+    measures see to the host, with the neighbour measures' histograms as
+    they stood before the step's sample, and times itself."""
+
+    def __init__(self):
+        self.snaps, self.hists, self.seconds = [], {}, 0.0
+        self.measures = []
+
+    def __call__(self, session, state, step):
+        t0 = time.time()
+        self.snaps.append((step, {f: getattr(state, f).cpu()
+                                  for f in SNAP_FIELDS
+                                  if getattr(state, f) is not None},
+                           state.box.h.cpu()))
+        self.measures = session.measure_props  # the run's instances
+        self.hists[step] = [_counts(m) for m in self.measures
+                            if hasattr(m, "hist")]
+        self.seconds += time.time() - t0
+
+
+def _recorded_session(d, interval):
+    """Session(d, device="cuda") with a recorder of every `interval`-th
+    snapshot, from launch counts of 0: the session, the counts, the
+    recorder."""
+    from gpumd_tpu_torch.app.gpumd import PropertyRequest, Session
+    from gpumd_tpu_torch.engine import cuda_build
+
+    rec = _Recorder()
+    s = Session(str(d), quiet=True, device="cuda")
+    s.properties.append(PropertyRequest(interval, rec))
+    cuda_build.reset_launches()
+    s.execute()
+    torch.cuda.synchronize()
+    return s, dict(cuda_build.launches), rec
+
+
+def _state64(snap, h, dtype=torch.float64, device="cpu"):
+    """A recorded snapshot as an MDState, float64 on the CPU unless asked
+    otherwise."""
+    from gpumd_tpu_torch.model.box import Box
+    from gpumd_tpu_torch.model.state import MDState
+
+    f = {k: (v.to(dtype) if v.is_floating_point() else v).to(device)
+         for k, v in snap.items()}
+    return MDState(box=Box.from_lattice(h.double().T.numpy(), dtype=dtype,
+                                        device=device),
+                   heat_current=torch.zeros_like(f["velocity"]), **f)
+
+
+def _cpu_session(d):
+    """A CPU session in d/cpu on d's model.xyz, nep.txt (and
+    eigenvector.in), with every keyword of d's run.in but `run`."""
+    import os
+
+    from gpumd_tpu_torch.app.gpumd import Session, parse_run_in
+
+    c = d / "cpu"
+    c.mkdir()
+    for name in ("model.xyz", "nep.txt", "eigenvector.in"):
+        if (d / name).exists():
+            os.symlink(d / name, c / name)
+    s = Session(str(c), quiet=True, device="cpu")
+    for toks in parse_run_in(str(d / "run.in")):
+        if toks[0] != "run":
+            s.KEYWORDS[toks[0]](s, toks[1:])
+    return s
+
+
+def _replay(d, rec, last_only=()):
+    """The deck's measures and properties, fresh on a CPU session, fed the
+    recorded snapshots in float64 as the app feeds them (a list deck's
+    per-step observers from snapshots recorded every step); measures of
+    the classes `last_only` take only their last sample.  Writes d/cpu's
+    files; returns the session."""
+    from gpumd_tpu_torch.measure.properties import onsager_flux, stress_6
+
+    s = _cpu_session(d)
+    measures = list(s.measure_props)
+    last = {id(m): max(step for step, _, _ in rec.snaps
+                       if step % m.interval == 0)
+            for m in measures if isinstance(m, last_only)}
+    with torch.no_grad():
+        for step, snap, h in rec.snaps:
+            st = _state64(snap, h)
+            s.state = st
+            for p in s.properties:
+                if step % p.interval == 0:
+                    p.process(s, st, step)
+            for m in measures:
+                if getattr(m, "needs_stress", False):
+                    m.consume_stress(stress_6(st)[None], step - 1)
+                if getattr(m, "needs_onsager", False):
+                    m.consume_onsager(onsager_flux(
+                        st, m.mass_type, m.num_types)[None], step - 1)
+                    m.maybe_output(s)
+                if not hasattr(m, "sample_state") or step % m.interval:
+                    continue
+                if id(m) not in last or last[id(m)] == step:
+                    m.sample_state(s, st, step)
+    s._finish_run()
+    for f in s._files.values():
+        f.close()
+    s.measure_props = measures
+    return s
+
+
+def _split_rows(path):
+    """(header lines, numeric rows) of an output file."""
+    heads, rows = [], []
+    for line in Path(path).read_text().splitlines():
+        try:
+            rows.append([float(x) for x in line.split()])
+        except ValueError:
+            heads.append(line)
+    return heads, np.array(rows)
+
+
+def _files_match(what, d, names):
+    """d's files against d/cpu's: the same headers and shapes, every
+    column within its MEASURE_FILE_TOL of its largest magnitude."""
+    for name in names:
+        (ha, a), (hb, b) = _split_rows(d / name), _split_rows(d / "cpu" / name)
+        if ha != hb or a.shape != b.shape or not a.size:
+            raise RuntimeError(f"{what}: {name} {a.shape} vs the CPU's "
+                               f"{b.shape}, or its header differs")
+        scale = np.maximum(np.abs(b).max(axis=0), 1e-300)
+        rel = float((np.abs(a - b).max(axis=0) / scale).max())
+        tol = MEASURE_FILE_TOL[name]
+        print(f"[measure] {what}: {name} {a.shape} against the CPU in f64: "
+              f"max diff / column max {rel:.3e} (bound {tol:.0e})")
+        if not (rel <= tol and np.isfinite(a).all()):
+            raise RuntimeError(f"{what}: {name} departs from the CPU's")
+
+
+def _counts(m):
+    """A histogram measure's counts, its pair histograms too, as one flat
+    vector."""
+    return np.concatenate([m.hist.ravel(),
+                           getattr(m, "hist_pair", np.zeros(0)).ravel()])
+
+
+def _neighbor_match(what, rec, cpu):
+    """The neighbour measures' last sample on the card (the increment of
+    its histograms; OrientOrder's last block) against fresh CPU f64
+    instances fed the same snapshot."""
+    from gpumd_tpu_torch.measure.properties import OrientOrder
+
+    card = [m for m in rec.measures if hasattr(m, "hist")]
+    host = [m for m in cpu.measure_props if hasattr(m, "hist")]
+    for k, (mc, mh) in enumerate(zip(card, host)):
+        step = max(st for st in rec.hists if st % mc.interval == 0)
+        got = _counts(mc) - rec.hists[step][k]
+        want = _counts(mh)
+        rel = float(np.abs(got - want).sum() / max(want.sum(), 1.0))
+        print(f"[measure] {what}: {type(mc).__name__} at step {step}: "
+              f"{int(want.sum())} counts, summed |card - CPU| / counts "
+              f"{rel:.3e} (bound {MEASURE_HIST_TOL:.0e})")
+        if not rel <= MEASURE_HIST_TOL:
+            raise RuntimeError(f"{what}: {type(mc).__name__} departs")
+    for mc, mh in zip(
+            [m for m in rec.measures if isinstance(m, OrientOrder)],
+            [m for m in cpu.measure_props if isinstance(m, OrientOrder)]):
+        (step, got), (step_c, want) = mc.blocks[-1], mh.blocks[-1]
+        diff = float(np.abs(got - want).max())
+        print(f"[measure] {what}: OrientOrder at step {step}: max |q_l "
+              f"card - CPU| {diff:.3e} over {got.shape} (bound "
+              f"{MEASURE_Q_TOL:.0e})")
+        if step != step_c or not diff <= MEASURE_Q_TOL:
+            raise RuntimeError(f"{what}: OrientOrder departs")
+
+
+def _abs_state(st):
+    """The state with |v|, |W| and |U|: an observer of it sums the
+    magnitudes of the observer's terms (the scale float32 rounds)."""
+    return st._replace(velocity=st.velocity.abs(), virial=st.virial.abs(),
+                       potential_energy=st.potential_energy.abs())
+
+
+def _rdf_peak(d, pair):
+    """The radius of g(r)'s largest value in rdf.out's `pair` column."""
+    heads, rows = _split_rows(d / "rdf.out")
+    names = heads[0].split()
+    col = names.index(pair) if pair in names else names.index(
+        "-".join(reversed(pair.split("-"))))
+    return float(rows[np.argmax(rows[:, col]), 0])
+
+
+def _measure_physics(d, n):
+    """(a)'s outputs against what rocksalt PbTe at 300 K must give."""
+    a0 = 6.57
+    checks = []
+    peak = _rdf_peak(d, "Te-Pb")
+    checks.append((f"first Pb-Te peak of g(r) at {peak:.3f} A (a0/2 = "
+                   f"{a0 / 2:.3f} +- 0.1)", abs(peak - a0 / 2) <= 0.1))
+    _, adf = _split_rows(d / "adf.out")
+    low = adf[adf[:, 0] < 135.0]
+    high = adf[adf[:, 0] >= 135.0]
+    a_low = float(low[np.argmax(low[:, 1]), 0])
+    a_high = float(high[np.argmax(high[:, 1]), 0])
+    checks.append((f"ADF maxima in the bins from {a_low:g} and {a_high:g} "
+                   f"degrees (90 +- 4; above 170)",
+                   abs(a_low + 1.0 - 90.0) <= 4.0 and a_high >= 170.0))
+    _, q = _split_rows(d / "orientorder.out")
+    q4, q6 = (float(x) for x in q.mean(axis=0))
+    checks.append((f"mean q4 {q4:.4f}, q6 {q6:.4f} (simple cubic 0.764, "
+                   f"0.354, +- 15%)",
+                   abs(q4 / 0.764 - 1) <= 0.15 and abs(q6 / 0.354 - 1)
+                   <= 0.15))
+    _, mvac = _split_rows(d / "mvac.out")
+    checks.append((f"mvac.out's first row sums to {mvac[0, 1:].sum():.6f} "
+                   f"(3)", abs(mvac[0, 1:].sum() - 3.0) <= 1e-5))
+    _, chunk = _split_rows(d / "compute_chunk.out")
+    # an output's rows are the chunks 0, 1, ...; the box edge in float32
+    # (16 x 6.57 + 3e-6 A) leaves a 17th, sliver bin, as in the JAX app
+    out = np.cumsum(chunk[:, 0] == 0)
+    sums = np.array([chunk[out == k, 2].sum() for k in range(1, out[-1] + 1)])
+    bound = 0.05 * (len(chunk) // len(sums))
+    checks.append((f"compute_chunk counts of {len(chunk) // len(sums)} bins "
+                   f"sum to {sums.tolist()} ({n} +- {bound:g}, the printed "
+                   f".1f)", bool(np.all(np.abs(sums - n) <= bound))))
+    _, comp = _split_rows(d / "compute.out")
+    p = comp[:, 16:22].reshape(len(comp), 3, 2)  # momentum: (row, k, group)
+    ratio = float((np.abs(p.sum(axis=2)) / np.abs(p).sum(axis=2)).max())
+    checks.append((f"compute.out's momentum over both groups / the groups' "
+                   f"|momentum| at most {ratio:.3e} (1e-2)", ratio <= 1e-2))
+    for text, ok in checks:
+        print(f"[measure] (a) physics: {text}: {'ok' if ok else 'FAILED'}")
+    if not all(ok for _, ok in checks):
+        raise RuntimeError("measure deck (a): a physics check failed")
+
+
+def _measure_a(tmp, results):
+    """(a) PbTe 32,768 under nvt_ber with every snapshot measure, compute
+    and compute_chunk; in turns with the same deck with only dump_thermo
+    100."""
+    from gpumd_tpu_torch.measure.properties import (
+        ADF,
+        RDF,
+        AngularRDF,
+        OrientOrder,
+    )
+
+    steps = MEASURE_STEPS
+    d0 = tmp / "thermo"
+    _pbte_deck(d0, MEASURE_CELLS, "potential nep.txt\ntime_step 1\n"
+               "ensemble nvt_ber 300 300 100\ndump_thermo 100\n"
+               f"run {steps}\n", halves=True)
+    s0, _ = _session(d0, count=False)
+    d = tmp / "measures"
+    _pbte_deck(d, MEASURE_CELLS, MEASURE_A.format(steps=steps), halves=True)
+    s, counts, rec = _recorded_session(d, 5)
+    n = s._n
+    print(f"[measure] (a) PbTe {n}, nvt_ber, {steps} steps, chunks of 5: "
+          f"route {s.route_reason or 'compact engine'}; "
+          f"per_atom_virial={s.md.per_atom_virial}")
+    if s.route_reason is not None:
+        raise RuntimeError("measure deck (a): not on the compact engine")
+    _launch_check("(a) measure deck", counts,
+                  {**{k: steps for k in NEP_BASE}, "compact_rows": 2 * steps})
+    for k in NEP_BASE + ("compact_rows",):
+        results.setdefault(k, {})["launches_measure"] = counts[k]
+    w0, w1 = s0.run_seconds[0], s.run_seconds[0]
+    print(f"[measure] (a) in turns: dump_thermo 100 alone {w0:.3f} s "
+          f"({n * steps / w0:.6e} atom-step/s); the measure deck {w1:.3f} s "
+          f"({n * steps / w1:.6e} atom-step/s), of which the recorder "
+          f"{rec.seconds:.3f} s ({n * steps / (w1 - rec.seconds):.6e} "
+          f"atom-step/s without it): the measures "
+          f"{1e3 * (w1 - rec.seconds - w0) / steps:+.3f} ms a step")
+    _measure_physics(d, n)
+    t0 = time.time()
+    cpu = _replay(d, rec, last_only=(RDF, AngularRDF, ADF, OrientOrder))
+    print(f"[measure] (a) the CPU's float64 recomputation of "
+          f"{len(rec.snaps)} snapshots: {time.time() - t0:.1f} s")
+    _files_match("(a)", d, ("msd.out", "sdc.out", "dos.out", "mvac.out",
+                            "ic.out", "compute.out", "compute_chunk.out"))
+    _neighbor_match("(a)", rec, cpu)
+    _measure_costs(d, rec, steps, w1 - rec.seconds - w0)
+
+
+def _measure_costs(d, rec, steps, extra):
+    """What a sample of each of (a)'s measures costs on the card: fresh
+    instances from the deck's keywords on a card session, each sampling
+    the last recorded snapshot three times (host clock, synchronised);
+    the sum over the run's samples beside the measure deck's extra
+    seconds over the thermo deck."""
+    from gpumd_tpu_torch.app.gpumd import Session, parse_run_in
+
+    c = d / "cost"
+    c.mkdir()
+    for name in ("model.xyz", "nep.txt"):
+        (c / name).symlink_to(d / name)
+    s = Session(str(c), quiet=True, device="cuda")
+    for toks in parse_run_in(str(d / "run.in")):
+        if toks[0] != "run":
+            s.KEYWORDS[toks[0]](s, toks[1:])
+    step, snap, h = rec.snaps[-1]
+    st = _state64(snap, h, torch.float32, "cuda")
+    total, parts = 0.0, []
+    with torch.no_grad():
+        for m in list(s.measure_props) + list(s.properties):
+            fn = (m.process if hasattr(m, "process")
+                  else lambda sess, x, k, m=m: m.sample_state(sess, x, k))
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                fn(s, st, step)
+                torch.cuda.synchronize()
+                walls.append(time.time() - t0)
+            ms = 1e3 * min(walls[1:])
+            n_samples = steps // m.interval
+            total += ms * n_samples / 1e3
+            name = (m.process.__qualname__.split(".")[1]
+                    if hasattr(m, "process") else type(m).__name__)
+            parts.append(f"{name} {ms:.2f} ms x {n_samples}")
+    for f in s._files.values():
+        f.close()
+    print(f"[measure] (a) a sample on the card (best of the 2nd and 3rd "
+          f"of 3): {'; '.join(parts)}: {total:.3f} s of the run's "
+          f"{extra:.3f} s over the thermo deck (the rest: the chunks of 5 "
+          f"steps' reads and `to_input_order`)")
+
+
+def _identity_modes(path, n):
+    """eigenvector.in of the identity basis for n atoms: 3n ascending
+    omega^2, then mode m = (atom m // 3, direction m % 3), float32."""
+    nm = 3 * n
+    buf = np.zeros(nm + nm * nm, np.float32)
+    buf[:nm] = np.arange(1, nm + 1)
+    m = np.arange(nm)
+    buf[nm + m * nm + (m % 3) * n + m // 3] = 1.0
+    buf.tofile(path)
+    return nm
+
+
+def _measure_modal(tmp, results):
+    """(b) PbTe 1,728 (6^3 cells) NVE with compute_gkma over the identity
+    modes and compute virial jp, 200 steps; then 100 steps of
+    compute_hnema on the same modes."""
+    import os
+
+    from gpumd_tpu_torch.measure.properties import heat_current_5
+
+    nc, steps = MODAL_CELLS, MODAL_STEPS
+    d = tmp / "modal"
+    _pbte_deck(d, nc, "potential nep.txt\ntime_step 1\nensemble nve\n"
+               f"compute_gkma 10 1 {3 * 8 * nc ** 3} bin_size 1\n"
+               f"compute 0 10 10 virial jp\nrun {steps}\n", halves=True)
+    nm = _identity_modes(d / "eigenvector.in", 8 * nc ** 3)
+    s, counts, rec = _recorded_session(d, 10)
+    print(f"[measure] (b) PbTe {s._n}, {nm} identity modes, NVE, {steps} "
+          f"steps: route {s.route_reason or 'compact engine'}; "
+          f"per_atom_virial={getattr(s.md, 'per_atom_virial', None)} (12 "
+          f"channels); plan {_plan(s.md) if s.md is not None else None}")
+    if s.route_reason is not None or not s.md.per_atom_virial:
+        raise RuntimeError("measure deck (b): not on the compact engine at "
+                           "12 channels")
+    _launch_check("(b) modal deck", counts, {k: steps for k in NEP_BASE})
+    for k in NEP_BASE + ("compact_rows", "compact_windows"):
+        if counts[k]:
+            results.setdefault(k, {})["launches_measure_modal"] = counts[k]
+    _, jm = _split_rows(d / "heatmode.out")
+    jm = jm.reshape(-1, nm, 5)
+    worst = 0.0
+    for (step, snap, h), rows in zip(rec.snaps, jm):
+        j5 = heat_current_5(_state64(snap, h)).numpy()
+        worst = max(worst, float(np.abs(rows.sum(axis=0) - j5).max()
+                                 / np.abs(j5).max()))
+    print(f"[measure] (b) heatmode.out {jm.shape}: the modes' sum against "
+          f"heat_current_5 of each of {len(rec.snaps)} recorded snapshots "
+          f"(f64): max diff / max |J| {worst:.3e} (bound {MODAL_SUM_TOL})")
+    if len(jm) != steps // 10 or not worst <= MODAL_SUM_TOL:
+        raise RuntimeError("measure deck (b): the modal sum departs")
+    _replay(d, rec)
+    _files_match("(b)", d, ("heatmode.out", "compute.out"))
+    d2 = tmp / "hnema"
+    _pbte_deck(d2, nc, "potential nep.txt\ntime_step 1\nensemble nve\n"
+               f"compute_hnema 10 20 1e-4 0 0 1 {nm} bin_size 1\n"
+               f"run {HNEMA_STEPS}\n")
+    os.symlink(d / "eigenvector.in", d2 / "eigenvector.in")
+    s2, counts2 = _session(d2)
+    _launch_check("(b) hnema deck", counts2,
+                  {k: HNEMA_STEPS for k in NEP_BASE})
+    km = np.atleast_2d(np.loadtxt(d2 / "kappamode.out"))
+    print(f"[measure] (b) hnema: route {s2.route_reason or 'compact engine'}"
+          f", per_atom_virial={s2.md.per_atom_virial}; kappamode.out "
+          f"{km.shape}, finite {bool(np.isfinite(km).all())}, summed over "
+          f"modes (last output) {km[-nm:].sum(axis=0).tolist()}")
+    if (s2.route_reason is not None
+            or km.shape != (HNEMA_STEPS // 20 * nm, 5)
+            or not np.isfinite(km).all()):
+        raise RuntimeError("hnema deck: kappamode.out malformed")
+
+
+def _measure_list(tmp):
+    """(c) PbTe 32,768 on the list path, 100 steps: (c1) viscosity,
+    (c2) HNEMDEC colour flow."""
+    from gpumd_tpu_torch.measure.properties import onsager_flux, stress_6
+
+    steps = LIST_STEPS
+    for label, line, reason, out, shape in (
+            ("c1", "compute_viscosity 1 50", "per-step stress observer",
+             "viscosity.out", (min(50, steps), 13)),
+            ("c2", "compute_hnemdec 1 20 1e-4 0 0", "compute_hnemdec",
+             "onsager.out", (steps // 20, 9))):
+        d = tmp / label
+        _pbte_deck(d, MEASURE_CELLS, "potential nep.txt\ntime_step 1\n"
+                   f"ensemble nve\n{line}\nrun {steps}\n")
+        s, counts, rec = _recorded_session(d, 1)
+        print(f"[measure] ({label}) PbTe {s._n}, `{line}`, {steps} steps in "
+              f"{s.run_seconds[0]:.2f} s: engine auto: list path "
+              f"({s.route_reason})")
+        if s.route_reason != reason or s.md is not None:
+            raise RuntimeError(f"({label}): not on the list path for "
+                               f"{reason!r}")
+        _launch_check(f"({label})", counts, {}, never=tuple(counts))
+        rows = np.atleast_2d(np.loadtxt(d / out))
+        if rows.shape != shape or not np.isfinite(rows).all():
+            raise RuntimeError(f"({label}): {out} {rows.shape}, expected "
+                               f"{shape} finite")
+        ons = [m for m in rec.measures if hasattr(m, "mass_type")]
+        worst = 0.0
+        with torch.no_grad():
+            for step, snap, h in rec.snaps:
+                st = _state64(snap, h)
+                card = _state64(snap, h, torch.float32, "cuda")
+                if ons:
+                    m = ons[0]
+                    fn = lambda x: onsager_flux(x, m.mass_type,  # noqa
+                                                m.num_types)
+                else:
+                    fn = stress_6
+                got = fn(card).double().cpu()
+                want, scale = fn(st), fn(_abs_state(st))
+                worst = max(worst, float(((got - want).abs() / scale).max()))
+        print(f"[measure] ({label}) {'onsager_flux' if ons else 'stress_6'} "
+              f"of {len(rec.snaps)} recorded snapshots, card against CPU "
+              f"f64: max diff / the terms' magnitude {worst:.3e} (bound "
+              f"{MEASURE_FLUX_TOL:.0e}); {out} {rows.shape}")
+        # the driving force ends with the run
+        if not worst <= MEASURE_FLUX_TOL or s.ff.hnemdec_mode is not None:
+            raise RuntimeError(f"({label}): the observer departs")
+        _replay(d, rec)
+        _files_match(f"({label})", d, (out,))
+
+
+def phase_measure(results):
+    """The measure keywords through Session on the card (phase 13 of the
+    module docstring)."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for label, fn in (("a", lambda: _measure_a(tmp, results)),
+                          ("b", lambda: _measure_modal(tmp, results)),
+                          ("c", lambda: _measure_list(tmp))):
+            t1 = time.time()
+            fn()
+            print(f"[measure] ({label}) done in {time.time() - t1:.1f} s")
+    print(f"[measure] phase done in {time.time() - t0:.1f} s")
+
+
 def _force_repeats(md, state, k=5):
     """One force pass on one state repeated k times: the largest
     difference of the forces, per-atom energies and virials from the
@@ -3820,7 +4368,8 @@ def main():
     ap.add_argument("--phases", default="build,kernels,md,npt-md,hnemd-md,"
                     "drift,list-md,train,time,dense-kernels,dense-md,"
                     "dense-time,"
-                    "tersoff-kernels,tersoff-md,tersoff-time,probes,app")
+                    "tersoff-kernels,tersoff-md,tersoff-time,probes,app,"
+                    "measure")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: the probes "
                     "phase then times its blocked gather and its wrappers' "
@@ -3855,6 +4404,7 @@ def main():
                 ("tersoff-time", lambda r: phase_tersoff_time(r, pot_path)),
                 ("probes", lambda r: phase_probes(r, args.parent)),
                 ("app", lambda r: phase_app(r, pot_path)),
+                ("measure", phase_measure),
                 ("app-spread", lambda r: phase_app_spread(r, pot_path))):
             if name in phases:
                 fn(results)

@@ -9,7 +9,8 @@ The handlers keep the JAX module's names (`kw_<keyword>`).
 
 `engine auto` (the default) sends a run that the compact engine takes
 (one NEP or Tersoff-1989 potential, an ensemble of DENSE_ENSEMBLES, no
-fix/move group, no driver, a box of >= 3 cells of rc + skin an axis) to
+fix/move group, no driver, no HNEMDEC and no per-step stress or Onsager
+observer, a box of >= 3 cells of rc + skin an axis) to
 DenseNEPMD or CompactTersoffMD, whose steps launch the hand-written CUDA
 kernels on the card; anything else runs the general (list) path,
 ForceField + integrate/run.py, and the log says why
@@ -20,7 +21,9 @@ versions on the CPU), `engine list` the list path.
 The run loop goes in chunks whose length is the gcd of the observers'
 intervals, at most MAX_CHUNK steps: the host reads the state (overflow,
 a finite-energy check, the input-order snapshot) and writes the .out
-files once a chunk, never once a step.
+files once a chunk, never once a step.  The measure keywords sample that
+snapshot (measure/properties.py); the list path's per-step observer adds
+the heat current, stress_6 and the Onsager fluxes its measures consume.
 
 Keywords whose modules are not ported raise NotImplementedError naming
 the ROADMAP item that ports them; an unknown keyword raises ValueError.
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import math
 import os
 import sys
@@ -48,7 +52,7 @@ from gpumd_tpu_torch.bench import prepare_device
 from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
 from gpumd_tpu_torch.engine.nep_compact import CompactSpec, plan_grid_compact
 from gpumd_tpu_torch.engine.tersoff_compact import CompactTersoffMD
-from gpumd_tpu_torch.forcefield import ForceField
+from gpumd_tpu_torch.forcefield import ForceField, hnemdec_coefficients
 from gpumd_tpu_torch.integrate.drivers import (
     AddEfield,
     AddForce,
@@ -74,10 +78,23 @@ from gpumd_tpu_torch.integrate.velocity import (
 )
 from gpumd_tpu_torch.io.xyz import XYZFrame, read_xyz, write_xyz
 from gpumd_tpu_torch.measure.properties import (
+    ADF,
+    DOS,
     HAC,
+    MSD,
+    RDF,
+    SDC,
     SHC,
+    AngularRDF,
+    HNEMDECOnsager,
     HNEMDKappa,
+    IonicConductivity,
+    ModalAnalysis,
+    OrientOrder,
+    Viscosity,
     heat_current_5,
+    onsager_flux,
+    stress_6,
 )
 from gpumd_tpu_torch.model.box import Box
 from gpumd_tpu_torch.model.groups import Groups
@@ -85,7 +102,11 @@ from gpumd_tpu_torch.model.state import MDState, make_state
 from gpumd_tpu_torch.potentials.lj import LJ
 from gpumd_tpu_torch.potentials.nep.model import NEP
 from gpumd_tpu_torch.potentials.tersoff import Tersoff1989
-from gpumd_tpu_torch.units import PRESSURE_UNIT_CONVERSION, TIME_UNIT_CONVERSION
+from gpumd_tpu_torch.units import (
+    K_B,
+    PRESSURE_UNIT_CONVERSION,
+    TIME_UNIT_CONVERSION,
+)
 
 # the session's floating-point type: the kernels take float32, and the JAX
 # package runs float32 on the TPU
@@ -106,17 +127,13 @@ DENSE_ENSEMBLES = (
 UNPORTED = {
     # item 6: the rest of the app surface
     **{kw: 6 for kw in (
-        "compute", "compute_chunk", "compute_cohesive", "compute_elastic",
-        "change_box", "deposit", "deform", "dump_observer", "active",
-        "compute_extrapolation", "compute_dpdt", "compute_es", "dump_cg",
-        "dump_shock_nemd", "dump_beads", "dump_dipole",
-        "dump_polarizability", "kspace", "plumed", "dump_netcdf")},
-    # item 8: measure
-    **{kw: 8 for kw in (
-        "compute_msd", "compute_sdc", "compute_dos", "compute_viscosity",
-        "compute_rdf", "compute_angular_rdf", "compute_adf",
-        "compute_orientorder", "compute_hnema", "compute_gkma",
-        "compute_hnemdec", "compute_lsqt", "compute_ic")},
+        "compute_cohesive", "compute_elastic", "change_box", "deposit",
+        "deform", "dump_observer", "active", "compute_extrapolation",
+        "compute_dpdt", "compute_es", "dump_cg", "dump_shock_nemd",
+        "dump_beads", "dump_dipole", "dump_polarizability", "kspace",
+        "plumed", "dump_netcdf")},
+    # item 8: measure (the tight-binding transport solver)
+    "compute_lsqt": 8,
     # item 9: potentials
     "dftd3": 9,
     # item 10: MC, minimize, phonon
@@ -171,6 +188,9 @@ class PropertyRequest:
     interval: int
     process: Callable  # (session, state, global_step) -> None
     finalize: Optional[Callable] = None
+    # samples per-atom virials (the compact engine must not spread the
+    # total over the atoms)
+    needs_atom_virial: bool = False
 
 
 def _bounded_chunk(interval_gcd: int, n_steps: int) -> int:
@@ -210,7 +230,8 @@ def thermo_row(state: MDState) -> List[float]:
 
 def _dense_blocker(session) -> Optional[str]:
     """What keeps a run off the compact engine whatever the device: the
-    engine does not carry these into its slot order."""
+    engine does not carry these into its slot order, nor apply the HNEMDEC
+    driving force, nor observe a step's stress or Onsager fluxes."""
     if getattr(session, "move_pin", None) is not None:
         return "move groups"
     if session.mobile_mask is not None:
@@ -220,6 +241,13 @@ def _dense_blocker(session) -> Optional[str]:
     if session.drivers:
         return "add_force/add_efield/add_random_force/electron_stop/" \
                "add_spring drivers"
+    if session.ff is not None and session.ff.hnemdec_mode is not None:
+        return "compute_hnemdec"
+    if any(getattr(m, "needs_stress", False) for m in session.measure_props):
+        return "per-step stress observer"
+    if any(getattr(m, "needs_onsager", False)
+           for m in session.measure_props):
+        return "onsager flux observer"
     return None
 
 
@@ -694,7 +722,8 @@ class Session:
         needs_heat = any(getattr(m, "needs_heat", False)
                          for m in self.measure_props)
         needs_av = any(getattr(m, "needs_atom_virial", False)
-                       for m in self.measure_props)
+                       for m in self.measure_props) or any(
+            p.needs_atom_virial for p in self.properties)
         hnemd_fe = self.ff.hnemd_fe
         pav = needs_heat or needs_av or hnemd_fe is not None
         n = self._n
@@ -783,7 +812,8 @@ class Session:
 
     def _finish_run(self):
         """Reset the per-run observers and drivers (ref: run.cu:329-340
-        finalize()); the HNEMD driving force is per run too."""
+        finalize()); the HNEMD and HNEMDEC driving forces are per run
+        too."""
         for m in self.measure_props:
             m.postprocess(self)
         self.measure_props = []
@@ -792,8 +822,11 @@ class Session:
                 prop.finalize(self)
         self.properties = []
         self.drivers = []
-        if self.ff is not None and self.ff.hnemd_fe is not None:
-            self.ff = dataclasses.replace(self.ff, hnemd_fe=None)
+        if self.ff is not None and (self.ff.hnemd_fe is not None
+                                    or self.ff.hnemdec_mode is not None):
+            self.ff = dataclasses.replace(
+                self.ff, hnemd_fe=None, hnemdec_mode=None, hnemdec_fe=None,
+                hnemdec_coef=None)
 
     def _wire_nep_temperature(self, ens):
         """Temperature-dependent NEP (model_type 3): feed the ensemble's
@@ -861,7 +894,21 @@ class Session:
             math.gcd(*intervals) if intervals else n_steps, n_steps)
         needs_heat = any(getattr(m, "needs_heat", False)
                          for m in self.measure_props)
-        observer = heat_current_5 if needs_heat else (lambda s: None)
+        needs_stress = any(getattr(m, "needs_stress", False)
+                           for m in self.measure_props)
+        ons = next((m for m in self.measure_props
+                    if getattr(m, "needs_onsager", False)), None)
+        observed = needs_heat or needs_stress or ons is not None
+
+        def observer(s):
+            """A step's heat current, stress and Onsager fluxes (each None
+            unless a measure consumes it)."""
+            if not observed:
+                return None
+            return (heat_current_5(s) if needs_heat else None,
+                    stress_6(s) if needs_stress else None,
+                    onsager_flux(s, ons.mass_type, ons.num_types)
+                    if ons is not None else None)
         st = self.state
         with torch.no_grad():
             # loud neighbour-capacity check: the reference aborts on
@@ -909,12 +956,18 @@ class Session:
             if done % decile < chunk and n_steps >= 10:
                 self.log(f"    {int(100 * done / n_steps)}% of the run "
                          f"completed ({done}/{n_steps} steps)")
-            if needs_heat:
+            if observed:
+                j5, s6, fluxes = obs
                 for m in self.measure_props:
                     if getattr(m, "needs_heat", False):
-                        m.consume_heat(obs, step0)
+                        m.consume_heat(j5, step0)
                         if hasattr(m, "maybe_output"):
                             m.maybe_output(self)
+                    if getattr(m, "needs_stress", False):
+                        m.consume_stress(s6, step0)
+                    if getattr(m, "needs_onsager", False):
+                        m.consume_onsager(fluxes, step0)
+                        m.maybe_output(self)
             for m in self.measure_props:
                 if hasattr(m, "sample_state") and done % m.interval == 0:
                     m.sample_state(self, state, self.global_step)
@@ -962,6 +1015,339 @@ class Session:
             SHC(int(args[0]), int(args[1]), int(args[2]), int(args[3]),
                 float(args[4]), self.dt, group_mask=group_mask))
         self.log(f"compute_shc {args}")
+
+    def kw_compute_msd(self, args):
+        self.measure_props.append(MSD(int(args[0]), int(args[1]), self.dt))
+        self.log(f"compute_msd {args}")
+
+    def kw_compute_sdc(self, args):
+        self.measure_props.append(SDC(int(args[0]), int(args[1]), self.dt))
+        self.log(f"compute_sdc {args}")
+
+    def kw_compute_dos(self, args):
+        num_points = None
+        if "num_dos_points" in args:
+            num_points = int(args[args.index("num_dos_points") + 1])
+        self.measure_props.append(
+            DOS(int(args[0]), int(args[1]), float(args[2]), self.dt,
+                num_points=num_points))
+        self.log(f"compute_dos {args}")
+
+    def kw_compute_ic(self, args):
+        """compute_ic sample_int Nc type charge -> ic.out
+        (ref: iron_conductivity.cu)."""
+        self.measure_props.append(
+            IonicConductivity(int(args[0]), int(args[1]), int(args[2]),
+                              float(args[3]), self.dt,
+                              self._ensemble_temperature()))
+        self.log(f"compute_ic {args}")
+
+    def kw_compute_viscosity(self, args):
+        self.measure_props.append(
+            Viscosity(int(args[0]), int(args[1]), self.dt,
+                      self._ensemble_temperature()))
+        self.log(f"compute_viscosity {args}")
+
+    def kw_compute_hnemdec(self, args):
+        """compute_hnemdec <mode> <output_interval> fe_x fe_y fe_z ->
+        onsager.out (ref: hnemdec_kappa.cu:252-280, force.cu:355-422).
+        mode 0 = heat flow; mode k in [1, num_types] = color flow of
+        species k-1."""
+        self._require_state()
+        mode = int(args[0])
+        interval = int(args[1])
+        fe = (float(args[2]), float(args[3]), float(args[4]))
+        num_types = max(1, len(self.type_names))
+        if not 0 <= mode <= num_types:
+            raise ValueError(f"compute_hnemdec: mode {mode} out of range")
+        t = self._ensemble_temperature()
+        coef, mass_type, factor = hnemdec_coefficients(
+            mode, _np(self.state.mass), _np(self.state.type), num_types)
+        if mode == 0:
+            coef = tuple(c * (K_B * t) if i % 2 == 1 else c
+                         for i, c in enumerate(coef))
+        self.ff = dataclasses.replace(self.ff, hnemdec_mode=mode,
+                                      hnemdec_fe=fe, hnemdec_coef=coef)
+        prop = HNEMDECOnsager(mode, interval, fe, t, num_types, factor)
+        prop.mass_type = mass_type
+        self.measure_props.append(prop)
+        self.log(f"compute_hnemdec {args}")
+
+    def _modal_binning(self, args, what):
+        if args[0] == "bin_size":
+            return {"bin_size": int(args[1])}
+        if args[0] == "f_bin_size":
+            return {"f_bin_size": float(args[1])}
+        raise ValueError(f"{what}: invalid binning keyword")
+
+    def kw_compute_gkma(self, args):
+        """compute_gkma sample_int first_mode last_mode bin_size|f_bin_size x
+        -> heatmode.out (ref: modal_analysis.cu:650-748)."""
+        self.measure_props.append(ModalAnalysis(
+            "gkma", int(args[0]), int(args[1]), int(args[2]),
+            eig_path=os.path.join(self.workdir, "eigenvector.in"),
+            **self._modal_binning(args[3:5], "compute_gkma")))
+        self.log(f"compute_gkma {args}")
+
+    def kw_compute_hnema(self, args):
+        """compute_hnema sample_int output_int fe_x fe_y fe_z first last
+        bin_size|f_bin_size x -> kappamode.out; also applies the HNEMD
+        driving force (ref: modal_analysis.cu:751-830)."""
+        self._require_state()
+        fe_vec = (float(args[2]), float(args[3]), float(args[4]))
+        self.ff = dataclasses.replace(self.ff, hnemd_fe=fe_vec)
+        self.measure_props.append(ModalAnalysis(
+            "hnema", int(args[0]), int(args[5]), int(args[6]),
+            output_interval=int(args[1]),
+            fe=math.sqrt(sum(x * x for x in fe_vec)),
+            temperature=self._ensemble_temperature(),
+            eig_path=os.path.join(self.workdir, "eigenvector.in"),
+            **self._modal_binning(args[7:9], "compute_hnema")))
+        self.log(f"compute_hnema {args}")
+
+    def kw_compute_rdf(self, args):
+        self.measure_props.append(RDF(
+            float(args[0]), int(args[1]), int(args[2]),
+            num_types=max(1, len(self.type_names)),
+            type_names=self.type_names))
+        self.log(f"compute_rdf {args}")
+
+    def kw_compute_angular_rdf(self, args):
+        """compute_angular_rdf r_cut r_bins theta_bins interval
+        [atom_a atom_b]... -> angular_rdf.out
+        (ref: angular_rdf.cu:440-520 parse)."""
+        pairs = [(int(args[i]), int(args[i + 1]))
+                 for i in range(4, len(args), 2)]
+        self.measure_props.append(AngularRDF(
+            float(args[0]), int(args[1]), int(args[2]), int(args[3]), pairs))
+        self.log(f"compute_angular_rdf {args}")
+
+    def kw_compute_adf(self, args):
+        """compute_adf interval bins rc_min rc_max (global) or
+        compute_adf interval bins (i j k rcminj rcmaxj rcmink rcmaxk)xM
+        (ref: adf.cu:371-460)."""
+        if len(args) == 4:
+            prop = ADF(int(args[0]), int(args[1]), rc_min=float(args[2]),
+                       rc_max=float(args[3]))
+        elif len(args) > 4 and (len(args) - 2) % 7 == 0:
+            rest = args[2:]
+            triples = [
+                (int(t[0]), int(t[1]), int(t[2]), float(t[3]), float(t[4]),
+                 float(t[5]), float(t[6]))
+                for t in (rest[7 * m:7 * m + 7]
+                          for m in range(len(rest) // 7))]
+            prop = ADF(int(args[0]), int(args[1]), triples=triples)
+        else:
+            raise ValueError(
+                "compute_adf needs 4 parameters or 2 + 7*Ntriples")
+        self.measure_props.append(prop)
+        self.log(f"compute_adf {args}")
+
+    def kw_compute_orientorder(self, args):
+        """compute_orientorder <interval> cutoff rc|nnn n <ndeg> l...
+        [average] [wl] [wlhat] (ref: orientorder.cu:795-860)."""
+        interval = int(args[0])
+        mode = args[1]
+        if mode not in ("cutoff", "nnn"):
+            raise ValueError("compute_orientorder mode must be cutoff or nnn")
+        mode_param = float(args[2]) if mode == "cutoff" else int(args[2])
+        ndeg = int(args[3])
+        degrees = [int(x) for x in args[4:4 + ndeg]]
+        flags = [bool(int(x)) for x in args[4 + ndeg:]] + [False] * 3
+        self.measure_props.append(OrientOrder(
+            interval, mode, mode_param, degrees, average=flags[0],
+            wl=flags[1], wlhat=flags[2]))
+        self.log(f"compute_orientorder {args}")
+
+    def kw_compute(self, args):
+        """compute <method> <sample_int> <output_int> temperature|potential|
+        force|virial|jp|jk|momentum ... -> compute.out.
+
+        Column layout as the reference (ref: compute.cu:369-560): the
+        quantity order is fixed (T, U, F, W, jp, jk, p) whatever the
+        keyword order; per quantity one column a group.  All columns are
+        group sums time-averaged over the output window, except temperature,
+        a per-atom average; with temperature the two cumulative bath
+        energies (source, sink) follow, the NEMD heat-flux measurement:
+        zero until the heat-bath ensembles are ported (ROADMAP queue 1,
+        item 7).  A sample's sums run in float64 on the state's device; the
+        rows reach the host at output."""
+        method = int(args[0])
+        sample_interval = int(args[1])
+        output_interval = int(args[2])
+        quantities = set(args[3:])
+        known = {"temperature", "potential", "force", "virial", "jp", "jk",
+                 "momentum"}
+        bad = quantities - known
+        if bad:
+            raise ValueError(f"compute: unknown quantities {sorted(bad)}")
+        f64 = torch.float64
+        onehot = self.groups.onehot(method, dtype=f64, device=self.device)
+        kt_denom = torch.as_tensor(
+            3.0 * np.maximum(self.groups.sizes(method), 1) * K_B, dtype=f64,
+            device=self.device)
+        rows = []
+        f = self._file("compute.out")
+
+        def process(session, state, step):
+            v, mass = state.velocity.to(f64), state.mass.to(f64)
+            ek2 = mass * torch.sum(v ** 2, dim=-1)
+            cols = []
+            if "temperature" in quantities:
+                cols.append((ek2 @ onehot) / kt_denom)
+            if "potential" in quantities:
+                cols.append(state.potential_energy.to(f64) @ onehot)
+            if "force" in quantities:
+                cols.append(state.force.to(f64).T @ onehot)
+            w = state.virial.to(f64)
+            if "virial" in quantities:  # (N, 3, 3) row-major
+                cols.append(w.reshape(-1, 9).T @ onehot)
+            if "jp" in quantities:
+                cols.append(torch.einsum("nab,nb->na", w, v).T @ onehot)
+            if "jk" in quantities:
+                e = 0.5 * ek2 + state.potential_energy.to(f64)
+                cols.append((v * e[:, None]).T @ onehot)
+            if "momentum" in quantities:
+                cols.append((mass[:, None] * v).T @ onehot)
+            rows.append(torch.cat([c.reshape(-1) for c in cols]))
+            if len(rows) % max(output_interval // sample_interval, 1) == 0:
+                out = list(_np(torch.stack(rows).mean(dim=0)))
+                if "temperature" in quantities:
+                    out += [0.0, 0.0]  # the heat baths' energies
+                f.write("".join(f"{x:15.6e}" for x in out) + "\n")
+                f.flush()
+                rows.clear()
+
+        self.properties.append(PropertyRequest(
+            sample_interval, process,
+            needs_atom_virial=bool({"virial", "jp"} & quantities)))
+        self.log(f"compute: method {method} {sorted(quantities)}")
+
+    def kw_compute_chunk(self, args):
+        """compute_chunk sample_int output_int bin/1d|2d|3d (axis lower
+        delta)... props... -> compute_chunk.out
+        (ref: compute_chunk.cu:147-350).
+
+        Row format per chunk per output: chunk_id coord(s) count props...
+        Temperature from per-chunk kinetic energy; density/number uses the
+        chunk volume; velocities/forces are per-atom chunk averages.  The
+        bins and their float64 sums stay on the state's device until an
+        output."""
+        sample_interval = int(args[0])
+        output_interval = int(args[1])
+        ndim = {"bin/1d": 1, "bin/2d": 2, "bin/3d": 3}[args[2]]
+        vol = float(self.box.volume)
+        thick = self.box.thickness().tolist()
+        axes, deltas, nlayers, box_len = [], [], [], []
+        i = 3
+        for _ in range(ndim):
+            ax = {"x": 0, "y": 1, "z": 2}[args[i]]
+            if args[i + 1] != "lower":
+                raise ValueError("compute_chunk: origin must be lower")
+            delta = float(args[i + 2])
+            axes.append(ax)
+            deltas.append(delta)
+            box_len.append(thick[ax])
+            nlayers.append(max(int(np.ceil(thick[ax] / delta)), 1))
+            i += 3
+        props = list(args[i:])
+        known = ("temperature", "density/number", "density/mass",
+                 "vx", "vy", "vz", "fx", "fy", "fz")
+        for p in props:
+            if p not in known:
+                raise ValueError(f"compute_chunk: invalid property {p!r}")
+        nchunk = int(np.prod(nlayers))
+
+        def bin_width(d, k):
+            rem = box_len[d] - (nlayers[d] - 1) * deltas[d]
+            return deltas[d] if k < nlayers[d] - 1 else rem
+
+        def bin_center(d, k):
+            if k < nlayers[d] - 1:
+                return (k + 0.5) * deltas[d]
+            rem = box_len[d] - (nlayers[d] - 1) * deltas[d]
+            return (nlayers[d] - 1) * deltas[d] + rem * 0.5
+
+        # chunk volumes + centers, reference ordering (fastest axis first)
+        volumes = np.zeros(nchunk)
+        coords = np.zeros((nchunk, ndim))
+        for c, combo in enumerate(itertools.product(
+                *reversed([range(nl) for nl in nlayers]))):
+            combo = tuple(reversed(combo))  # (i0, i1, i2) fastest first
+            if ndim == 1:
+                w = (vol / box_len[0]) * bin_width(0, combo[0])
+            elif ndim == 2:
+                third = 3 - axes[0] - axes[1]
+                w = (bin_width(0, combo[0]) * bin_width(1, combo[1])
+                     * thick[third])
+            else:
+                w = np.prod([bin_width(d, combo[d]) for d in range(3)])
+            volumes[c] = w
+            coords[c] = [bin_center(d, combo[d]) for d in range(ndim)]
+
+        f64 = torch.float64
+        count = torch.zeros(nchunk + 1, dtype=f64, device=self.device)
+        sums = torch.zeros((len(props), nchunk + 1), dtype=f64,
+                           device=self.device)
+        samples = [0]
+        fout = self._file("compute_chunk.out")
+
+        def process(session, state, step):
+            pos = state.box.wrap(state.position)
+            mask = state.mask > 0
+            bins = torch.zeros(pos.shape[0], dtype=torch.int64,
+                               device=pos.device)
+            mult = 1
+            for d in range(ndim):
+                b = (pos[:, axes[d]] / deltas[d]).to(torch.int64)
+                bins += torch.clamp(b, 0, nlayers[d] - 1) * mult
+                mult *= nlayers[d]
+            bins = torch.where(mask, bins, nchunk)  # padding: overflow bin
+            count.add_(torch.bincount(bins, minlength=nchunk + 1))
+            v, m = state.velocity.to(f64), state.mass.to(f64)
+            for j, p in enumerate(props):
+                if p == "temperature":
+                    val = 0.5 * m * torch.sum(v ** 2, dim=-1)
+                elif p == "density/number":
+                    val = torch.ones_like(m)
+                elif p == "density/mass":
+                    val = m
+                elif p[0] == "v":
+                    val = v[:, "xyz".index(p[1])]
+                else:
+                    val = state.force[:, "xyz".index(p[1])].to(f64)
+                sums[j].add_(torch.bincount(bins, weights=val * mask,
+                                            minlength=nchunk + 1))
+            samples[0] += 1
+            if samples[0] % output_interval:
+                return
+            ns = samples[0]
+            cnts = _np(count)[:nchunk] / ns
+            vals = _np(sums)[:, :nchunk] / ns
+            for c in range(nchunk):
+                cnt = cnts[c]
+                row = [f"{c} "] + [f"{coords[c][d]:.6f} "
+                                   for d in range(ndim)]
+                row.append(f"{cnt:.1f} ")
+                for j, p in enumerate(props):
+                    s = vals[j, c]
+                    if p == "temperature":
+                        t = (2.0 * s / (K_B * 3.0 * cnt)) if cnt > 0 else 0.0
+                        row.append(f"{t:.10e} ")
+                    elif p == "density/number":
+                        row.append(f"{cnt / volumes[c]:.10e} ")
+                    elif p == "density/mass":
+                        row.append(f"{s / volumes[c]:.10e} ")
+                    else:
+                        row.append(f"{s / cnt if cnt > 0 else 0.0:.10e} ")
+                fout.write("".join(row) + "\n")
+            fout.flush()
+            count.zero_()
+            sums.zero_()
+            samples[0] = 0
+
+        self.properties.append(PropertyRequest(sample_interval, process))
+        self.log(f"compute_chunk {args}")
 
     # --------------------------------------------------------------- drivers
 
@@ -1053,6 +1439,20 @@ class Session:
         "add_random_force": kw_add_random_force,
         "electron_stop": kw_electron_stop,
         "compute_shc": kw_compute_shc,
+        "compute_msd": kw_compute_msd,
+        "compute_sdc": kw_compute_sdc,
+        "compute_dos": kw_compute_dos,
+        "compute_ic": kw_compute_ic,
+        "compute_viscosity": kw_compute_viscosity,
+        "compute_hnemdec": kw_compute_hnemdec,
+        "compute_gkma": kw_compute_gkma,
+        "compute_hnema": kw_compute_hnema,
+        "compute_rdf": kw_compute_rdf,
+        "compute_angular_rdf": kw_compute_angular_rdf,
+        "compute_adf": kw_compute_adf,
+        "compute_orientorder": kw_compute_orientorder,
+        "compute": kw_compute,
+        "compute_chunk": kw_compute_chunk,
         "move": kw_move,
         "run": kw_run,
     }

@@ -231,13 +231,15 @@ def test_unknown_keyword_raises_value_error(tmp_path):
         tapp.Session(str(d), quiet=True, device="cpu").execute()
 
 
-@pytest.mark.parametrize("example, item", [("02_silicon_thermal", 9),
-                                           ("01_argon_melt", 8)])
+@pytest.mark.parametrize("example, item", [
+    ("02_silicon_thermal", 9), ("01_argon_melt", 6),
+    ("potential lj.txt\ncompute_lsqt x 10 100 -5 5 6\nrun 10\n", 8)])
 def test_unported_keywords_name_their_item(tmp_path, example, item):
-    """examples/02's `potential sw.txt` (item 9) and examples/01's
-    `compute_msd` (item 8) raise NotImplementedError naming their ROADMAP
-    item, before any run."""
-    lines = (ROOT / "examples" / example / "run.in").read_text()
+    """examples/02's `potential sw.txt` (item 9), examples/01's
+    `dump_netcdf` (item 6) and `compute_lsqt` (item 8) raise
+    NotImplementedError naming their ROADMAP item, before any run."""
+    path = ROOT / "examples" / example / "run.in"
+    lines = path.read_text() if "\n" not in example else example
     d = _deck_dir(tmp_path, lines, {"sw.txt": "sw_1985 1 Si\n"})
     s = tapp.Session(str(d), quiet=True, device="cpu")
     with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
@@ -246,10 +248,10 @@ def test_unported_keywords_name_their_item(tmp_path, example, item):
 
 
 def test_every_jax_keyword_is_ported_or_raises():
-    """The JAX app's 62 keywords: 25 ported, the rest raise with their
+    """The JAX app's 62 keywords: 39 ported, the rest raise with their
     item; the two tables do not overlap."""
     jk, tk = set(japp.Session.KEYWORDS), set(tapp.Session.KEYWORDS)
-    assert len(jk) == 62 and len(tk) == 25 and tk <= jk
+    assert len(jk) == 62 and len(tk) == 39 and tk <= jk
     assert set(tapp.UNPORTED) == jk - tk
     assert set(tapp.UNPORTED.values()) <= {6, 8, 9, 10}
 

@@ -4,8 +4,8 @@ app, on the CPU.
 `dense_route_reason(session, ens, "cuda")` is asked on the CPU, with
 nothing launched: a NEP or Tersoff-1989 deck under each of the compact
 engine's ensembles goes to the compact engine; LJ, drivers, fix, move
-and a box under 3 cells an axis go to the list path with their reason
-(HNEMDEC and a second potential raise at their keyword: not ported); on
+and a box under 3 cells an axis go to the list path with their reason,
+HNEMDEC too (a second potential raises at its keyword: not ported); on
 the CPU device every deck takes the list path.  Then decks run under `engine dense` (the port's compact engine on
 its kernels' plain versions) against the JAX app's `engine list` (the
 JAX package holds its list path against its compact engine in its own
@@ -142,17 +142,18 @@ def test_list_route_for_lj_hnemdec_two_potentials_thin_box(tmp_path,
                     "potential nep.txt\n")
     assert "box too thin" in tapp.dense_route_reason(thin, tnve.NVE(),
                                                      "cuda")
-    # HNEMDEC (ROADMAP queue 1, item 8) and a second potential line
-    # (dump_observer's observe/average modes, item 6) are not ported: their
-    # keywords raise before any route is asked
+    hnemdec = _session(tmp_path / "hnemdec", write_pbte,
+                       "potential nep.txt\ncompute_hnemdec 1 1 1e-4 0 0\n")
+    assert tapp.dense_route_reason(hnemdec, tnve.NVE(),
+                                   "cuda") == "compute_hnemdec"
+    # a second potential line (dump_observer's observe/average modes,
+    # ROADMAP queue 1, item 6) is not ported: its keyword raises before
+    # any route is asked
     write_pbte(tmp_path / "two")
-    for deck, item in (("compute_hnemdec 1 1e-4 0 0\n", 8),
-                       ("potential nep.txt\n", 6)):
-        (tmp_path / "two" / "run.in").write_text("potential nep.txt\n"
-                                                 + deck)
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tapp.Session(str(tmp_path / "two"), quiet=True,
-                         device="cpu").execute()
+    (tmp_path / "two" / "run.in").write_text("potential nep.txt\n" * 2)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tapp.Session(str(tmp_path / "two"), quiet=True,
+                     device="cpu").execute()
 
 
 def test_engine_dense_refuses_what_it_cannot_carry(tmp_path):
