@@ -25,7 +25,10 @@ Phases:
              scatter and the fold with per-atom virials off and on, 4 and
              12 channels, as the HNEMD path gives them); the compactions
              bit for bit, and compact_rows == compact_windows of the
-             packed window on the rows pass
+             packed window on the rows pass; after each pass at 4 and at
+             12 channels a [design] line for the scatter (ptxas, shared
+             memory a CTA, CTAs an SM by the occupancy query, channels a
+             CTA, grid, ms, TB/s, share of its byte bound)
   3. md      32,768 atoms, 300 K, dt 1 fs: 200 NVE steps on the default
              rung from the lattice (compact_rows), 50 from the jittered
              state (compact_windows) and 50 on the full-window rung: finite,
@@ -92,7 +95,9 @@ Phases:
              its plain version and, where one PyTorch call computes the
              same function, that call (CUDA events), and for the fold a
              [design] line (ptxas, unit width, threads, rows, resident
-             blocks an SM against the plan, TB/s); the wall time of one
+             blocks an SM against the plan, TB/s), for the scatter one
+             as in `kernels` (also at 12 channels on the HNEMD rung and,
+             in `tersoff-time`, on the contract pvals); the wall time of one
              rebuild on each, and 500 more steps of the lattice-start runs
              with their rebuilds counted and included; the default rung
              under NPTBerendsen (a device profile; then NVE and NPT in
@@ -676,6 +681,8 @@ def phase_kernels(results):
                     tag = f"{name}[{label}{',pav' if pav else ''}]"
                     _compare(tag, name, kern(), plain(), results, failures,
                              pav=pav)
+                _scatter_design(f"{label}{', 12 channels' if pav else ''}",
+                                keep, sysm.md.cplan)
                 if label == "lists-rows" and not pav:
                     cp, cidx = sysm.md.cplan, keep["cidx"]
                     for src in (keep["garr"], keep["rows_p"]):
@@ -1992,6 +1999,10 @@ def _time_kernels(sysm, carry, results=None, pav=False):
         if name == "fold":
             _fold_design(sysm.describe() + (", 12 channels" if pav else ""),
                          keep, md.cplan, nbytes, k_ms)
+        if name == "scatter":
+            _scatter_design(sysm.describe() + (", 12 channels" if pav
+                                               else ""),
+                            keep, md.cplan, k_ms)
     return keep
 
 
@@ -2571,6 +2582,9 @@ def phase_tersoff_time(results, pot_path):
                      if k != "bound_by"})
             if name == "fold":
                 _fold_design(label, keep, md.cplan, nbytes, k_ms)
+            if name == "scatter":
+                _scatter_design(f"{label}, contract pvals", keep, md.cplan,
+                                k_ms)
         del keep
         _time_rebuild(big, label)
         del carry, aux, step
@@ -2639,6 +2653,33 @@ def _fold_design(label, keep, cp, nbytes, ms):
           f"{nbytes / ms / 1e9:.3f} TB/s reached")
     if px["stack"] or px["spill_stores"] or occ < 1:
         raise RuntimeError(f"{fp.entry}: local memory or no resident block")
+
+
+def _scatter_design(label, keep, cp, ms=None):
+    """What the scatter's design acts on at this plan: ptxas's registers,
+    stack and spill of the plan's instance, shared memory a CTA, resident
+    CTAs an SM (occupancy query), channels a CTA, the grid, and the rate
+    reached beside the byte bound (`ms` the kernel's time, else timed here
+    over 20 launches).  Fails on local memory or no resident CTA."""
+    from gpumd_tpu_torch.engine import nep_compact as nc
+
+    pvals, idx_a, cidx = keep["pvals"], keep["idx_a"], keep.get("cidx")
+    sp = nc.scatter_plan(cp.nb, pvals.shape[3], cp.wl, pvals.shape[5])
+    px = _ptxas_entry(sp.entry)
+    occ = nc.scatter_occupancy(sp)
+    if ms is None:
+        ms = _time_ms(lambda: nc.scatter_call(pvals, idx_a, cp, cidx), 20)
+    nbytes, _ = work("scatter", keep, cp, None)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[design] scatter {label}: instance {sp.entry}: {px['regs']} "
+          f"registers, {px['stack']} B stack frame, {px['spill_stores']} B "
+          f"spill stores; {sp.smem} B shared memory a CTA, {occ} CTAs an SM "
+          f"by the occupancy query, {sp.group} channels a CTA "
+          f"({sp.groups} CTAs a block), grid {sp.ctas} CTAs of 256 threads; "
+          f"{ms:.4f} ms, {nbytes / ms / 1e9:.3f} TB/s, "
+          f"{100 * b_ms / ms:.1f}% of the byte bound {b_ms:.4f} ms")
+    if px["stack"] or px["spill_stores"] or occ < 1:
+        raise RuntimeError(f"{sp.entry}: local memory or no resident CTA")
 
 
 def _k_design(md):

@@ -96,7 +96,7 @@ from gpumd_tpu_torch.measure.properties import (
     onsager_flux,
     stress_6,
 )
-from gpumd_tpu_torch.model.box import Box
+from gpumd_tpu_torch.model.box import Box, inv3
 from gpumd_tpu_torch.model.groups import Groups
 from gpumd_tpu_torch.model.state import MDState, make_state
 from gpumd_tpu_torch.potentials.lj import LJ
@@ -1293,7 +1293,12 @@ class Session:
         fout = self._file("compute_chunk.out")
 
         def process(session, state, step):
-            pos = state.box.wrap(state.position)
+            # bins from float64 positions and box, as the reference bins
+            # its doubles: a float32 run's quotient within rounding of a
+            # bin edge would round across it
+            h = state.box.h.to(f64)
+            box = Box(h=h, h_inv=inv3(h), pbc=state.box.pbc.to(f64))
+            pos = box.wrap(state.position.to(f64))
             mask = state.mask > 0
             bins = torch.zeros(pos.shape[0], dtype=torch.int64,
                                device=pos.device)

@@ -49,7 +49,8 @@ _SIGNATURES = {
     "k2_launch": [P] * 14 + [I] * 22 + [F] * 4 + [P],
     "k1_occupancy": [I] * 3 + [P],
     "k2_occupancy": [I] * 3 + [P],
-    "scatter_launch": [P] * 4 + [I] * 9 + [P],
+    "scatter_launch": [P] * 4 + [I] * 11 + [P],
+    "scatter_occupancy": [I] * 3 + [P],
     "fold_launch": [P] * 2 + [I] * 12 + [P],
     "fold_occupancy": [I] * 2 + [P],
     "compact_rows_launch": [P] * 3 + [I] * 9 + [P],

@@ -70,6 +70,9 @@ _BIG = 1.0e30
 # aim for: two 256-thread blocks an SM (228 KB, 1 KB reserved a block)
 _SMEM_LIMIT = 232448
 _SMEM_TARGET = 112 * 1024
+# the scatter accumulator's bytes that leave 8 CTAs of 256 threads an SM
+# (228 KB an SM, 1 KB reserved a CTA)
+_SCATTER_SMEM_TARGET = 233472 // 8 - 1024
 # compile-time bounds on kr1, ka1, na1 of the K1/K2 template instances
 _NMAX = (8, 20)
 
@@ -921,6 +924,53 @@ def scatter_plain(pvals, idx_pairs, cplan: CompactPlan, cidx=None):
         .contiguous()
 
 
+class ScatterPlan(NamedTuple):
+    """How csrc/scatter.cu runs a call: `group` channels a CTA (the kernel
+    instance's G) in a shared-memory accumulator of `smem` bytes, `groups`
+    CTAs a grid block (`ctas` in all, 256 threads each), units of `vec`
+    lanes (16-byte loads and stores at 4); `scatter_occupancy` gives the
+    resident CTAs an SM."""
+
+    vec: int
+    group: int
+    groups: int
+    smem: int
+    ctas: int
+
+    @property
+    def entry(self) -> str:
+        """The kernel instance's (mangled) name stem, as ptxas reports it."""
+        return f"14scatter_kernelILi{self.vec}ELi{self.group}E"
+
+
+def scatter_plan(nb: int, pch: int, wl: int, a_pad: int,
+                 aligned: bool = True) -> ScatterPlan:
+    """The scatter's launch for nb blocks of pch channels over a window of
+    wl lanes, or ValueError where one channel's accumulator does not fit
+    in a block's shared memory.  Two channels a CTA where 2 divides pch
+    and their accumulator leaves 8 CTAs an SM, else 1; 4-lane units where
+    a_pad and wl are multiples of 4 and the bases and idx strides allow
+    16-byte loads (`aligned`), else 1."""
+    if 4 * wl > _SMEM_LIMIT:
+        raise ValueError(f"scatter: one channel's window accumulator "
+                         f"({4 * wl} B) exceeds shared memory "
+                         f"({_SMEM_LIMIT} B)")
+    group = 2 if pch % 2 == 0 and 8 * wl <= _SCATTER_SMEM_TARGET else 1
+    vec = 4 if a_pad % 4 == 0 and wl % 4 == 0 and aligned else 1
+    groups = pch // group
+    return ScatterPlan(vec, group, groups, 4 * group * wl, nb * groups)
+
+
+def scatter_occupancy(sp: ScatterPlan) -> int:
+    """Resident CTAs an SM of the plan's kernel instance
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    blocks = ctypes.c_int(0)
+    rc = cuda_build.library().scatter_occupancy(sp.vec, sp.group, sp.smem,
+                                                ctypes.addressof(blocks))
+    cuda_build.check(rc, "scatter_occupancy")
+    return blocks.value
+
+
 def _scatter_cuda(pvals, idx_pairs, cplan: CompactPlan, cidx):
     nz, ny = cplan.base.grid[2], cplan.base.grid[1]
     nb, nxb, wl = cplan.nb, cplan.nxb, cplan.wl
@@ -936,20 +986,21 @@ def _scatter_cuda(pvals, idx_pairs, cplan: CompactPlan, cidx):
             or idx_pairs.stride(0) != ny * idx_pairs.stride(1)):
         raise ValueError("scatter: idx_pairs must be int32 (nz, ny, nxb, "
                          "mnp, a_pad) on the pvals device, lanes contiguous")
-    if 4 * pch * wl > _SMEM_LIMIT:
-        raise ValueError("scatter: window accumulator exceeds shared memory")
     if cidx is not None:
         cuda_build.require(cidx, "cidx", torch.int32,
                            (nz, ny, nxb, cplan.cl), pvals.device)
     out = torch.empty((nz, ny, pch, nxb, wl), dtype=torch.float32,
                       device=pvals.device)
+    bstride, mstride = idx_pairs.stride(2), idx_pairs.stride(3)
+    aligned = ((pvals.data_ptr() | idx_pairs.data_ptr() | out.data_ptr())
+               % 16 == 0 and bstride % 4 == 0 and mstride % 4 == 0)
+    sp = scatter_plan(nb, pch, wl, a_pad, aligned)
     lib = cuda_build.library()
     rc = lib.scatter_launch(
         cuda_build.ptr(pvals), cuda_build.ptr(idx_pairs),
         cuda_build.P(None) if cidx is None else cuda_build.ptr(cidx),
-        cuda_build.ptr(out), nb, pch, mnp, a_pad, wl, nxb,
-        idx_pairs.stride(2), idx_pairs.stride(3), cplan.cl,
-        cuda_build.stream())
+        cuda_build.ptr(out), nb, pch, mnp, a_pad, wl, nxb, bstride, mstride,
+        cplan.cl, sp.vec, sp.group, cuda_build.stream())
     cuda_build.check(rc, "scatter_launch")
     cuda_build.launches["scatter"] += 1
     return out

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from gpumd_tpu_torch.engine import cuda_build
+from gpumd_tpu_torch.engine.nep_compact import scatter_plan
 from gpumd_tpu_torch.engine.tersoff_compact import tersoff_entry
 from gpumd_tpu_torch.probes import device_name, probe_device
 
@@ -259,9 +260,11 @@ def main(argv=None) -> dict:
     variants[(first, "contract", 3)]()
     sc = libs["scatter"][0][0].scatter_launch
     sc.restype = I
+    sp = scatter_plan(nb, pch, wl, a_pad)
     sc_args = [P(pvals.data_ptr()), P(idx.data_ptr()), P(None),
                P(dcand.data_ptr()), *(I(x) for x in (
-                   nb, pch, mn, a_pad, wl, nxb, mn * a_pad, a_pad, 0)),
+                   nb, pch, mn, a_pad, wl, nxb, mn * a_pad, a_pad, 0, sp.vec,
+                   sp.group)),
                stream]
     variants[("scatter", "scatter", 3)] = lambda: sc(*sc_args)
     torch.cuda.synchronize()

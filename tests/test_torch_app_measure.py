@@ -31,12 +31,14 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import gpumd_tpu_torch.app.gpumd as tapp
 from gpumd_tpu.app import gpumd as japp
 from gpumd_tpu.io.xyz import XYZFrame, write_xyz
 from gpumd_tpu.units import K_B, TIME_UNIT_CONVERSION
 from gpumd_tpu_torch.integrate.ensembles import nve as tnve
+from gpumd_tpu_torch.model.box import Box
 from test_torch_app_route import write_pbte
 from test_torch_measure import _split, write_eigenvectors
 from torch_one_thread import one_torch_thread  # noqa: F401
@@ -219,3 +221,57 @@ def test_compute_virial_runs_with_per_atom_virials(tmp_path, quantity, pav):
     assert s.route_reason is None and s.md.per_atom_virial is pav
     rows = np.atleast_2d(np.loadtxt(tmp_path / "compute.out"))
     assert rows.shape[0] == 1 and np.isfinite(rows).all()
+
+
+def test_compute_chunk_bins_float32_positions_as_float64(tmp_path):
+    """An atom of a float32 run that float32 arithmetic bins across an
+    edge (the wrap's round trip x -> x / L -> (x / L) L moves it by an
+    ulp) lands in the bin float64 gives it: a float32 session's
+    compute_chunk.out equals the one of the same snapshot in float64
+    (chip_smoke's recomputation of the card's snapshots; the reference
+    bins its doubles)."""
+    delta = 2.0
+    sessions = []
+    for name in ("f32", "f64"):
+        d = tmp_path / name
+        d.mkdir()
+        write_pbte(d)
+        s = tapp.Session(str(d), quiet=True, device="cpu")
+        s.kw_potential(["nep.txt"])
+        s.kw_compute_chunk(["1", "1", "bin/1d", "x", "lower", str(delta),
+                            "density/number"])
+        sessions.append(s)
+    st = sessions[0].state
+    assert st.position.dtype == torch.float32
+    # float32 values around the inner edges: the first that float32
+    # arithmetic (the state's box) and float64 bin apart
+    nl = int(np.ceil(float(st.box.thickness()[0]) / delta))
+    cand = []
+    for k in range(1, nl):
+        x = torch.tensor(np.float32(k * delta))
+        for toward in (0.0, 1e9):
+            y = x
+            for _ in range(8):
+                cand.append(y)
+                y = torch.nextafter(y, torch.tensor(toward))
+    cand = torch.stack(cand)
+    xyz = torch.zeros((len(cand), 3))
+    xyz[:, 0] = cand
+    apart = ((st.box.wrap(xyz)[:, 0] / delta).to(torch.int64)
+             != (cand.double() / delta).to(torch.int64))
+    assert bool(apart.any())
+    pos = st.position.clone()
+    pos[0, 0] = cand[int(torch.nonzero(apart)[0])]
+    st = st._replace(position=pos)
+    f64 = torch.float64
+    st64 = st._replace(
+        box=Box.from_lattice(st.box.h.to(f64).T.numpy(), dtype=f64,
+                                  device="cpu"),
+        **{k: getattr(st, k).to(f64) for k in ("position", "velocity",
+                                               "mass", "force", "mask")})
+    for s, state in zip(sessions, (st, st64)):
+        s.properties[-1].process(s, state, 1)
+    f32_rows, f64_rows = (np.loadtxt(tmp_path / name / "compute_chunk.out")
+                          for name in ("f32", "f64"))
+    assert len(f32_rows) == nl
+    assert np.array_equal(f32_rows, f64_rows)

@@ -10,7 +10,10 @@ every class of their template instances (l_max 1 to 8, kr1/ka1/na1 up to
 20, 2, 3 and 8 types, both rungs, blocks without a live centre, centres
 that fill mn_a, equal bits from two calls), fold plans with bx = 1, odd
 caps, free axes, an unaligned base and the PbTe 262k and Si 1M plans,
-the compact-list rung on both compactions at CPU-test sizes, both modes
+the compact-list rung on both compactions at CPU-test sizes, the
+scatter's cut of the channels over CTAs (pch 4 and 12, with and without
+cidx, the widest window the wrapper admits, 4-byte units, a window past
+shared memory refused), both modes
 of the Tersoff kernel (contract, and fused with the scatter) on the
 512-atom CPU-test plan, with two types (SiC), at 32k atoms and
 compressed so that every centre takes the general path past the live
@@ -390,6 +393,82 @@ def test_compact_lists_match_plain(dev, nc, jitter, cap):
             for g, r in zip(got, ref):
                 assert torch.isfinite(g).all()
                 assert _rel(g, r) <= TOL[name], (name, pav, _rel(g, r))
+
+
+def _scatter_inputs(dev, cap, bx, pch, cl, a_extra=0, offset=0, mnp=8,
+                    seed=0):
+    """Scatter inputs on a plan of `cap` slots a cell and `bx` cells a
+    block: pvals nine tenths exact zeros (K2's dead slots), lanes drawn
+    over the window, or over a compact list of cl lanes with cidx drawn
+    over the window; idx_pairs the mnp prefix view of a wider idx, as the
+    pipeline passes it.  a_extra widens the lane axis past a_pad, offset
+    moves pvals' base off a 16-byte boundary (both: 4-byte units).  Two
+    x-blocks, two z rows: four blocks."""
+    grid = (2 * bx, 1, 2)
+    plan = TG.DenseGridPlan(grid=grid, cap=cap, rc=4.0, skin=1.0,
+                            pbc=(True, True, True))
+    cp = TC.CompactPlan(base=plan, bx=bx, mn_r=mnp + 8, mn_a=mnp, cl=cl)
+    nx, ny, nz = grid
+    nxb, a = nx // bx, cp.a_pad + a_extra
+    g = torch.Generator(dev).manual_seed(seed)
+    shape = (nz, ny, nxb, pch, mnp, a)
+    flat = torch.randn(offset + int(np.prod(shape)), device=dev, generator=g)
+    dead = torch.rand(flat.shape, device=dev, generator=g) < 0.9
+    pvals = torch.where(dead, torch.zeros_like(flat), flat)[offset:].view(
+        shape)
+    idx = torch.randint(0, cl or cp.wl, (nz, ny, nxb, mnp + 8, a),
+                        dtype=torch.int32, device=dev, generator=g)
+    cidx = (torch.randint(0, cp.wl, (nz, ny, nxb, cl), dtype=torch.int32,
+                          device=dev, generator=g) if cl else None)
+    return pvals, idx[:, :, :, :mnp], cidx, cp
+
+
+# (cap, bx, a_extra, offset, channels a CTA): PbTe's default plan (wl
+# 2304: 2 channels a CTA), the widest window the wrapper admits (cap 2152
+# at bx 1: wl 58,112, 1 channel a CTA in 232,448 B); each also at 4-byte
+# units (a lane axis of a_pad + 2, pvals' base 4 bytes off a 16-byte
+# boundary): every instance of the kernel
+_SCATTER_SHAPES = {"pbte": (64, 2, 0, 0, 2), "widest": (2152, 1, 0, 0, 1),
+                   "pbte_vec1": (64, 2, 2, 1, 2),
+                   "widest_vec1": (2152, 1, 2, 1, 1)}
+
+
+@pytest.mark.parametrize("shape", list(_SCATTER_SHAPES))
+@pytest.mark.parametrize("cl", [0, 1024], ids=["windows", "cidx"])
+@pytest.mark.parametrize("pch", [4, 12])
+def test_scatter_cut_matches_plain(dev, pch, cl, shape):
+    """The scatter with its channels cut over CTAs, against its plain
+    version: pch 4 and 12, with and without cidx, on PbTe's plan and the
+    widest window, at 16- and 4-byte units; one launch counted a call."""
+    cap, bx, a_extra, offset, group = _SCATTER_SHAPES[shape]
+    pvals, idx, cidx, cp = _scatter_inputs(dev, cap, bx, pch, cl, a_extra,
+                                           offset)
+    sp = TC.scatter_plan(cp.nb, pch, cp.wl, pvals.shape[5],
+                         aligned=offset == 0)
+    assert (sp.vec, sp.group) == (1 if offset else 4, group)
+    assert sp.groups * sp.group == pch and sp.smem <= TC._SMEM_LIMIT
+    # 8 CTAs an SM (32 registers) where the accumulator leaves room
+    assert TC.scatter_occupancy(sp) == (1 if cap == 2152 else 8)
+    before = dict(cuda_build.launches)
+    got = TC.scatter_call(pvals, idx, cp, cidx)
+    after = dict(cuda_build.launches)
+    assert after["scatter"] == before["scatter"] + 1
+    assert {k: v for k, v in after.items() if k != "scatter"} == \
+        {k: v for k, v in before.items() if k != "scatter"}
+    ref = TC.scatter_plain(pvals, idx, cp, cidx)
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert _rel(got, ref) <= TOL["scatter"], _rel(got, ref)
+
+
+def test_scatter_refuses_a_window_past_shared_memory(dev):
+    """One 128-lane group past the widest window (cap 2153 at bx 1: wl
+    58,240): the wrapper raises and launches nothing."""
+    pvals, idx, _, cp = _scatter_inputs(dev, 2153, 1, 4, 0)
+    assert cp.wl == 58240
+    before = cuda_build.launches["scatter"]
+    with pytest.raises(ValueError, match="exceeds shared memory"):
+        TC.scatter_call(pvals, idx, cp)
+    assert cuda_build.launches["scatter"] == before
 
 
 def _tersoff_inputs(dev, tmp_path, nc, c_frac, skin, a0=5.431,
