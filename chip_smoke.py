@@ -282,8 +282,47 @@ written with velocities drawn by numpy:
              launched, stress_6 / onsager_flux of every recorded
              snapshot on the card against the CPU's, viscosity.out and
              onsager.out against the CPU's
+ 14. ensembles  the list path's ensembles through Session (engine auto;
+             none launches a hand-written kernel: each deck fails on a
+             launch): (a) a deck for every keyword of the slice (heat_lan,
+             heat_nhc, heat_bdp, heat_hybrid, nvt_mttk, npt_mttk iso, tri
+             and per axis, nph_mttk, nphug, nvt_qtb, npt_qtb, msst,
+             wall_piston with dump_shock_nemd, wall_mirror, wall_harmonic,
+             ttm, heat_ttm, ti_spring, ti, ti_rs, ti_as, ti_liquid, deform)
+             on LJ argon 4,000 (config 1's geometry, four slabs along x as
+             groups), 20 steps on the card against the same deck on the
+             CPU in float64 (in four worker processes while the card
+             runs (a) and (b)), the Langevin-type noise from one numpy
+             seed in both:
+             positions within 1e-3 A, compute.out (with its bath columns),
+             the TI .csv files, the _hist.txt files and
+             ttm_electron_temperature.out within 1e-3 of a column's
+             largest magnitude, the .yaml entries within 1e-4 eV/atom;
+             (b) the physics on the card: the four heat baths (400 steps
+             of 5 fs at 30 +- 15 K) put the source slab 5 K above the sink
+             with e_src < 0 < e_snk; nvt_mttk (driven directly, 1,000
+             steps) keeps its conserved quantity within 1e-3 eV/atom
+             while KE + U alone moves by more than twice that; npt_mttk
+             iso halves its distance to 0.3 GPa in 1,000 steps; msst (3
+             km/s) on tests/test_msst.py's box (108 atoms, 40 K)
+             compresses x by more than that test's 0.5% in 800 steps with
+             y untouched; the wall piston moves 20 A in 100 steps with
+             the far wall still; (c) NEP PbTe 32,768 (the trained model,
+             four slabs along x, from 600 K) on the list path: NVE (engine
+             list), heat_lan 300 +- 60 K and npt_mttk iso, 100 steps of
+             warm-up then 100 timed (the port's own noise generators):
+             ms/step against NVE, the route
+             reasons, a gradient in compute.out (source > the two middle
+             slabs > sink, the source injecting); then TILiquid's UF pair
+             sum at LJ 4,000 and TTM's diffusion substeps and ms a step
 
 Not among the default phases (ask for it with --phases):
+
+ ensembles-time  each deck of `ensembles` (a) and NVE (engine list), 20
+             steps then 100 timed, on LJ argon 4,000 and on NEP PbTe
+             32,768 (300 K; the TI springs a species), each drawing its
+             noise from the port's own generator on the card: ms/step
+             and its difference from NVE's
 
  app-spread  (a)'s config 3 deck and (d)'s Tersoff deck, each run three
              times through Session and three times driven directly (a new
@@ -297,7 +336,7 @@ Not among the default phases (ask for it with --phases):
 Usage: python3 chip_smoke.py [--phases build,kernels,md,npt-md,
        hnemd-md,drift,list-md,train,time,dense-kernels,dense-md,dense-time,
        tersoff-kernels,tersoff-md,tersoff-time,probes,app,measure,
-       app-spread]
+       ensembles,app-spread,ensembles-time]
        [--parent DIR]
 Prints the kernels' JSON line, then, last, {"ok": true, "device": {...}}.
 A kernel's "launches" are those of the 200-step NVE run of its path;
@@ -4404,13 +4443,552 @@ def phase_app_spread(results, pot_path, repeats=3):
     print(f"[app-spread] phase done in {time.time() - t0:.1f} s")
 
 
+
+# ---- phase 14: the ensembles (the list path's NEMD, MTTK, shock, QTB,
+# TTM and TI ensembles and deform, through the app) ----------------------
+
+# LJ argon 4,000 (config 1's geometry), four slabs along x as grouping
+# method 0: slab 0 the heat source, slab 2 the sink.
+ENS_CELLS, ENS_STEPS, ENS_T = 10, 20, 60.0
+# (a)'s CPU references: ENS_WORKERS worker processes of two torch threads
+# each
+ENS_WORKERS = 4
+# (a) the decks: a keyword's ensemble line, and what else the deck holds.
+ENS_DECKS = {
+    "heat_lan": "ensemble heat_lan 60 20 15 0 2\ncompute 0 5 10 temperature",
+    "heat_nhc": "ensemble heat_nhc 60 20 15 0 2\ncompute 0 5 10 temperature",
+    "heat_bdp": "ensemble heat_bdp 60 20 15 0 2\ncompute 0 5 10 temperature",
+    "heat_hybrid": "ensemble heat_hybrid nhc lan 60 20 20 15 0 2\n"
+                   "compute 0 5 10 temperature",
+    "nvt_mttk": "ensemble nvt_mttk temp 60 60 tperiod 50",
+    "npt_mttk": "ensemble npt_mttk temp 60 60 iso 0.2 0.2 pperiod 100",
+    "npt_mttk tri": "ensemble npt_mttk temp 60 60 tri 0.2 0.2 pperiod 100",
+    "npt_mttk axes": "ensemble npt_mttk temp 60 60 x 0.1 0.1 y 0.2 0.2 "
+                     "z 0 0 xy 0.05 0.05 pperiod 100",
+    "nph_mttk": "ensemble nph_mttk aniso 0.2 0.2 pperiod 100",
+    "nphug": "ensemble nphug tperiod 100 pperiod 100 x 0.5 0.5",
+    "nvt_qtb": "ensemble nvt_qtb 60 60 20 f_max 100 N_f 8",
+    "npt_qtb": "ensemble npt_qtb temp 60 60 tperiod 20 f_max 100 N_f 8 "
+               "iso 0.2 0.2 pperiod 100",
+    "msst": "ensemble msst x 3 qmass 200 mu 5 tscale 0.05",
+    "wall_piston": "ensemble wall_piston vp 10 thickness 6\n"
+                   "dump_shock_nemd interval 5 bin_size 5.0",
+    "wall_mirror": "ensemble wall_mirror vp 10 thickness 6",
+    "wall_harmonic": "ensemble wall_harmonic vp 5 k 2.0 thickness 6",
+    "ttm": "ensemble ttm 0 1 1.0e-5 1.0 1.0 5.0 1.0 0.5 2 2 1 600 "
+           "ttm_out_interval 10",
+    "heat_ttm": "ensemble heat_ttm 0 1 1.0e-5 1.0 1.0 5.0 0 100 4 1 1 600 "
+                "ttm_source 0.001",
+    "ti_spring": "ensemble ti_spring temp 60 tperiod 30 tswitch 8 tequil 2 "
+                 "spring Ar 0.5",
+    "ti": "ensemble ti lambda 0.4 temp 60 tperiod 30 spring Ar 0.5",
+    "ti_rs": "ensemble ti_rs temp 60 90 iso 0 tperiod 30 pperiod 100 "
+             "tswitch 8 tequil 2",
+    "ti_as": "ensemble ti_as temp 60 press 0 0.2 tperiod 30 pperiod 100 "
+             "tswitch 8 tequil 2",
+    "ti_liquid": "ensemble ti_liquid temp 60 tperiod 30 tswitch 8 tequil 2 "
+                 "sigmasqrd 2.0 p 25",
+    "deform": "deform 0.005 1 0 1\nensemble nvt_ber 60 60 100",
+}
+# The noise a keyword's class draws through its `draw` hook: the card's
+# and the CPU's run get the same numbers from one numpy seed (HeatBDP
+# draws its own from numpy.random.default_rng(12345) in both).
+ENS_NOISE = {"HeatLangevin": "normal", "HeatHybrid": "normal",
+             "NVTQTB": "normal", "TTM": "uniform", "TISpring": "normal",
+             "TI": "normal", "TILiquid": "normal"}
+# (a)'s gates, card (float32) against the CPU (float64) after 20 steps:
+# positions within list-md's 1e-3 A; compute.out, the .csv and _hist.txt
+# files and ttm_electron_temperature.out within ENS_OUT_TOL of a column's
+# largest magnitude (float32 velocities and sums: ~1e-6 relative a sample,
+# the trajectories apart by ~1e-6 A); a .yaml entry within ENS_YAML_TOL
+# eV/atom (F and G are sums of terms of ~0.1 eV/atom).
+ENS_OUT_TOL = 1e-3
+ENS_YAML_TOL = 1e-4
+# (b): the heat baths' source slab above the sink by ENS_DT_MARGIN K after
+# 400 steps of 5 fs at 30 +- 15 K (tests/test_nemd.py's deck and margin;
+# the lattice starts at 60 K, which equipartition halves; on the H100 1,000
+# steps gave 15.5-27.1 K and 600 steps 13.1-26.8 K);
+# nvt_mttk (LJArgon, 80 K, to 60 K) over 1,000 steps of 2 fs: its
+# conserved quantity within ENS_MTTK_CONS_TOL eV/atom (the H100 read 1.915
+# eV in 1,000 steps and 1.927 eV in 500, 4.8e-4 eV/atom: the unshifted LJ
+# cutoff's crossings), while KE + U alone, which leaves out the chain's
+# reservoir, must move by more than twice that bound (the chain reheats
+# the lattice from ~40 K: ~3 N kB 20 K = 21 eV), so that a conserved
+# quantity without the chain's terms would fail the gate;
+# npt_mttk iso halves its distance to the target pressure in 1,000 steps;
+# msst on tests/test_msst.py's box (fcc argon 3^3 cells, 108 atoms, 40 K,
+# 800 steps of 2 fs) compresses x past that test's ENS_MSST_SHRINK (the
+# port matches JAX's run there within 1e-9 on the CPU,
+# tests/test_torch_shock.py).
+ENS_DT_MARGIN = 5.0
+ENS_MTTK_CONS_TOL = 1e-3
+ENS_HEAT_STEPS, ENS_MTTK_CONS_STEPS, ENS_NPT_STEPS = 400, 1000, 1000
+ENS_MSST_CELLS, ENS_MSST_T, ENS_MSST_STEPS = 3, 40.0, 800
+ENS_MSST_SHRINK = 0.005
+# (c): NEP PbTe 32,768 on the list path, heat_lan on four slabs along x.
+ENS_PBTE_CELLS, ENS_PBTE_STEPS, ENS_PBTE_WARM = 16, 100, 100
+
+
+def _ens_slabs(pos, length, k=4):
+    return np.minimum((pos[:, :1] / (length / k)).astype(int), k - 1)
+
+
+def _ens_argon(d, line, steps=ENS_STEPS, dt_fs=2.0, temperature=ENS_T,
+               extra="", nc=ENS_CELLS):
+    """LJ argon 4,000 (nc^3 fcc cells) with four slabs along x, and its
+    deck."""
+    import shutil
+
+    a0 = 5.26
+    base = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5]])
+    cells = np.stack(np.meshgrid(*[np.arange(nc)] * 3, indexing="ij"),
+                     axis=-1).reshape(-1, 3)
+    pos = (cells[:, None, :] + base[None]).reshape(-1, 3) * a0
+    n = len(pos)
+    _write_model(d, ["Ar"] * n, pos, np.full(n, 39.948), [nc * a0] * 3,
+                 temperature, 7, groups=_ens_slabs(pos, nc * a0))
+    shutil.copy(LJ_FILE, d / "lj.txt")
+    (d / "run.in").write_text(f"potential lj.txt\ntime_step {dt_fs}\n{line}\n"
+                              f"{extra}run {steps}\n")
+    return n
+
+
+def _ens_patches(seed=11):
+    """The `draw` hooks of ENS_NOISE's classes from one numpy generator
+    each: (attribute, class given draw) pairs for app.gpumd."""
+    import functools
+
+    import gpumd_tpu_torch.app.gpumd as tapp
+
+    out = []
+    for k, (cls, kind) in enumerate(sorted(ENS_NOISE.items())):
+        rng = np.random.default_rng(seed + k)
+
+        def draw(shape, dtype, device, rng=rng, kind=kind):
+            x = (rng.standard_normal(shape) if kind == "normal"
+                 else rng.random(shape))
+            return torch.as_tensor(x, dtype=dtype, device=device)
+
+        out.append((cls, functools.partial(getattr(tapp, cls), draw=draw)))
+    return out
+
+
+def _ens_session(d, device, dtype=None, noise=True):
+    """Session(d) on `device`, with ENS_NOISE's draw hooks patched in
+    unless `noise` is false (the timed decks draw from the port's own
+    generators on the card)."""
+    import gpumd_tpu_torch.app.gpumd as tapp
+
+    saved = {cls: getattr(tapp, cls) for cls in ENS_NOISE}
+    try:
+        for cls, fn in (_ens_patches() if noise else ()):
+            setattr(tapp, cls, fn)
+        s = tapp.Session(str(d), quiet=True, device=device, dtype=dtype)
+        s.execute()
+    finally:
+        for cls, fn in saved.items():
+            setattr(tapp, cls, fn)
+    return s
+
+
+def _ens_cpu(d):
+    """(a)'s CPU reference in a worker process: d's deck in float64 on the
+    CPU, in d/cpu; returns the final positions and the box."""
+    import shutil
+
+    torch.set_num_threads(2)
+    c = Path(d) / "cpu"
+    c.mkdir()
+    for name in ("model.xyz", "lj.txt", "run.in"):
+        shutil.copy(Path(d) / name, c / name)
+    s = _ens_session(c, "cpu", torch.float64)
+    return (s.state.position.numpy(), s.state.box.h.numpy(),
+            s.route_reason)
+
+
+def _ens_files_close(what, d, names):
+    """Each output file of d against d/cpu's: ENS_OUT_TOL of a column's
+    largest magnitude (.yaml: ENS_YAML_TOL eV/atom); the worst of each."""
+    worst = {}
+    for name in names:
+        got, want = d / name, d / "cpu" / name
+        if name.endswith(".yaml"):
+            a, b = ([float(x.split(":")[1]) for x in p.read_text().split(
+                "\n") if x] for p in (got, want))
+            worst[name] = float(np.abs(np.subtract(a, b)).max())
+            bound = ENS_YAML_TOL
+        else:
+            csv = name.endswith(".csv")
+            a, b = (np.atleast_2d(np.loadtxt(p, comments="#",
+                                             delimiter="," if csv else None,
+                                             skiprows=int(csv)))
+                    for p in (got, want))
+            if a.shape != b.shape:
+                raise RuntimeError(f"(a) {what}: {name} {a.shape} against "
+                                   f"the CPU's {b.shape}")
+            scale = np.maximum(np.abs(b).max(axis=0), 1e-12)
+            worst[name] = float((np.abs(a - b).max(axis=0) / scale).max())
+            bound = ENS_OUT_TOL
+        if not np.isfinite(a).all() or not worst[name] <= bound:
+            raise RuntimeError(f"(a) {what}: {name} departs from the CPU's "
+                               f"({worst[name]:.3e}, bound {bound})")
+    return worst
+
+
+def _ens_card_runs(tmp, pool):
+    """(a) every keyword's deck, 20 steps on the card (float32); the same
+    deck on the CPU in float64 submitted to `pool`'s worker processes
+    first.  Returns {keyword: (directory, the CPU's future)} and the card
+    sessions."""
+    from gpumd_tpu_torch.engine import cuda_build
+
+    futures = {}
+    # ti_liquid first: its all-pairs UF sum is the CPU's longest deck
+    for key in sorted(ENS_DECKS, key=lambda k: k != "ti_liquid"):
+        d = tmp / "a" / key.replace(" ", "_")
+        _ens_argon(d, ENS_DECKS[key])
+        futures[key] = (d, pool.submit(_ens_cpu, str(d)))
+    cards = {}
+    for key, (d, _) in futures.items():
+        cuda_build.reset_launches()
+        t0 = time.time()
+        s = _ens_session(d, "cuda")
+        torch.cuda.synchronize()
+        counts = dict(cuda_build.launches)
+        _launch_check(f"(a) {key}", counts, {}, never=tuple(counts))
+        # LJ has no compact engine: the list path for that reason first
+        if s.route_reason is None or s.md is not None:
+            raise RuntimeError(f"(a) {key}: not on the list path")
+        cards[key] = (s, time.time() - t0)
+    return futures, cards
+
+
+def _ens_card_vs_cpu(futures, cards):
+    """(a)'s gates: each card run against the CPU's float64 run."""
+    from gpumd_tpu_torch.model.box import Box
+
+    for key, (d, fut) in futures.items():
+        s, wall = cards[key]
+        pos, h, route = fut.result()
+        n = s._n
+        box = Box.from_lattice(h.T, dtype=torch.float64, device="cpu")
+        dx = float(box.minimum_image(
+            s.state.position[:n].double().cpu() - torch.as_tensor(pos)[:n]
+        ).abs().max())
+        names = sorted(p.name for p in d.iterdir()
+                       if p.suffix in (".csv", ".yaml")
+                       or p.name.endswith("_hist.txt")
+                       or p.name in ("compute.out",
+                                     "ttm_electron_temperature.out"))
+        worst = _ens_files_close(key, d, names)
+        print(f"[ensembles] (a) {key}: card {wall:.2f} s (run "
+              f"{s.run_seconds[0]:.3f} s), route: {s.route_reason}; max "
+              f"|dx| against the CPU's float64 run {dx:.3e} A (bound "
+              f"{POS_TOL}); "
+              + (", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+                 or "no output file"))
+        if not dx <= POS_TOL:
+            raise RuntimeError(f"(a) {key}: positions depart from the CPU's")
+
+
+def _ens_rows(path, skip=0):
+    return np.atleast_2d(np.loadtxt(path, comments="#"))[skip:]
+
+
+def _ens_heat(tmp):
+    """(b) the four heat baths: a gradient and the baths' signs."""
+    for name, line in (("heat_lan", "heat_lan 30 50 15 0 2"),
+                       ("heat_nhc", "heat_nhc 30 50 15 0 2"),
+                       ("heat_bdp", "heat_bdp 30 50 15 0 2"),
+                       ("heat_hybrid", "heat_hybrid nhc lan 30 100 100 15 "
+                                       "0 2")):
+        d = tmp / "b" / name
+        steps = ENS_HEAT_STEPS
+        _ens_argon(d, f"ensemble {line}\ncompute 0 10 {steps} temperature",
+                   steps=steps, dt_fs=5.0, temperature=60.0)
+        s = _ens_session(d, "cuda")
+        row = _ens_rows(d / "compute.out")[-1]
+        t, e_src, e_snk = row[:4], row[4], row[5]
+        print(f"[ensembles] (b) {name}: {steps} steps of 5 fs in "
+              f"{s.run_seconds[0]:.2f} s; slab T {np.round(t, 2).tolist()} "
+              f"K (source - sink {t[0] - t[2]:.2f}, bound > "
+              f"{ENS_DT_MARGIN}); baths {e_src:.4e} / {e_snk:.4e} eV")
+        if not (t[0] > t[2] + ENS_DT_MARGIN and e_src < 0.0 < e_snk
+                and np.isfinite(row).all()):
+            raise RuntimeError(f"(b) {name}: no gradient or wrong signs")
+
+
+def _ens_mttk_conserved():
+    """(b) nvt_mttk driven directly: its conserved quantity over 1,000
+    steps of 2 fs, and KE + U alone beside it."""
+    from gpumd_tpu_torch.integrate.ensembles.mttk import MTTK
+    from gpumd_tpu_torch.integrate.run import MDRunner
+    from gpumd_tpu_torch.units import TIME_UNIT_CONVERSION
+
+    lj = LJArgon()
+    ff = lj.ff
+    dt = 2.0 / TIME_UNIT_CONVERSION
+    ens = MTTK.nvt(60.0, 60.0, t_period=50.0)
+    def ke_u(s):
+        return (0.5 * float(torch.sum(s.mass * torch.sum(
+            s.velocity.double() ** 2, dim=-1) * s.mask))
+            + float(torch.sum(s.potential_energy.double() * s.mask)))
+
+    steps = ENS_MTTK_CONS_STEPS
+    with torch.no_grad():
+        state = ff.compute(lj.state)
+        aux = ens.init(state)
+        h0, e0 = ens.conserved(state, aux, dt), ke_u(state)
+        t0 = time.time()
+        state, (aux, _), _ = MDRunner(ff, ens, dt, steps)(state, aux=aux)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        h1, e1 = ens.conserved(state, aux, dt), ke_u(state)
+    bound = ENS_MTTK_CONS_TOL * lj.n
+    print(f"[ensembles] (b) nvt_mttk LJ {lj.n}, {steps} steps of 2 fs in "
+          f"{wall:.2f} s ({1e3 * wall / steps:.3f} ms/step): conserved "
+          f"quantity {h0:.6f} -> {h1:.6f} eV (change {h1 - h0:+.3e}, bound "
+          f"{bound:.3e}); KE + U alone {e0:.6f} -> {e1:.6f} eV (change "
+          f"{e1 - e0:+.3e}, must exceed {2 * bound:.3e})")
+    if not abs(h1 - h0) <= bound:
+        raise RuntimeError("(b) nvt_mttk: the conserved quantity drifts")
+    if not abs(e1 - e0) > 2 * bound:
+        raise RuntimeError("(b) nvt_mttk: the chain moved too little energy "
+                           "for the gate to tell its terms")
+
+
+def _ens_barostats(tmp):
+    """(b) npt_mttk iso toward its pressure; msst and wall_piston
+    compress along x."""
+    d = tmp / "b" / "npt"
+    _ens_argon(d, "ensemble npt_mttk temp 60 60 iso 0.3 0.3 pperiod 200\n"
+               "dump_thermo 10", steps=ENS_NPT_STEPS)
+    _ens_session(d, "cuda")
+    p = _ens_rows(d / "thermo.out")[:, 3:6].mean(axis=1)
+    gap0, gap1 = abs(p[0] - 0.3), abs(p[-20:].mean() - 0.3)
+    print(f"[ensembles] (b) npt_mttk iso 0.3 GPa, {ENS_NPT_STEPS} steps: "
+          f"pressure {p[0]:.4f} GPa at step 10, {p[-20:].mean():.4f} over "
+          f"the last 200 steps (distance to the target {gap0:.4f} -> "
+          f"{gap1:.4f})")
+    if not gap1 < 0.5 * gap0:
+        raise RuntimeError("(b) npt_mttk: the pressure does not relax")
+    d = tmp / "b" / "msst"
+    n = _ens_argon(d, "ensemble msst x 3 qmass 200 mu 5 tscale 0.05",
+                   steps=ENS_MSST_STEPS, temperature=ENS_MSST_T,
+                   nc=ENS_MSST_CELLS)
+    s = _ens_session(d, "cuda")
+    h0 = s.box.h.double().cpu()
+    h1 = s.state.box.h.double().cpu()
+    shrink = 1.0 - float(h1[0, 0] / h0[0, 0])
+    print(f"[ensembles] (b) msst x 3 km/s, argon {n} at {ENS_MSST_T:g} K, "
+          f"{ENS_MSST_STEPS} steps: Lx {float(h0[0, 0]):.4f} -> "
+          f"{float(h1[0, 0]):.4f} A ({shrink:.3%}, bound > "
+          f"{ENS_MSST_SHRINK:.1%}), Ly {float(h0[1, 1]):.6f} -> "
+          f"{float(h1[1, 1]):.6f} A")
+    if not (shrink > ENS_MSST_SHRINK
+            and abs(float(h1[1, 1] - h0[1, 1])) < 1e-4):
+        raise RuntimeError("(b) msst: no compression along x")
+    d = tmp / "b" / "piston"
+    n = _ens_argon(d, "ensemble wall_piston vp 10 thickness 6", steps=100)
+    s = _ens_session(d, "cuda")
+    x0 = torch.as_tensor(s.frame.positions[:, 0])
+    x1 = s.state.position[:n, 0].double().cpu()
+    piston, frozen = x0 < 6.0, x0 > float(s.box.h[0, 0]) - 6.0
+    move = (x1 - x0)[piston]
+    still = float((x1 - x0)[frozen].abs().max())
+    print(f"[ensembles] (b) wall_piston 10 km/s, 100 steps of 2 fs: the "
+          f"piston moved {float(move.min()):.4f}-{float(move.max()):.4f} A "
+          f"(20 expected), the far wall {still:.2e} A")
+    if not (float((move - 20.0).abs().max()) < 0.5 and still < 1e-3):
+        raise RuntimeError("(b) wall_piston: the piston does not compress")
+
+
+def _ens_pbte(tmp):
+    """(c) NEMD at full width: NEP PbTe 32,768 on the list path, heat_lan
+    on four slabs along x against NVE of the same deck; npt_mttk iso.  The
+    lattice starts at 600 K, which equipartition halves to the baths'
+    mean."""
+    import shutil
+
+    from gpumd_tpu_torch.bench import build_pbte
+    from gpumd_tpu_torch.engine import cuda_build
+
+    steps = ENS_PBTE_STEPS
+    pos, types, lengths = build_pbte(*[ENS_PBTE_CELLS] * 3)
+    out = {}
+    for name, line, extra in (
+            ("nve", "engine list\nensemble nve", ""),
+            ("heat_lan", "ensemble heat_lan 300 20 60 0 2",
+             f"compute 0 10 {steps} temperature\n"),
+            ("npt_mttk", "ensemble npt_mttk temp 300 300 iso 0 0 "
+                         "pperiod 200", f"dump_thermo {ENS_PBTE_WARM}\n")):
+        d = tmp / "c" / name
+        _write_model(d, np.where(types == 1, "Pb", "Te"), pos,
+                     np.where(types == 1, 207.2, 127.6), lengths, 600.0, 5,
+                     groups=_ens_slabs(pos, lengths[0]))
+        shutil.copy(MODEL, d / "nep.txt")
+        (d / "run.in").write_text(f"potential nep.txt\ntime_step 1\n"
+                                  f"{line}\n{extra}run {ENS_PBTE_WARM}\n"
+                                  f"{extra}run {steps}\n")
+        cuda_build.reset_launches()
+        s = _ens_session(d, "cuda", noise=False)
+        counts = dict(cuda_build.launches)
+        _launch_check(f"(c) {name}", counts, {}, never=tuple(counts))
+        want = ("engine list" if name == "nve"
+                else f"ensemble {type(s.ensemble).__name__}")
+        if s.route_reason != want:
+            raise RuntimeError(f"(c) {name}: route {s.route_reason!r}")
+        ms = 1e3 * s.run_seconds[1] / steps
+        out[name] = ms
+        print(f"[ensembles] (c) PbTe {s._n} {name} on the list path: "
+              f"{ms:.3f} ms/step over {steps} steps (after {ENS_PBTE_WARM} "
+              f"of warm-up)"
+              + (f", {ms - out['nve']:+.3f} against NVE" if "nve" in out
+                 and name != "nve" else ""))
+        if name == "heat_lan":
+            row = _ens_rows(d / "compute.out")[-1]
+            t = row[:4]
+            print(f"[ensembles] (c) heat_lan slab T {np.round(t, 2).tolist()}"
+                  f" K, baths {row[4]:.4e} / {row[5]:.4e} eV")
+            # the source injects energy from the start; the sink takes it
+            # out once the slabs between have warmed past its target
+            if not (t[0] > t[1] > t[2] and t[0] > t[3] > t[2]
+                    and row[4] < 0.0):
+                raise RuntimeError("(c) heat_lan: no gradient")
+        if name == "npt_mttk":
+            rows = _ens_rows(d / "thermo.out")
+            if not np.isfinite(rows).all():
+                raise RuntimeError("(c) npt_mttk: non-finite thermo")
+            # rows at the warm-up's end and every 100 steps of the timed
+            # run: the cell moves under the barostat
+            change = abs(rows[-1, 9] / rows[0, 9] - 1.0)
+            print(f"[ensembles] (c) npt_mttk box a_x {rows[0, 9]:.5f} -> "
+                  f"{rows[-1, 9]:.5f} A over the timed run (relative "
+                  f"{change:.3e}), pressure {rows[0, 3:6].mean():.4f} -> "
+                  f"{rows[-1, 3:6].mean():.4f} GPa")
+            if not (rows.shape[0] == 1 + steps // ENS_PBTE_WARM
+                    and change > 0.0):
+                raise RuntimeError("(c) npt_mttk: the cell did not move")
+    return out
+
+
+def _ens_costs():
+    """Host reads and costs the ensembles add, measured: TTM's substeps a
+    step and ms a step on LJ 4,000; TILiquid's UF pair sum at 4,000."""
+    from gpumd_tpu_torch.integrate.ensembles.ti import uf_pair
+    from gpumd_tpu_torch.integrate.ensembles.ttm import TTM
+    from gpumd_tpu_torch.units import TIME_UNIT_CONVERSION
+
+    lj = LJArgon()
+    with torch.no_grad():
+        state = lj.state
+        uf_pair(state, 60.0, 2.0, 25.0)
+        ms = _time_ms(lambda: uf_pair(state, 60.0, 2.0, 25.0), 5)
+        a0 = 5.26 * ENS_CELLS
+        ttm = TTM(gmask=state.mask, c_vol=1.0e-5, kappa_e=1.0e-3,
+                  gamma_p=5.0 * TIME_UNIT_CONVERSION / 1000.0, grid=(2, 2, 1),
+                  t_e_init=600.0, dcell_static=(a0 / 2, a0 / 2, a0))
+        dt = 2.0 / TIME_UNIT_CONVERSION
+        aux = ttm.init(state)
+        diffuse = _time_ms(lambda: ttm._diffuse(state, aux, dt), 10)
+    n_sub = ttm.substeps(2.0)
+    print(f"[ensembles] costs at LJ {lj.n}: TILiquid's UF pair sum "
+          f"{ms:.3f} ms (all pairs, blocks of 512); TTM's diffusion "
+          f"{n_sub} substeps a step on a 2 x 2 x 1 grid, {diffuse:.3f} ms "
+          f"a step")
+
+
+def phase_ensembles(results):
+    """The ensembles (phase 14 of the module docstring): (a) card against
+    CPU, (b) physics on the card, (c) NEMD at full width.  The CPU's
+    float64 references of (a) run in ENS_WORKERS worker processes while
+    the card runs (a) and (b); (c) and the costs run after them, on a
+    quiet host."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
+            ENS_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        tmp = Path(tmp)
+        futures, cards = _ens_card_runs(tmp, pool)
+        t1 = time.time()
+        print(f"[ensembles] (a) the card's decks done in {t1 - t0:.1f} s; "
+              f"their run blocks "
+              f"{sum(s.run_seconds[0] for s, _ in cards.values()):.2f} s of "
+              f"20 steps x {len(cards)} decks")
+        _ens_heat(tmp)
+        _ens_mttk_conserved()
+        _ens_barostats(tmp)
+        t2 = time.time()
+        print(f"[ensembles] (b) done in {t2 - t1:.1f} s")
+        _ens_card_vs_cpu(futures, cards)
+        t3 = time.time()
+        print(f"[ensembles] (a) the CPU's references compared "
+              f"{t3 - t2:.1f} s after (b)")
+        _ens_pbte(tmp)
+        _ens_costs()
+        print(f"[ensembles] (c) and the costs done in {time.time() - t3:.1f}"
+              " s")
+    print(f"[ensembles] phase done in {time.time() - t0:.1f} s")
+
+
+
+def _ens_time_deck(d, line, steps, system):
+    """A timing deck: LJ argon 4,000 at 60 K or NEP PbTe 32,768 at 300 K
+    (a spring a species for the TI decks), `run 20` then `run steps`."""
+    import shutil
+
+    from gpumd_tpu_torch.bench import build_pbte
+
+    if system == "lj":
+        _ens_argon(d, line, steps=20, extra="")
+    else:
+        pos, types, lengths = build_pbte(*[ENS_PBTE_CELLS] * 3)
+        _write_model(d, np.where(types == 1, "Pb", "Te"), pos,
+                     np.where(types == 1, 207.2, 127.6), lengths, 600.0, 5,
+                     groups=_ens_slabs(pos, lengths[0]))
+        shutil.copy(MODEL, d / "nep.txt")
+        line = (line.replace("temp 60 90", "temp 300 450")
+                .replace("60 60", "300 300").replace("temp 60", "temp 300")
+                .replace(" 60 20 15 ", " 300 20 30 ")
+                .replace("spring Ar 0.5", "spring Te 0.5 Pb 0.5"))
+        (d / "run.in").write_text(f"potential nep.txt\ntime_step 1\n{line}\n"
+                                  "run 20\n")
+    with open(d / "run.in", "a") as f:
+        f.write(f"run {steps}\n")
+
+
+def phase_ensembles_time(results, steps=100):
+    """ms/step of each keyword's deck of `ensembles` (a) beside NVE's, on
+    the list path, for LJ argon 4,000 and NEP PbTe 32,768 (not a default
+    phase: the ensembles' costs that PERF.md records)."""
+    t0 = time.time()
+    decks = {"nve": "engine list\nensemble nve", **ENS_DECKS}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for system in ("lj", "pbte"):
+            base = None
+            for key, line in decks.items():
+                d = tmp / system / key.replace(" ", "_")
+                _ens_time_deck(d, line, steps, system)
+                s = _ens_session(d, "cuda", noise=False)
+                ms = 1e3 * s.run_seconds[1] / steps
+                base = ms if base is None else base
+                print(f"[ensembles-time] {system} {s._n} {key}: {ms:.3f} "
+                      f"ms/step over {steps} steps, {ms - base:+.3f} against "
+                      f"NVE; route: {s.route_reason}")
+    print(f"[ensembles-time] phase done in {time.time() - t0:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,md,npt-md,hnemd-md,"
                     "drift,list-md,train,time,dense-kernels,dense-md,"
                     "dense-time,"
                     "tersoff-kernels,tersoff-md,tersoff-time,probes,app,"
-                    "measure")
+                    "measure,ensembles")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: the probes "
                     "phase then times its blocked gather and its wrappers' "
@@ -4446,6 +5024,8 @@ def main():
                 ("probes", lambda r: phase_probes(r, args.parent)),
                 ("app", lambda r: phase_app(r, pot_path)),
                 ("measure", phase_measure),
+                ("ensembles", phase_ensembles),
+                ("ensembles-time", phase_ensembles_time),
                 ("app-spread", lambda r: phase_app_spread(r, pot_path))):
             if name in phases:
                 fn(results)

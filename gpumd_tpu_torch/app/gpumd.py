@@ -9,14 +9,21 @@ The handlers keep the JAX module's names (`kw_<keyword>`).
 
 `engine auto` (the default) sends a run that the compact engine takes
 (one NEP or Tersoff-1989 potential, an ensemble of DENSE_ENSEMBLES, no
-fix/move group, no driver, no HNEMDEC and no per-step stress or Onsager
-observer, a box of >= 3 cells of rc + skin an axis) to
+fix/move group, no deform, no driver, no HNEMDEC and no per-step stress
+or Onsager observer, a box of >= 3 cells of rc + skin an axis) to
 DenseNEPMD or CompactTersoffMD, whose steps launch the hand-written CUDA
 kernels on the card; anything else runs the general (list) path,
 ForceField + integrate/run.py, and the log says why
 (`dense_route_reason`).  On the CPU `engine auto` always takes the list
 path; `engine dense` forces the compact engine (its kernels' plain
-versions on the CPU), `engine list` the list path.
+versions on the CPU) and refuses what it cannot carry, an ensemble
+outside DENSE_ENSEMBLES included (their group masks are in input order,
+which the engine's slot order would apply to the wrong atoms); `engine
+list` takes the list path.  The list path's ensembles (heat baths,
+MTTK, QTB, MSST, walls, TTM, TI) write their own outputs at chunk ends
+(the TI .csv rows) and at a run's end (the TI .yaml summary,
+ttm_electron_temperature.out); `compute` reads the heat baths' energies
+from the ensemble's aux.
 
 The run loop goes in chunks whose length is the gcd of the observers'
 intervals, at most MAX_CHUNK steps: the host reads the state (overflow,
@@ -61,6 +68,15 @@ from gpumd_tpu_torch.integrate.drivers import (
     ElectronStop,
     parse_table_or_values,
 )
+from gpumd_tpu_torch.integrate.ensembles.deform import DeformWrapper
+from gpumd_tpu_torch.integrate.ensembles.heat import (
+    HeatBDP,
+    HeatHybrid,
+    HeatLangevin,
+    HeatNHC,
+)
+from gpumd_tpu_torch.integrate.ensembles.msst import MSST
+from gpumd_tpu_torch.integrate.ensembles.mttk import MTTK, NPHug
 from gpumd_tpu_torch.integrate.ensembles.npt import NPTSCR, NPTBerendsen
 from gpumd_tpu_torch.integrate.ensembles.nve import NVE
 from gpumd_tpu_torch.integrate.ensembles.nvt import (
@@ -69,6 +85,20 @@ from gpumd_tpu_torch.integrate.ensembles.nvt import (
     NVTBerendsen,
     NVTLangevin,
     NVTNoseHooverChain,
+)
+from gpumd_tpu_torch.integrate.ensembles.qtb import NPTQTB, NVTQTB
+from gpumd_tpu_torch.integrate.ensembles.ti import (
+    TI,
+    TIAS,
+    TIRS,
+    TILiquid,
+    TISpring,
+)
+from gpumd_tpu_torch.integrate.ensembles.ttm import TTM
+from gpumd_tpu_torch.integrate.ensembles.walls import (
+    WallHarmonic,
+    WallMirror,
+    WallPiston,
 )
 from gpumd_tpu_torch.integrate.run import MDRunner
 from gpumd_tpu_torch.integrate.thermo import compute_thermo
@@ -128,8 +158,8 @@ UNPORTED = {
     # item 6: the rest of the app surface
     **{kw: 6 for kw in (
         "compute_cohesive", "compute_elastic", "change_box", "deposit",
-        "deform", "dump_observer", "active", "compute_extrapolation",
-        "compute_dpdt", "compute_es", "dump_cg", "dump_shock_nemd",
+        "dump_observer", "active", "compute_extrapolation",
+        "compute_dpdt", "compute_es", "dump_cg",
         "dump_beads", "dump_dipole", "dump_polarizability", "kspace",
         "plumed", "dump_netcdf")},
     # item 8: measure (the tight-binding transport solver)
@@ -147,13 +177,8 @@ _UNPORTED_POTENTIALS = (
     "fcp",
 )
 
-# ensembles not ported yet: ROADMAP queue 1, item 7
-_UNPORTED_ENSEMBLES = (
-    "nvt_qtb", "npt_qtb", "pimd", "rpmd", "trpmd", "heat_lan", "heat_nhc",
-    "heat_bdp", "heat_hybrid", "nvt_mttk", "npt_mttk", "nph_mttk",
-    "ti_spring", "ti", "ti_liquid", "ti_rs", "ti_as", "nphug", "ttm",
-    "heat_ttm", "wall_piston", "wall_mirror", "wall_harmonic", "msst",
-)
+# ensembles not ported yet: ROADMAP queue 1, item 7 (path integrals)
+_UNPORTED_ENSEMBLES = ("pimd", "rpmd", "trpmd")
 
 
 def _not_ported(what: str, item: int):
@@ -162,9 +187,55 @@ def _not_ported(what: str, item: int):
         f"item {item})")
 
 
+def _pairs(toks, what: str):
+    """(keyword, value) pairs of a `key value ...` token stream."""
+    if len(toks) % 2:
+        raise ValueError(f"{what}: {toks[-1]!r} has no value")
+    return zip(toks[0::2], toks[1::2])
+
+
 def _np(t) -> np.ndarray:
     """A tensor (on any device) as a float64 numpy array."""
     return t.detach().cpu().numpy().astype(np.float64)
+
+
+def _baro_tokens(name, toks, extra, axes=("x", "y", "z"), n_press=2):
+    """The MTTK family's keyword stream: `iso|aniso|tri` with `n_press`
+    pressures, an axis of `axes` with two, `tperiod`/`pperiod` with one,
+    and each keyword of `extra` with the number of values it maps to.
+    Returns (mode, {axis: (ps, pe)} in the order last given, the last
+    (ps, pe) given by a mode or an axis, {"tperiod"/"pperiod": value},
+    {keyword of extra: its value tokens})."""
+    mode, comps, press, periods, other = None, {}, (0.0, 0.0), {}, {}
+    i = 0
+    while i < len(toks):
+        t = toks[i]
+        if t in ("iso", "aniso", "tri"):
+            vals = [float(x) for x in toks[i + 1:i + 1 + n_press]]
+            mode, press = t, (vals[0], vals[-1])
+            i += 1 + n_press
+        elif t in axes:
+            comps.pop(t, None)
+            press = comps[t] = (float(toks[i + 1]), float(toks[i + 2]))
+            i += 3
+        elif t in ("tperiod", "pperiod"):
+            periods[t] = float(toks[i + 1])
+            i += 2
+        elif t in extra:
+            other[t] = toks[i + 1:i + 1 + extra[t]]
+            i += 1 + extra[t]
+        else:
+            raise ValueError(f"unknown {name} token {t!r}")
+    return mode, comps, press, periods, other
+
+
+def _one_axis_config(cls, mode, comps, ps, pe):
+    """`cls._baro_config` of a one-axis barostat (npt_qtb, nphug): the
+    axis given last at the last pressures given, else `mode`."""
+    if comps:
+        axis = {next(reversed(comps)): (ps, pe)}
+        return cls._baro_config(axis, axis, None)
+    return cls._baro_config(ps, pe, mode)
 
 
 def parse_run_in(path: str) -> List[List[str]]:
@@ -228,10 +299,18 @@ def thermo_row(state: MDState) -> List[float]:
             h[0, 2], h[1, 2], h[2, 2]]
 
 
-def _dense_blocker(session) -> Optional[str]:
-    """What keeps a run off the compact engine whatever the device: the
-    engine does not carry these into its slot order, nor apply the HNEMDEC
-    driving force, nor observe a step's stress or Onsager fluxes."""
+def _dense_blocker(session, ens) -> Optional[str]:
+    """What keeps a run off the compact engine whatever the device: it
+    integrates only DENSE_ENSEMBLES (the others hold group masks in input
+    order, which its slot order would apply to the wrong atoms, or move
+    the cell as its plan does not follow), and it does not carry the
+    groups, drivers or deformation below into its slot order, nor apply
+    the HNEMDEC driving force, nor observe a step's stress or Onsager
+    fluxes."""
+    if type(ens).__name__ not in DENSE_ENSEMBLES:
+        return f"ensemble {type(ens).__name__}"
+    if getattr(session, "deform", None) is not None:
+        return "deform run"
     if getattr(session, "move_pin", None) is not None:
         return "move groups"
     if session.mobile_mask is not None:
@@ -271,9 +350,7 @@ def dense_route_reason(session, ens, device) -> Optional[str]:
             return f"model not compact-eligible ({e})"
     elif not isinstance(pot, Tersoff1989):
         return f"potential {type(pot).__name__} has no compact engine"
-    if type(ens).__name__ not in DENSE_ENSEMBLES:
-        return f"ensemble {type(ens).__name__} runs on the list path"
-    blocker = _dense_blocker(session)
+    blocker = _dense_blocker(session, ens)
     if blocker is not None:
         return blocker
     rc = pot.model.rc_radial_max if isinstance(pot, NEP) else pot.rc
@@ -287,11 +364,13 @@ def dense_route_reason(session, ens, device) -> Optional[str]:
 
 class Session:
     """One gpumd run: model.xyz + run.in in a working directory, on
-    `device` (the card unless the CPU is asked for)."""
+    `device` (the card unless the CPU is asked for), in `dtype` (DTYPE,
+    float32, unless asked otherwise: float64 for a CPU reference)."""
 
     def __init__(self, workdir: str = ".", quiet: bool = False,
-                 device="cuda"):
+                 device="cuda", dtype: Optional[torch.dtype] = None):
         self.device = torch.device(device)
+        self.dtype = dtype or DTYPE
         prepare_device(self.device)
         self.workdir = workdir
         self.quiet = quiet
@@ -316,6 +395,8 @@ class Session:
         self.groups = Groups(frame.groups, frame.n_atoms)
         self.mobile_mask = None  # set by `fix`
         self.move_pin = None  # set by `move`
+        self.deform = None  # set by `deform`: A a step a direction
+        self._ens_aux = None  # the list path's ensemble aux, a chunk's end
         self.properties: List[PropertyRequest] = []
         self.measure_props: list = []
         self.global_step = 0
@@ -333,12 +414,13 @@ class Session:
             print(*msg)
 
     def _box(self, frame) -> Box:
-        return Box.from_lattice(frame.lattice, pbc=frame.pbc, dtype=DTYPE,
+        return Box.from_lattice(frame.lattice, pbc=frame.pbc, dtype=self.dtype,
                                 device=self.device)
 
     def _gmask(self, method: int, gid: int) -> torch.Tensor:
         """(N,) group membership on the session's device."""
-        return self.groups.mask(method, gid, dtype=DTYPE, device=self.device)
+        return self.groups.mask(method, gid, dtype=self.dtype,
+                                device=self.device)
 
     def _file(self, name: str, header: Optional[str] = None):
         if name not in self._files:
@@ -380,7 +462,7 @@ class Session:
         with open(path) as f:
             head = f.readline().split()
         name = head[0]
-        dev = dict(dtype=DTYPE, device=self.device)
+        dev = dict(dtype=self.dtype, device=self.device)
         if name == "lj":
             pot = LJ.from_file(path, **dev)
             self.type_names = head[2:2 + int(head[1])]
@@ -437,16 +519,31 @@ class Session:
         name = args[0]
         if name in _UNPORTED_ENSEMBLES:
             raise _not_ported(f"ensemble {name!r}", 7)
-        p = [float(x) for x in args[1:]]
         if name == "nve":
             self.ensemble = NVE()
         elif name in ("nvt_ber", "nvt_lan", "nvt_bdp", "nvt_nhc", "nvt_bao"):
             cls = {"nvt_ber": NVTBerendsen, "nvt_lan": NVTLangevin,
                    "nvt_bdp": NVTBDP, "nvt_nhc": NVTNoseHooverChain,
                    "nvt_bao": NVTBAOAB}[name]
+            p = [float(x) for x in args[1:]]
             self.ensemble = cls(t0=p[0], t1=p[1], coupling=p[2])
+        elif name == "nvt_qtb":
+            self.ensemble = self._parse_nvt_qtb(args)
+        elif name == "npt_qtb":
+            self.ensemble = self._parse_npt_qtb(args[1:])
+        elif name in ("heat_lan", "heat_nhc", "heat_bdp"):
+            cls = {"heat_lan": HeatLangevin, "heat_nhc": HeatNHC,
+                   "heat_bdp": HeatBDP}[name]
+            p = [float(x) for x in args[1:]]
+            self.ensemble = cls(
+                temperature=p[0], coupling=p[1], delta_t=p[2],
+                source_mask=self._gmask(0, int(p[3])),
+                sink_mask=self._gmask(0, int(p[4])))
+        elif name == "heat_hybrid":
+            self.ensemble = self._parse_heat_hybrid(args[1:])
         elif name in ("npt_ber", "npt_scr"):
             cls = NPTBerendsen if name == "npt_ber" else NPTSCR
+            p = [float(x) for x in args[1:]]
             t1, t2, tc = p[0], p[1], p[2]
             rest = p[3:]
             if len(rest) == 3:  # isotropic: p C tau_p
@@ -461,9 +558,280 @@ class Session:
             else:
                 raise ValueError(f"{name} needs 6 or 10 parameters")
             self.ensemble = ens
+        elif name in ("nvt_mttk", "npt_mttk", "nph_mttk"):
+            self.ensemble = self._parse_mttk(name, args[1:])
+        elif name == "ti_spring":
+            self.ensemble = self._parse_ti_spring(args[1:])
+        elif name == "ti":
+            self.ensemble = self._parse_ti(args[1:])
+        elif name == "ti_liquid":
+            self.ensemble = self._parse_ti_liquid(args[1:])
+        elif name in ("ti_rs", "ti_as"):
+            self.ensemble = self._parse_ti_npt(name, args[1:])
+        elif name == "nphug":
+            self.ensemble = self._parse_nphug(args[1:])
+        elif name in ("ttm", "heat_ttm"):
+            self.ensemble = self._parse_ttm(args[1:])
+        elif name in ("wall_piston", "wall_mirror", "wall_harmonic"):
+            self.ensemble = self._parse_wall(name, args[1:])
+        elif name == "msst":
+            self.ensemble = self._parse_msst(args[1:])
         else:
             raise ValueError(f"unsupported ensemble {name!r}")
         self.log(f"ensemble: {name} {args[1:]}")
+
+    def _parse_nvt_qtb(self, args):
+        """ensemble nvt_qtb T1 T2 Tc [f_max v] [N_f n]."""
+        kw = dict(temperature=float(args[1]), coupling=float(args[3]),
+                  dt=self.dt)
+        for key, val in _pairs(args[4:], "nvt_qtb"):
+            if key == "f_max":
+                kw["f_max"] = float(val)
+            elif key == "N_f":
+                kw["n_f"] = int(val)
+            else:
+                raise ValueError(f"unknown nvt_qtb keyword {key!r}")
+        return NVTQTB(**kw)
+
+    def _parse_npt_qtb(self, toks):
+        """ensemble npt_qtb temp T1 T2 [tperiod x] [f_max v] [N_f n]
+        iso|aniso|tri ps pe | x|y|z ps pe [pperiod x]
+        (ref: ensemble_npt_qtb.cu:115-200)."""
+        mode, comps, (ps, pe), per, other = _baro_tokens(
+            "npt_qtb", toks, {"temp": 2, "f_max": 1, "N_f": 1})
+        if mode is None and not comps:
+            raise ValueError("npt_qtb requires pressure specification")
+        kwq = dict(dt=self.dt)
+        for key, field in (("temp", "temperature"), ("f_max", "f_max")):
+            if key in other:
+                kwq[field] = float(other[key][0])
+        if "N_f" in other:
+            kwq["n_f"] = int(other["N_f"][0])
+        if "tperiod" in per:
+            kwq["coupling"] = per["tperiod"]
+        baro = MTTK(use_thermostat=False, use_barostat=True,
+                    p_period=per.get("pperiod", 1000.0),
+                    **_one_axis_config(MTTK, mode, comps, ps, pe))
+        return NPTQTB(qtb=NVTQTB(**kwq), baro=baro)
+
+    def _parse_heat_hybrid(self, toks):
+        """ensemble heat_hybrid <kind>... T <coupling>... dT <label>...;
+        kind nhc or lan, bath 0 the source (ref: heat_hybrid header)."""
+        toks = list(toks)
+        kinds = []
+        while toks and toks[0] in ("nhc", "lan"):
+            kinds.append(toks.pop(0))
+        nt = len(kinds)
+        if nt < 2:
+            raise ValueError("heat_hybrid needs >= 2 thermostats")
+        t = float(toks.pop(0))
+        coup = tuple(float(toks.pop(0)) for _ in range(nt))
+        dt_ = float(toks.pop(0))
+        masks = tuple(self._gmask(0, int(toks.pop(0))) for _ in range(nt))
+        return HeatHybrid(kinds=tuple(kinds), temperature=t, couplings=coup,
+                          delta_t=dt_, masks=masks)
+
+    def _parse_msst(self, toks):
+        """ensemble msst x|y|z vs [qmass q] [mu m] [tscale f] [p0 P]
+        [v0 V] [e0 E]."""
+        kw = dict(shock_direction={"x": 0, "y": 1, "z": 2}[toks[0]],
+                  vs=float(toks[1]))
+        for key, val in _pairs(toks[2:], "msst"):
+            if key not in ("qmass", "mu", "tscale", "p0", "v0", "e0"):
+                raise ValueError(f"unknown msst token {key!r}")
+            kw[key] = float(val)
+        return MSST(**kw)
+
+    def _parse_wall(self, name, toks):
+        """ensemble wall_piston vp v thickness d | wall_mirror vp v
+        [thickness d] | wall_harmonic vp v k kk [thickness d]; vp in km/s
+        -> natural units (/100 x TIME_UNIT_CONVERSION,
+        ensemble_wall_piston.cu:109)."""
+        kw = {}
+        for t, val in _pairs(toks, name):
+            if t == "vp":
+                kw["vp"] = float(val) / 100.0 * TIME_UNIT_CONVERSION
+            elif t == "thickness":
+                kw["thickness"] = float(val)
+            elif t == "k" and name == "wall_harmonic":
+                kw["k"] = float(val)
+            else:
+                raise ValueError(f"unknown {name} token {t!r}")
+        return {"wall_piston": WallPiston, "wall_mirror": WallMirror,
+                "wall_harmonic": WallHarmonic}[name](**kw)
+
+    def _parse_ttm(self, toks):
+        """ensemble ttm gm gid Ce rho_e kappa_e gamma_p gamma_s v_0
+        nx ny nz T_e_init [ttm_out_interval n] [ttm_source s]
+        (ref: ensemble_ttm.cu:84-300, unit conversions 742-790)."""
+        gm, gid = int(toks[0]), int(toks[1])
+        ce, rho_e, kappa_e = (float(toks[i]) for i in (2, 3, 4))
+        gamma_p, gamma_s, v0 = (float(toks[i]) for i in (5, 6, 7))
+        nx, ny, nz = (int(toks[i]) for i in (8, 9, 10))
+        kw = {}
+        for key, val in _pairs(toks[12:], "ttm"):
+            if key == "ttm_out_interval":
+                kw["out_interval"] = int(val)
+            elif key == "ttm_source":
+                kw["source"] = float(val) / 1000.0
+            else:
+                raise ValueError(f"unknown ttm keyword {key!r}")
+        h = _np(self.box.h)
+        v0_nat = v0 * TIME_UNIT_CONVERSION / 1000.0
+        return TTM(gmask=self._gmask(gm, gid), c_vol=ce * rho_e,
+                   kappa_e=kappa_e / 1000.0,
+                   gamma_p=gamma_p * TIME_UNIT_CONVERSION / 1000.0,
+                   gamma_s=gamma_s * TIME_UNIT_CONVERSION / 1000.0,
+                   v0_sq=v0_nat * v0_nat, grid=(nx, ny, nz),
+                   t_e_init=float(toks[11]),
+                   dcell_static=(h[0, 0] / nx, h[1, 1] / ny, h[2, 2] / nz),
+                   **kw)
+
+    def _parse_nphug(self, toks):
+        """ensemble nphug [tperiod x] [pperiod x]
+        iso|aniso|tri ps pe | x|y|z ps pe [p0 v] [v0 v] [e0 v]
+        (ref: ensemble_nphug.cu:27-160)."""
+        mode, comps, (ps, pe), per, other = _baro_tokens(
+            "nphug", toks, {"p0": 1, "v0": 1, "e0": 1})
+        if mode is None and not comps:
+            raise ValueError("nphug: must specify barostat parameters")
+        kw = {key[0] + "_period": val for key, val in per.items()}
+        kw.update((key, float(val[0])) for key, val in other.items())
+        if "p0" in kw:
+            kw["p0"] /= PRESSURE_UNIT_CONVERSION
+        uni = "xyz".index(next(reversed(comps))) if comps else -1
+        return NPHug(use_thermostat=True, use_barostat=True, uniaxial=uni,
+                     **_one_axis_config(NPHug, mode, comps, ps, pe), **kw)
+
+    def _springs(self, toks, i, spring):
+        """`spring El k ...` from toks[i] on into `spring`; returns the
+        index after it."""
+        while i + 1 < len(toks):
+            spring[toks[i]] = float(toks[i + 1])
+            i += 2
+        return i
+
+    def _ti_tokens(self, name, toks, known):
+        """The TI family's tokens, each of `known`: (kwargs, spring
+        constants, the tokens with no field of their own)."""
+        kw = dict(num_types=max(1, len(self.type_names)))
+        spring, rest = {}, {}
+        fields = {"temp": "temperature", "tperiod": "coupling",
+                  "tswitch": "t_switch", "tequil": "t_equil"}
+        i = 0
+        while i < len(toks):
+            t = toks[i]
+            if t not in known:
+                raise ValueError(f"unknown {name} token {t!r}")
+            if t == "spring":
+                i = self._springs(toks, i + 1, spring)
+                continue
+            val = toks[i + 1]
+            if t in ("tswitch", "tequil"):
+                kw[fields[t]] = int(val)
+            elif t in fields:
+                kw[fields[t]] = float(val)
+            elif t == "press":
+                kw["target_pressure"] = float(val) / PRESSURE_UNIT_CONVERSION
+            else:
+                rest[t] = float(val)
+            i += 2
+        return kw, spring, rest
+
+    def _spring_table(self, name, spring):
+        missing = [s for s in self.type_names if s not in spring]
+        if missing:
+            raise ValueError(f"{name}: spring constants missing for "
+                             f"{missing}")
+        return tuple(spring[s] for s in self.type_names)
+
+    def _parse_ti(self, toks):
+        """ensemble ti lambda x temp T [tperiod tau] spring El k ...
+        (ref: ensemble_ti.cu:77-113)."""
+        kw, spring, rest = self._ti_tokens(
+            "ti", toks, ("lambda", "temp", "tperiod", "spring"))
+        if "lambda" in rest:
+            kw["lam"] = rest["lambda"]
+        kw["spring_k"] = self._spring_table("ti", spring)
+        return TI(**kw)
+
+    def _parse_ti_spring(self, toks):
+        """ensemble ti_spring temp T [tperiod tau] [tswitch n tequil n]
+        [press P] [spring El k ...] (ref: ensemble_ti_spring.cu:100-150)."""
+        kw, spring, _ = self._ti_tokens(
+            "ti_spring", toks,
+            ("temp", "tperiod", "tswitch", "tequil", "press", "spring"))
+        if spring:
+            kw["spring_k"] = self._spring_table("ti_spring", spring)
+        return TISpring(**kw)
+
+    def _parse_ti_liquid(self, toks):
+        """ensemble ti_liquid temp T [press P] [tperiod tau] [tswitch n]
+        [tequil n] [sigmasqrd s2] [p P_UF]
+        (ref: ensemble_ti_liquid.cu:151-203)."""
+        kw, _, rest = self._ti_tokens(
+            "ti_liquid", toks, ("temp", "press", "tperiod", "tswitch",
+                                "tequil", "sigmasqrd", "p"))
+        if "sigmasqrd" in rest:
+            kw["sigma_sqrd"] = rest["sigmasqrd"]
+        if "p" in rest:
+            if int(round(rest["p"])) not in (1, 25, 50, 75, 100):
+                raise ValueError("ti_liquid: p must be 1, 25, 50, 75 or 100")
+            kw["p_uf"] = rest["p"]
+        return TILiquid(**kw)
+
+    def _parse_ti_npt(self, name, toks):
+        """ensemble ti_rs temp T Tmax iso|aniso|tri P [tperiod x]
+        [pperiod x] [tswitch n] [tequil n]   (ref: ensemble_ti_rs.cu:52-105)
+        ensemble ti_as temp T press pmin pmax iso P ...
+        (ref: ensemble_ti_as.cu:24-135)."""
+        mode, _, (press, _), per, other = _baro_tokens(
+            name, toks, {"temp": 2 if name == "ti_rs" else 1, "press": 2,
+                         "tswitch": 1, "tequil": 1}, axes=(), n_press=1)
+        kw = {key[0] + "_period": val for key, val in per.items()}
+        if "temp" in other:
+            kw["t_start"] = kw["t_stop"] = float(other["temp"][0])
+            if name == "ti_rs":
+                kw["t_max"] = float(other["temp"][1])
+        if "press" in other:
+            kw["p_min"], kw["p_max"] = (float(x) for x in other["press"])
+        for key in ("tswitch", "tequil"):
+            if key in other:
+                kw["t_" + key[1:]] = int(other[key][0])
+        cls = TIRS if name == "ti_rs" else TIAS
+        if name == "ti_as" and "p_min" not in kw:
+            kw["p_min"] = kw["p_max"] = press
+        return cls(use_thermostat=True, use_barostat=True,
+                   **cls._baro_config(press, press, mode or "iso"), **kw)
+
+    def _parse_mttk(self, name, toks):
+        """The MTTK keyword stream (ref: ensemble_mttk.cu:81-238):
+        temp T1 T2 | tperiod t | pperiod p | iso/aniso/tri P1 P2 |
+        x/y/z/xy/xz/yz P1 P2."""
+        mode, comps, (p1, p2), per, other = _baro_tokens(
+            name, toks, {"temp": 2}, axes=("x", "y", "z", "xy", "xz", "yz"))
+        t1, t2 = ((float(x) for x in other["temp"]) if "temp" in other
+                  else (None, None))
+        tper, pper = per.get("tperiod", 100.0), per.get("pperiod", 1000.0)
+        if comps:
+            baro = (comps, comps)
+        elif mode is not None:
+            baro = (p1, p2)
+        else:
+            baro = None
+        if name == "nvt_mttk":
+            if t1 is None:
+                raise ValueError("nvt_mttk needs temp T1 T2")
+            return MTTK.nvt(t1, t2, t_period=tper)
+        if name == "nph_mttk":
+            if baro is None:
+                raise ValueError("nph_mttk needs a barostat spec")
+            return MTTK.nph(baro[0], baro[1], mode=mode or "aniso",
+                            p_period=pper)
+        if t1 is None or baro is None:
+            raise ValueError("npt_mttk needs temp and a barostat spec")
+        return MTTK.npt(t1, t2, baro[0], baro[1], mode=mode or "aniso",
+                        t_period=tper, p_period=pper)
 
     def kw_dump_thermo(self, args):
         interval = int(args[0])
@@ -708,6 +1076,80 @@ class Session:
         self.move_pin = (self._gmask(method, gid), vel)
         self.log(f"move: group {gid} at {v} A/fs")
 
+    def kw_deform(self, args):
+        """deform rate [rx ry rz] dx dy dz: the box's strain rate in A a
+        step on the flagged directions (ref: integrate.cu:1381-1420); the
+        list path wraps the ensemble in DeformWrapper."""
+        if len(args) == 4:
+            rates = [float(args[0])] * 3
+            flags = [int(x) for x in args[1:4]]
+        else:
+            rates = [float(x) for x in args[0:3]]
+            flags = [int(x) for x in args[3:6]]
+        self.deform = tuple(r if f else 0.0 for r, f in zip(rates, flags))
+        self.log(f"deform: {self.deform} A/step")
+
+    def kw_dump_shock_nemd(self, args):
+        """dump_shock_nemd interval n bin_size d -> temperature, pxx, pyy,
+        pzz, density and vp _hist.txt, one row a dump (ref:
+        dump_shock_nemd.cu): a bin along x's COM-relative temperature,
+        stress (virial + convective) in GPa, density in g/cm3 and COM vx
+        in km/s, from the state read at the dump, in float64 on the
+        host."""
+        interval = bin_size = None
+        for key, val in _pairs(args, "dump_shock_nemd"):
+            if key == "interval":
+                interval = int(val)
+            elif key == "bin_size":
+                bin_size = float(val)
+            else:
+                raise ValueError(f"dump_shock_nemd: unknown {key!r}")
+        if interval is None or bin_size is None:
+            raise ValueError("dump_shock_nemd needs interval and bin_size")
+        h = _np(self.box.h)
+        bins = int(h[0, 0] / bin_size) + 1
+        slice_vol = h[1, 1] * h[2, 2] * bin_size
+        files = {name: self._file(f"{name}_hist.txt")
+                 for name in ("temperature", "pxx", "pyy", "pzz", "density",
+                              "vp")}
+
+        def process(session, state, step):
+            mask = _np(state.mask) > 0
+            x = _np(state.position)[:, 0]
+            b = np.clip((x / bin_size).astype(np.int64), 0, bins - 1)
+            b = np.where(mask, b, bins)
+            v, w = _np(state.velocity), _np(state.virial)
+            mw = _np(state.mass) * mask
+
+            def per_bin(weights):
+                return np.bincount(b, weights=weights,
+                                   minlength=bins + 1)[:bins]
+
+            dens = per_bin(mw)
+            com = np.stack([per_bin(mw * v[:, k]) for k in range(3)], axis=1)
+            com = np.where(dens[:, None] > 1e-5,
+                           com / np.maximum(dens, 1e-30)[:, None], 0.0)
+            vrel = v - com[np.minimum(b, bins - 1)]
+            temp = per_bin(mw * (vrel ** 2).sum(axis=1))
+            num = per_bin(mask.astype(float))
+            temp = np.where(num >= 20,
+                            temp / np.maximum(3 * num * K_B, 1e-30), temp)
+            rows = {}
+            for j, name in enumerate(("pxx", "pyy", "pzz")):
+                pk = w[:, j, j] + mw * vrel[:, j] ** 2
+                rows[name] = (per_bin(pk * mask) / slice_vol
+                              * PRESSURE_UNIT_CONVERSION)
+            rows["temperature"] = temp
+            rows["density"] = dens / slice_vol * 1.660538921  # g/cm3
+            rows["vp"] = com[:, 0] / (0.01 * TIME_UNIT_CONVERSION)  # km/s
+            for name, arr in rows.items():
+                files[name].write(" ".join(f"{v2:f}" for v2 in arr) + "\n")
+                files[name].flush()
+
+        self.properties.append(
+            PropertyRequest(interval, process, needs_atom_virial=True))
+        self.log(f"dump_shock_nemd {args}")
+
     # ----------------------------------------------------------- the route
 
     def _run_dense(self, n_steps, ens):
@@ -851,13 +1293,14 @@ class Session:
         n_steps = int(args[0])
         if self.ensemble is None:
             self.ensemble = NVE()
+        self._ens_aux = None
         ens = self.ensemble
         # temperature ramp length = this run's steps
         if hasattr(ens, "n_steps"):
             ens = dataclasses.replace(ens, n_steps=n_steps)
         mode = self.engine_mode
         if mode == "dense":
-            blocker = _dense_blocker(self)
+            blocker = _dense_blocker(self, ens)
             if blocker is not None:
                 raise ValueError(f"engine dense: the compact engine does "
                                  f"not take {blocker}; use `engine list` "
@@ -887,6 +1330,8 @@ class Session:
             ens = dataclasses.replace(ens, mobile=self.mobile_mask)
         if self.move_pin is not None and hasattr(ens, "pinned"):
             ens = dataclasses.replace(ens, pinned=self.move_pin)
+        if self.deform is not None:
+            ens = DeformWrapper(inner=ens, rate=self.deform)
         self._wire_nep_temperature(ens)
         intervals = [p.interval for p in self.properties] + [
             m.interval for m in self.measure_props]
@@ -899,10 +1344,16 @@ class Session:
         ons = next((m for m in self.measure_props
                     if getattr(m, "needs_onsager", False)), None)
         observed = needs_heat or needs_stress or ons is not None
+        is_ti = hasattr(ens, "csv_name")
+        if is_ti and (needs_heat or needs_stress):
+            raise ValueError("TI runs do not support heat/stress observers")
 
-        def observer(s):
-            """A step's heat current, stress and Onsager fluxes (each None
-            unless a measure consumes it)."""
+        def observer(s, a):
+            """A TI step's observation; else a step's heat current, stress
+            and Onsager fluxes (each None unless a measure consumes
+            it)."""
+            if is_ti:
+                return ens.observe(s, a)
             if not observed:
                 return None
             return (heat_current_5(s) if needs_heat else None,
@@ -942,6 +1393,12 @@ class Session:
         while done < n_steps:
             step0 = self.global_step
             state, (aux, cache), obs = runner(state, aux=aux, cache=cache)
+            self._ens_aux = aux  # processors read e.g. the baths' energies
+            if is_ti:
+                fcsv = self._file(ens.csv_name, ens.csv_header)
+                for row in ens.csv_rows(obs, self._n):
+                    fcsv.write(row)
+                fcsv.flush()
             done += chunk
             self.global_step += chunk
             self.state = state
@@ -956,7 +1413,7 @@ class Session:
             if done % decile < chunk and n_steps >= 10:
                 self.log(f"    {int(100 * done / n_steps)}% of the run "
                          f"completed ({done}/{n_steps} steps)")
-            if observed:
+            if observed and not is_ti:
                 j5, s6, fluxes = obs
                 for m in self.measure_props:
                     if getattr(m, "needs_heat", False):
@@ -981,7 +1438,34 @@ class Session:
         self.run_seconds.append(wall)
         self.log(f"Speed of this run = "
                  f"{self._n * n_steps / max(wall, 1e-9):.5g} atom*step/second")
+        if isinstance(aux, dict) and "t_e" in aux:  # a TTM run
+            self._write_ttm(getattr(ens, "inner", ens), aux)
+        if is_ti and ens.yaml_name:
+            summary = ens.free_energy(state, aux)
+            fy = self._file(ens.yaml_name)
+            for key, val in summary.items():
+                fy.write(f"{key}: {val:f}\n")
+            fy.flush()
+            self.log(f"{type(ens).__name__}: F = {summary['F']:.6f} eV/atom "
+                     f"(G {summary['G']:.6f})")
         self._finish_run()
+
+    def _write_ttm(self, ens, aux):
+        """ttm_electron_temperature.out, overwritten at a run's end
+        (ref: ttm_electron_temperature_out.rst, ensemble_ttm.cu)."""
+        nx, ny, nz = ens.grid
+        te = _np(aux["t_e"]).reshape(nz, ny, nx)
+        with open(os.path.join(self.workdir,
+                               "ttm_electron_temperature.out"), "w") as f:
+            f.write("# electron temperature snapshots for TTM\n")
+            f.write(f"# nx {nx} ny {ny} nz {nz}\n")
+            f.write(f"# output_interval {ens.out_interval} step(s)\n")
+            f.write("# columns: ix iy iz T_e[K]\n")
+            f.write(f"# step {self.global_step}\n")
+            for iz in range(nz):
+                for iy in range(ny):
+                    for ix in range(nx):
+                        f.write(f"{ix} {iy} {iz} {te[iz, iy, ix]:.6f}\n")
 
     # ------------------------------------------------------- measure keywords
 
@@ -1169,9 +1653,9 @@ class Session:
         group sums time-averaged over the output window, except temperature,
         a per-atom average; with temperature the two cumulative bath
         energies (source, sink) follow, the NEMD heat-flux measurement:
-        zero until the heat-bath ensembles are ported (ROADMAP queue 1,
-        item 7).  A sample's sums run in float64 on the state's device; the
-        rows reach the host at output."""
+        the ensemble's aux["e_transfer"] (the heat_* ensembles; zero under
+        the others).  A sample's sums run in float64 on the state's device;
+        the rows reach the host at output."""
         method = int(args[0])
         sample_interval = int(args[1])
         output_interval = int(args[2])
@@ -1213,7 +1697,11 @@ class Session:
             if len(rows) % max(output_interval // sample_interval, 1) == 0:
                 out = list(_np(torch.stack(rows).mean(dim=0)))
                 if "temperature" in quantities:
-                    out += [0.0, 0.0]  # the heat baths' energies
+                    # the heat baths' cumulative energies (source, sink)
+                    aux = session._ens_aux
+                    et = (_np(aux["e_transfer"]) if isinstance(aux, dict)
+                          and "e_transfer" in aux else np.zeros(2))
+                    out += [float(et[0]), float(et[1])]
                 f.write("".join(f"{x:15.6e}" for x in out) + "\n")
                 f.flush()
                 rows.clear()
@@ -1459,6 +1947,8 @@ class Session:
         "compute": kw_compute,
         "compute_chunk": kw_compute_chunk,
         "move": kw_move,
+        "deform": kw_deform,
+        "dump_shock_nemd": kw_dump_shock_nemd,
         "run": kw_run,
     }
 

@@ -42,11 +42,13 @@ from gpumd_tpu_torch.units import K_B, PRESSURE_UNIT_CONVERSION
 
 
 def _vec3(values, like: torch.Tensor) -> torch.Tensor:
-    """Three host floats as a (3,) tensor on `like`'s device, each written
-    in place (no host-to-device copy, so no wait for the card)."""
-    v = torch.empty(3, dtype=like.dtype, device=like.device)
+    """Host floats (three here; MTTK's cell writes nine) as a vector in
+    `like`'s dtype on its device, each written in place (no host-to-device
+    copy, so no wait for the card)."""
+    values = [float(x) for x in values]
+    v = torch.empty(len(values), dtype=like.dtype, device=like.device)
     for k, x in enumerate(values):
-        v[k] = float(x)
+        v[k] = x
     return v
 
 

@@ -66,6 +66,38 @@ _SY_W = (0.784513610477560, 0.235573213359357, -1.17767998417887,
 _N_RESPA = 4
 
 
+def nhc_scalar(pos, vel, mas, ek2: float, kt: float, dn: float,
+               dt_half: float, n_respa: int = 4):
+    """One Nose-Hoover-chain half update on host floats; returns (velocity
+    scale factor, pos', vel').  The chain length is len(pos)
+    (ref: ensemble_nhc.cu:97-160 nhc())."""
+    pos, vel = list(pos), list(vel)
+    m = len(pos)
+    factor = 1.0
+
+    def sweep(j, dt4, dt8):
+        tmp = math.exp(-dt8 * vel[j + 1] / mas[j + 1])
+        g = (vel[j - 1] ** 2 / mas[j - 1] - kt) if j > 0 else ek2 - dn * kt
+        vel[j] = tmp * (tmp * vel[j] + dt4 * g)
+
+    for w in _SY_W:
+        dt2 = dt_half * w / n_respa
+        dt4 = dt2 * 0.5
+        dt8 = dt4 * 0.5
+        for _ in range(n_respa):
+            vel[m - 1] += dt4 * (vel[m - 2] ** 2 / mas[m - 2] - kt)
+            for j in range(m - 2, -1, -1):
+                sweep(j, dt4, dt8)
+            pos = [p + dt2 * v / ms for p, v, ms in zip(pos, vel, mas)]
+            s = math.exp(-dt2 * vel[0] / mas[0])
+            factor *= s
+            ek2 *= s * s
+            for j in range(0, m - 1):
+                sweep(j, dt4, dt8)
+            vel[m - 1] += dt4 * (vel[m - 2] ** 2 / mas[m - 2] - kt)
+    return factor, pos, vel
+
+
 def _ke2(state: MDState):
     """Twice the kinetic energy (a device scalar)."""
     return torch.sum(state.mass * torch.sum(state.velocity ** 2, dim=-1)
@@ -221,37 +253,13 @@ class NVTNoseHooverChain(_RampMixin):
 
     def _chain(self, state: MDState, aux, dt, dt_half):
         """One NHC half-update; returns (velocity scale factor, aux')."""
-        t0 = self._temp(aux)
-        kt = K_B * t0
+        kt = K_B * self._temp(aux)
         ek2, dn = torch.stack([_ke2(state), _ndof(state)]).tolist()
         tau = dt * self.coupling
         mas = [kt * tau * tau] * NHC_LENGTH
         mas[0] *= dn
-        pos, vel = list(aux["pos"]), list(aux["vel"])
-        m = NHC_LENGTH
-
-        def sweep(j):
-            tmp = math.exp(-dt8 * vel[j + 1] / mas[j + 1])
-            g = (vel[j - 1] ** 2 / mas[j - 1] - kt) if j > 0 else (
-                ek2 - dn * kt)
-            vel[j] = tmp * (tmp * vel[j] + dt4 * g)
-
-        factor = 1.0
-        for n1 in range(7):
-            dt2 = dt_half * _SY_W[n1] / _N_RESPA
-            dt4 = dt2 * 0.5
-            dt8 = dt4 * 0.5
-            for _ in range(_N_RESPA):
-                vel[m - 1] += dt4 * (vel[m - 2] ** 2 / mas[m - 2] - kt)
-                for j in range(m - 2, -1, -1):
-                    sweep(j)
-                s = math.exp(-dt2 * vel[0] / mas[0])
-                factor *= s
-                ek2 *= s * s
-                pos = [p + dt2 * v / ms for p, v, ms in zip(pos, vel, mas)]
-                for j in range(0, m - 1):
-                    sweep(j)
-                vel[m - 1] += dt4 * (vel[m - 2] ** 2 / mas[m - 2] - kt)
+        factor, pos, vel = nhc_scalar(aux["pos"], aux["vel"], mas, ek2, kt,
+                                      dn, dt_half, _N_RESPA)
         return factor, {**aux, "pos": pos, "vel": vel}
 
     def step1(self, state: MDState, aux, dt):

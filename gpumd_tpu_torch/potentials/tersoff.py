@@ -5,7 +5,7 @@ parser with its mixing rules for one or two types (geometric A, B * chi,
 r1, r2; arithmetic lambda, mu).  The compact engine
 (engine/tersoff_compact.py) evaluates the potential; the list-path
 `compute`, Tersoff1988 and TersoffMini are not ported yet (ROADMAP queue 1,
-items 7 and 10).
+item 9).
 """
 
 from __future__ import annotations

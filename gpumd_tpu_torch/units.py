@@ -16,5 +16,8 @@ TIME_UNIT_CONVERSION = 1.018051e1
 # eV/Angstrom^3 -> GPa.
 PRESSURE_UNIT_CONVERSION = 1.602177e2
 
+# hbar in eV x natural time.
+HBAR = 6.465412e-2
+
 # natural thermal conductivity -> W/(m K).
 KAPPA_UNIT_CONVERSION = 1.573769e5

@@ -17,7 +17,11 @@ Si 216 atoms under nvt_ber.  After 20 steps: positions within 1e-4 A,
 energies within 1e-5 eV/atom, the box within 1e-5 relative, kappa.out,
 shc.out and hac.out within 1e-4 of each column's largest magnitude.  A
 Tersoff deck on the list path raises, naming ROADMAP queue 1, item 9 (the
-port's list path has no Tersoff force).
+port's list path has no Tersoff force).  Each ensemble the compact engine
+does not integrate (the heat baths, MTTK, NPHug, QTB, MSST, the walls,
+TTM, the TI family) and `deform` take the list path on the card with
+their reason, and `engine dense` refuses each ensemble by name before
+any step (ROADMAP queue 3, item 14).
 """
 
 import os
@@ -255,3 +259,55 @@ def test_compact_deck_matches_jax(runs, name):
             assert got.shape == want.shape == shape, f
             _col_close(got, want, 1e-4, f)
         assert ts.ff.hnemd_fe is None  # reset after the run
+
+
+# the ensembles the compact engine does not integrate (they hold group
+# masks in input order or move the cell): each takes the list path under
+# `engine auto` on the card, and `engine dense` refuses it by name
+LIST_ENSEMBLES = {
+    "heat_lan 300 100 20 0 1": "HeatLangevin",
+    "heat_nhc 300 100 20 0 1": "HeatNHC",
+    "heat_bdp 300 100 20 0 1": "HeatBDP",
+    "heat_hybrid nhc lan 300 100 100 20 0 1": "HeatHybrid",
+    "nvt_mttk temp 300 300": "MTTK",
+    "npt_mttk temp 300 300 iso 0 0": "MTTK",
+    "npt_mttk temp 300 300 tri 0 0": "MTTK",
+    "npt_mttk temp 300 300 x 0 0 y 0 0 z 0 0": "MTTK",
+    "nph_mttk aniso 0 0": "MTTK",
+    "nphug x 1 1": "NPHug",
+    "nvt_qtb 300 300 100": "NVTQTB",
+    "npt_qtb temp 300 300 iso 0 0": "NPTQTB",
+    "msst x 1.5": "MSST",
+    "wall_piston vp 1 thickness 4": "WallPiston",
+    "wall_mirror vp 1": "WallMirror",
+    "wall_harmonic vp 1 k 2": "WallHarmonic",
+    "ttm 0 1 1e-5 1 1 5 0 100 2 2 2 600": "TTM",
+    "heat_ttm 0 1 1e-5 1 1 5 0 100 2 2 2 600": "TTM",
+    "ti_spring temp 300 spring Te 1 Pb 1": "TISpring",
+    "ti lambda 0.5 temp 300 spring Te 1 Pb 1": "TI",
+    "ti_rs temp 300 600 iso 0": "TIRS",
+    "ti_as temp 300 press 0 1": "TIAS",
+    "ti_liquid temp 300": "TILiquid",
+}
+
+
+@pytest.mark.parametrize("line, cls", LIST_ENSEMBLES.items(),
+                         ids=list(LIST_ENSEMBLES))
+def test_list_only_ensembles_take_the_list_path(tmp_path, line, cls,
+                                                no_launches):
+    deck = f"potential nep.txt\ntime_step 1\nensemble {line}\n"
+    s = _session(tmp_path, write_pbte, deck)
+    assert type(s.ensemble).__name__ == cls
+    assert tapp.dense_route_reason(s, s.ensemble, "cuda") == f"ensemble {cls}"
+    (tmp_path / "run.in").write_text(deck + "engine dense\nrun 1\n")
+    t = tapp.Session(str(tmp_path), quiet=True, device="cpu")
+    with pytest.raises(ValueError, match=f"ensemble {cls}"):
+        t.execute()
+    assert t.global_step == 0
+
+
+def test_deform_takes_the_list_path(tmp_path, no_launches):
+    s = _session(tmp_path, write_pbte,
+                 "potential nep.txt\ndeform 0.001 1 1 1\n")
+    assert s.deform == (0.001,) * 3
+    assert tapp.dense_route_reason(s, tnve.NVE(), "cuda") == "deform run"
