@@ -306,8 +306,8 @@ written with velocities drawn by numpy:
              iso halves its distance to 0.3 GPa in 1,000 steps; msst (3
              km/s) on tests/test_msst.py's box (108 atoms, 40 K)
              compresses x by more than that test's 0.5% in 800 steps with
-             y untouched; the wall piston moves 20 A in 100 steps with
-             the far wall still; (c) NEP PbTe 32,768 (the trained model,
+             y untouched; the wall piston (2 km/s) moves 4 A in 100 steps
+             within 0.01 A with the far wall still and the run finite; (c) NEP PbTe 32,768 (the trained model,
              four slabs along x, from 600 K) on the list path: NVE (engine
              list), heat_lan 300 +- 60 K and npt_mttk iso, 100 steps of
              warm-up then 100 timed (the port's own noise generators):
@@ -315,6 +315,27 @@ written with velocities drawn by numpy:
              reasons, a gradient in compute.out (source > the two middle
              slabs > sink, the source injecting); then TILiquid's UF pair
              sum at LJ 4,000 and TTM's diffusion substeps and ms a step
+ 15. pimd-potentials  the path integrals and the classical potentials
+             through Session on the list path (plain torch; the phase
+             fails on any launch of a hand-written kernel): (a) each of
+             tersoff_1989 (engine list), tersoff_1988, tersoff_mini,
+             sw_1985, eam_zhou_2004, eam/alloy, adp and eam_dai_2006
+             (potentials/sets.py's files: published Si for tersoff_1989
+             and sw_1985, synthetic sets otherwise) on a 216-512-atom
+             lattice at 300 K, 20 NVE steps on the card (float32)
+             against the CPU's float64 run (four worker processes while
+             the card works): positions within 1e-3 A, the last potential
+             energy within 1e-4 eV/atom; then a 4,096-atom Si or
+             4,000-atom fcc deck of each for 200 NVE steps: KE + U within
+             5e-4 eV/atom of step 10's; (b) Tersoff-1989 Si 4,096 under
+             heat_lan (engine auto: the list path for its ensemble) for
+             200 steps, the source bath injecting more than the sink and
+             its slab hotter; (c) pimd, 8 beads, LJ argon 4,000 at 40 K,
+             60 steps with dump_beads every 30: the bead temperature of
+             the last 50 steps within [0.6, 1.5] x 8 x 40 K, eight
+             beads_dump_<k>.xyz of two frames; (d) no hand-written kernel
+             launched; (e) ms/step and the peak device memory of every
+             4,000-atom deck and of (c)
 
 Not among the default phases (ask for it with --phases):
 
@@ -336,7 +357,7 @@ Not among the default phases (ask for it with --phases):
 Usage: python3 chip_smoke.py [--phases build,kernels,md,npt-md,
        hnemd-md,drift,list-md,train,time,dense-kernels,dense-md,dense-time,
        tersoff-kernels,tersoff-md,tersoff-time,probes,app,measure,
-       ensembles,app-spread,ensembles-time]
+       ensembles,pimd-potentials,app-spread,ensembles-time]
        [--parent DIR]
 Prints the kernels' JSON line, then, last, {"ok": true, "device": {...}}.
 A kernel's "launches" are those of the 200-step NVE run of its path;
@@ -4525,6 +4546,13 @@ ENS_MTTK_CONS_TOL = 1e-3
 ENS_HEAT_STEPS, ENS_MTTK_CONS_STEPS, ENS_NPT_STEPS = 400, 1000, 1000
 ENS_MSST_CELLS, ENS_MSST_T, ENS_MSST_STEPS = 3, 40.0, 800
 ENS_MSST_SHRINK = 0.005
+# the wall piston at ENS_PISTON_VP km/s for 100 steps of 2 fs: its atoms
+# within ENS_PISTON_TOL A of vp t, the far wall still, the run finite.  At
+# 10 km/s (tests/test_msst.py's deck, 0.2 A a step into the lattice) the
+# run blows up within 100 steps (its velocities go non-finite) and its
+# rows outgrow MN 256 (the list path's capacity check stops it); at 2 km/s
+# the shock heats the lattice and the run stays finite
+ENS_PISTON_VP, ENS_PISTON_TOL = 2.0, 0.01
 # (c): NEP PbTe 32,768 on the list path, heat_lan on four slabs along x.
 ENS_PBTE_CELLS, ENS_PBTE_STEPS, ENS_PBTE_WARM = 16, 100, 100
 
@@ -4789,18 +4817,26 @@ def _ens_barostats(tmp):
             and abs(float(h1[1, 1] - h0[1, 1])) < 1e-4):
         raise RuntimeError("(b) msst: no compression along x")
     d = tmp / "b" / "piston"
-    n = _ens_argon(d, "ensemble wall_piston vp 10 thickness 6", steps=100)
+    n = _ens_argon(d, f"ensemble wall_piston vp {ENS_PISTON_VP:g} "
+                   "thickness 6\ndump_thermo 10", steps=100)
     s = _ens_session(d, "cuda")
     x0 = torch.as_tensor(s.frame.positions[:, 0])
     x1 = s.state.position[:n, 0].double().cpu()
     piston, frozen = x0 < 6.0, x0 > float(s.box.h[0, 0]) - 6.0
     move = (x1 - x0)[piston]
     still = float((x1 - x0)[frozen].abs().max())
-    print(f"[ensembles] (b) wall_piston 10 km/s, 100 steps of 2 fs: the "
-          f"piston moved {float(move.min()):.4f}-{float(move.max()):.4f} A "
-          f"(20 expected), the far wall {still:.2e} A")
-    if not (float((move - 20.0).abs().max()) < 0.5 and still < 1e-3):
-        raise RuntimeError("(b) wall_piston: the piston does not compress")
+    want = ENS_PISTON_VP / 100.0 * 200.0  # km/s -> A/fs, 100 steps of 2 fs
+    t = _ens_rows(d / "thermo.out")[:, 0]
+    finite = bool(torch.isfinite(s.state.velocity).all()) and bool(
+        np.isfinite(t).all())
+    print(f"[ensembles] (b) wall_piston {ENS_PISTON_VP:g} km/s, 100 steps "
+          f"of 2 fs: the piston moved {float(move.min()):.4f}-"
+          f"{float(move.max()):.4f} A ({want:g} expected), the far wall "
+          f"{still:.2e} A; T {t[0]:.1f} -> {t[-1]:.1f} K, finite {finite}")
+    if not (float((move - want).abs().max()) < ENS_PISTON_TOL
+            and still < 1e-3 and finite):
+        raise RuntimeError("(b) wall_piston: the piston does not compress, "
+                           "or the run is not finite")
 
 
 def _ens_pbte(tmp):
@@ -4982,13 +5018,254 @@ def phase_ensembles_time(results, steps=100):
     print(f"[ensembles-time] phase done in {time.time() - t0:.1f} s")
 
 
+
+# ---- phase 15: the path integrals and the classical potentials (the list
+# path through the app, plain torch: no hand-written kernel launches) ------
+
+# (a) each potential of the slice with its format's file from
+# potentials/sets.py (the published Si sets for tersoff_1989 and sw_1985,
+# synthetic sets otherwise): a small deck, PP_STEPS of NVE on the card
+# (float32) against the same deck on the CPU (float64, in worker processes
+# while the card works), and a 4,096-atom Si or 4,000-atom fcc deck on the
+# card for PP_BIG_STEPS of NVE.  The lattices: (kind, a0 A, cells, types)
+# of the small deck, (kind, a0 A, cells) of the big one (one type).
+PP_DECKS = {
+    "tersoff_1989": (("diamond", 5.431, 3, "one"), ("diamond", 5.431, 8)),
+    "tersoff_1988": (("zincblende", 4.36, 3, "zb"), ("diamond", 5.431, 8)),
+    "tersoff_mini": (("zincblende", 4.36, 3, "zb"), ("diamond", 5.431, 8)),
+    "sw_1985": (("diamond", 5.431, 4, "one"), ("diamond", 5.431, 8)),
+    "eam_zhou_2004": (("fcc", 3.7, 5, "random"), ("fcc", 3.615, 10)),
+    "eam/alloy": (("fcc", 3.7, 5, "random"), ("fcc", 3.615, 10)),
+    "adp": (("fcc", 3.7, 5, "random"), ("fcc", 3.615, 10)),
+    "eam_dai_2006": (("fcc", 3.8, 5, "one"), ("fcc", 3.8, 10)),
+}
+PP_STEPS, PP_BIG_STEPS, PP_T = 20, 200, 300.0
+# (a)'s gates: positions within POS_TOL (list-md's 1e-3 A) of the CPU's
+# float64 run after PP_STEPS; its last thermo row's potential energy within
+# PP_PE_TOL eV/atom (float32 sums of ~4 eV terms: ~1e-6 eV/atom); the big
+# deck's KE + U within PP_DRIFT_TOL eV/atom of its first thermo row over
+# PP_BIG_STEPS steps of 1 fs at 300 K (velocity Verlet's fluctuation there
+# is ~1e-5 eV/atom; a force that is not the energy's gradient moves it by
+# far more)
+PP_PE_TOL = 1e-4
+PP_DRIFT_TOL = 5e-4
+# (b) Tersoff-1989 Si 4,096 under heat_lan (300 +- 50 K, four slabs along
+# x: slab 0 the source, slab 2 the sink; from 600 K on the lattice, which
+# equipartition halves) on the list path, PP_BIG_STEPS: the source bath
+# injects more than the sink (e_src < e_snk; the sign convention of
+# `ensembles` (b)) and its slab ends hotter.
+# (c) pimd, PP_BEADS beads, LJ argon 4,000 at PP_PIMD_T K for
+# PP_PIMD_STEPS of 2 fs, dump_beads every PP_PIMD_DUMP steps: the bead
+# temperature over the last 50 steps within [0.6, 1.5] P T
+# (tests/test_pimd.py's band; the beads start at P T, and 100 steps read
+# 305.1 K over their last 50 on the H100).  A step re-lists every bead,
+# ~0.3 s at 4,000 atoms and 8 beads: 60 steps keep the phase under 90 s.
+PP_BEADS, PP_PIMD_T, PP_PIMD_STEPS, PP_PIMD_DUMP = 8, 40.0, 60, 30
+
+
+def _pp_lattice(kind, a0, nc, types="one", seed=5):
+    """(positions, lengths, type indices) of nc^3 cells: fcc, diamond, or
+    zincblende (the +1/4 sites type 1); `types` "random" draws 0/1."""
+    fcc = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5]])
+    basis = fcc if kind == "fcc" else np.concatenate([fcc, fcc + 0.25])
+    cells = np.stack(np.meshgrid(*[np.arange(nc)] * 3, indexing="ij"),
+                     axis=-1).reshape(-1, 3)
+    pos = (cells[:, None, :] + basis[None]).reshape(-1, 3) * a0
+    n = len(pos)
+    if types == "zb":
+        t = np.tile(np.repeat([0, 1], 4), n // 8)
+    elif types == "random":
+        t = np.random.default_rng(seed).integers(0, 2, n)
+    else:
+        t = np.zeros(n, int)
+    return pos, np.full(3, nc * a0), t
+
+
+def _pp_deck(d, name, lattice, deck, groups=False, temperature=PP_T):
+    """name's potential file as pot.txt, the lattice at `temperature` as
+    model.xyz (the file's type names as symbols; with `groups` four slabs
+    along x as grouping method 0), and `deck` after `potential`."""
+    from gpumd_tpu_torch.elements import mass_of
+    from gpumd_tpu_torch.potentials import sets
+
+    _, text = sets.files()[name]
+    head = text.split("\n", 1)[0].split()
+    symbols = (head[2:2 + int(head[1])] if name not in ("adp", "eam/alloy")
+               else ["Cu", "Ag"])
+    pos, lengths, t = _pp_lattice(*lattice)
+    sym = np.asarray(symbols)[t]
+    _write_model(d, sym, pos, np.array([mass_of(x) for x in sym]), lengths,
+                 temperature, 9, groups=_ens_slabs(pos, lengths[0]) if groups
+                 else None)
+    (d / "pot.txt").write_text(text)
+    (d / "run.in").write_text(f"potential pot.txt\ntime_step 1\n{deck}")
+    return len(pos)
+
+
+def _pp_cpu(d):
+    """(a)'s CPU reference in a worker process: d's deck in float64 on the
+    CPU, in d/cpu; returns the final positions, the box and the last
+    thermo row."""
+    import shutil
+
+    from gpumd_tpu_torch.app.gpumd import Session
+
+    torch.set_num_threads(2)
+    c = Path(d) / "cpu"
+    c.mkdir()
+    for name in ("model.xyz", "pot.txt", "run.in"):
+        shutil.copy(Path(d) / name, c / name)
+    s = Session(str(c), quiet=True, device="cpu", dtype=torch.float64)
+    s.execute()
+    return (s.state.position.numpy(), s.state.box.h.numpy(),
+            np.atleast_2d(np.loadtxt(c / "thermo.out"))[-1])
+
+
+def _pp_card(d, steps):
+    """d's deck on the card from a reset peak: (session, ms/step of the
+    run block, peak MiB)."""
+    from gpumd_tpu_torch.app.gpumd import Session
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s = Session(str(d), quiet=True, device="cuda")
+    s.execute()
+    torch.cuda.synchronize()
+    return (s, 1e3 * s.run_seconds[-1] / steps,
+            torch.cuda.max_memory_allocated() / 2 ** 20)
+
+
+def _pp_small(tmp, pool):
+    """(a) the small decks: the CPU's references submitted first, then
+    each on the card and compared."""
+    from gpumd_tpu_torch.model.box import Box
+
+    # engine list: tersoff_1989 under NVE would take the compact kernels
+    deck = f"engine list\nensemble nve\ndump_thermo 10\nrun {PP_STEPS}\n"
+    futures = {}
+    for name, (small, _) in PP_DECKS.items():
+        d = tmp / "a" / name.replace("/", "_")
+        n = _pp_deck(d, name, small, deck)
+        futures[name] = (d, n, pool.submit(_pp_cpu, str(d)))
+    for name, (d, n, fut) in futures.items():
+        s, ms, _ = _pp_card(d, PP_STEPS)
+        pos, h, row = fut.result()
+        box = Box.from_lattice(h.T, dtype=torch.float64, device="cpu")
+        dx = float(box.minimum_image(
+            s.state.position.double().cpu() - torch.as_tensor(pos)
+        ).abs().max())
+        got = np.atleast_2d(np.loadtxt(d / "thermo.out"))[-1]
+        de = abs(got[2] - row[2]) / n
+        print(f"[pimd-potentials] (a) {name} {n} atoms, MN "
+              f"{s.ff.neighbor.mn}: {PP_STEPS} steps {ms:.3f} ms/step; "
+              f"route: {s.route_reason}; max |dx| against the CPU's "
+              f"float64 run {dx:.3e} A (bound {POS_TOL}), |dPE| "
+              f"{de:.3e} eV/atom (bound {PP_PE_TOL})")
+        if not (dx <= POS_TOL and de <= PP_PE_TOL and s.md is None):
+            raise RuntimeError(f"(a) {name}: departs from the CPU's run")
+
+
+def _pp_big(tmp):
+    """(a) the big decks on the card: KE + U over PP_BIG_STEPS, ms/step
+    and the peak."""
+    deck = (f"engine list\nensemble nve\ndump_thermo 10\n"
+            f"run {PP_BIG_STEPS}\n")
+    for name, (_, big) in PP_DECKS.items():
+        d = tmp / "big" / name.replace("/", "_")
+        n = _pp_deck(d, name, (*big, "one"), deck)
+        s, ms, peak = _pp_card(d, PP_BIG_STEPS)
+        rows = np.atleast_2d(np.loadtxt(d / "thermo.out"))
+        e = rows[:, 1] + rows[:, 2]
+        drift = float(np.abs(e - e[0]).max()) / n
+        print(f"[pimd-potentials] (e) {name} {n} atoms, MN "
+              f"{s.ff.neighbor.mn}: {ms:.3f} ms/step over {PP_BIG_STEPS} "
+              f"NVE steps, peak {peak:.0f} MiB; (a) KE + U within "
+              f"{drift:.3e} eV/atom of step 10's (bound {PP_DRIFT_TOL}), "
+              f"T {rows[-1, 0]:.1f} K")
+        if not (rows.shape == (PP_BIG_STEPS // 10, 18)
+                and np.isfinite(rows).all() and drift <= PP_DRIFT_TOL):
+            raise RuntimeError(f"(a) {name}: KE + U moved or went "
+                               f"non-finite")
+
+
+def _pp_heat(tmp):
+    """(b) Tersoff-1989 under heat_lan on the list path."""
+    d = tmp / "b"
+    n = _pp_deck(d, "tersoff_1989", ("diamond", 5.431, 8),
+                 f"ensemble heat_lan 300 100 50 0 2\ncompute 0 10 "
+                 f"{PP_BIG_STEPS // 2} temperature\nrun {PP_BIG_STEPS}\n",
+                 groups=True, temperature=2 * PP_T)
+    s, ms, peak = _pp_card(d, PP_BIG_STEPS)
+    row = np.atleast_2d(np.loadtxt(d / "compute.out"))[-1]
+    t, e_src, e_snk = row[:4], row[4], row[5]
+    print(f"[pimd-potentials] (b) tersoff_1989 {n} heat_lan: {ms:.3f} "
+          f"ms/step, peak {peak:.0f} MiB; route: {s.route_reason}; slab T "
+          f"{np.round(t, 1).tolist()} K; baths {e_src:.4e} / {e_snk:.4e} eV")
+    if not (s.route_reason == "ensemble HeatLangevin" and s.md is None
+            and np.isfinite(row).all() and e_src < e_snk and t[0] > t[2]):
+        raise RuntimeError("(b) heat_lan on Tersoff: not on the list path, "
+                           "or the source does not heat more than the sink")
+
+
+def _pp_pimd(tmp):
+    """(c) pimd on LJ argon 4,000 with dump_beads."""
+    d = tmp / "c"
+    n = _ens_argon(d, f"ensemble pimd {PP_BEADS} {PP_PIMD_T} {PP_PIMD_T} "
+                   f"100\ndump_beads {PP_PIMD_DUMP} 0 0",
+                   steps=PP_PIMD_STEPS, temperature=PP_PIMD_T)
+    s, ms, peak = _pp_card(d, PP_PIMD_STEPS)
+    tb = s._pimd_obs["t_beads"]
+    mean = float(tb[-50:].mean())
+    lo, hi = 0.6 * PP_BEADS * PP_PIMD_T, 1.5 * PP_BEADS * PP_PIMD_T
+    frames = PP_PIMD_STEPS // PP_PIMD_DUMP
+    lines = [len((d / f"beads_dump_{k}.xyz").read_text().splitlines())
+             for k in range(PP_BEADS)]
+    print(f"[pimd-potentials] (c) pimd {PP_BEADS} beads, LJ {n}: {ms:.3f} "
+          f"ms/step over {PP_PIMD_STEPS} steps, peak {peak:.0f} MiB; route: "
+          f"{s.route_reason}; bead T over the last 50 steps {mean:.1f} K "
+          f"(band [{lo:.0f}, {hi:.0f}]); beads_dump lines {set(lines)}")
+    if not (lo <= mean <= hi and np.isfinite(tb).all()
+            and lines == [frames * (n + 2)] * PP_BEADS
+            and s.route_reason == "path integrals"):
+        raise RuntimeError("(c) pimd: bead temperature out of its band or "
+                           "beads_dump_<k>.xyz malformed")
+
+
+def phase_pimd_potentials(results):
+    """The path integrals and the classical potentials (phase 15 of the
+    module docstring): (a) each potential card against CPU and its big
+    deck's KE + U, (b) Tersoff under heat_lan, (c) pimd, (d) no launch of
+    a hand-written kernel anywhere in the phase, (e) ms/step and peaks."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from gpumd_tpu_torch.engine import cuda_build
+
+    t0 = time.time()
+    cuda_build.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
+            ENS_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        tmp = Path(tmp)
+        _pp_small(tmp, pool)
+        t1 = time.time()
+        print(f"[pimd-potentials] (a) small decks done in {t1 - t0:.1f} s")
+        _pp_big(tmp)
+        _pp_heat(tmp)
+        _pp_pimd(tmp)
+    torch.cuda.synchronize()
+    counts = dict(cuda_build.launches)
+    _launch_check("pimd-potentials (d)", counts, {}, never=tuple(counts))
+    print(f"[pimd-potentials] phase done in {time.time() - t0:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,md,npt-md,hnemd-md,"
                     "drift,list-md,train,time,dense-kernels,dense-md,"
                     "dense-time,"
                     "tersoff-kernels,tersoff-md,tersoff-time,probes,app,"
-                    "measure,ensembles")
+                    "measure,ensembles,pimd-potentials")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: the probes "
                     "phase then times its blocked gather and its wrappers' "
@@ -5025,6 +5302,7 @@ def main():
                 ("app", lambda r: phase_app(r, pot_path)),
                 ("measure", phase_measure),
                 ("ensembles", phase_ensembles),
+                ("pimd-potentials", phase_pimd_potentials),
                 ("ensembles-time", phase_ensembles_time),
                 ("app-spread", lambda r: phase_app_spread(r, pot_path))):
             if name in phases:

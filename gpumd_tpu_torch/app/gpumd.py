@@ -23,12 +23,16 @@ list` takes the list path.  The list path's ensembles (heat baths,
 MTTK, QTB, MSST, walls, TTM, TI) write their own outputs at chunk ends
 (the TI .csv rows) and at a run's end (the TI .yaml summary,
 ttm_electron_temperature.out); `compute` reads the heat baths' energies
-from the ensemble's aux.
+from the ensemble's aux.  `ensemble pimd|rpmd|trpmd` runs
+integrate/pimd.py's runner whatever the engine (the beads a leading
+axis, each bead's force pass on the list path), with `dump_beads`.
 
 The run loop goes in chunks whose length is the gcd of the observers'
 intervals, at most MAX_CHUNK steps: the host reads the state (overflow,
 a finite-energy check, the input-order snapshot) and writes the .out
-files once a chunk, never once a step.  The measure keywords sample that
+files once a chunk, never once a step; on the list path that read also
+holds the deepest neighbour row of every list the chunk built against
+the capacity, and a row past it raises.  The measure keywords sample that
 snapshot (measure/properties.py); the list path's per-step observer adds
 the heat current, stress_6 and the Onsager fluxes its measures consume.
 
@@ -100,6 +104,7 @@ from gpumd_tpu_torch.integrate.ensembles.walls import (
     WallMirror,
     WallPiston,
 )
+from gpumd_tpu_torch.integrate.pimd import PIMDRunner
 from gpumd_tpu_torch.integrate.run import MDRunner
 from gpumd_tpu_torch.integrate.thermo import compute_thermo
 from gpumd_tpu_torch.integrate.velocity import (
@@ -129,9 +134,20 @@ from gpumd_tpu_torch.measure.properties import (
 from gpumd_tpu_torch.model.box import Box, inv3
 from gpumd_tpu_torch.model.groups import Groups
 from gpumd_tpu_torch.model.state import MDState, make_state
+from gpumd_tpu_torch.potentials.eam import (
+    ADP,
+    EAMAlloy,
+    EAMDai2006,
+    EAMZhou2004,
+)
 from gpumd_tpu_torch.potentials.lj import LJ
 from gpumd_tpu_torch.potentials.nep.model import NEP
-from gpumd_tpu_torch.potentials.tersoff import Tersoff1989
+from gpumd_tpu_torch.potentials.sw import SW
+from gpumd_tpu_torch.potentials.tersoff import (
+    Tersoff1988,
+    Tersoff1989,
+    TersoffMini,
+)
 from gpumd_tpu_torch.units import (
     K_B,
     PRESSURE_UNIT_CONVERSION,
@@ -160,7 +176,7 @@ UNPORTED = {
         "compute_cohesive", "compute_elastic", "change_box", "deposit",
         "dump_observer", "active", "compute_extrapolation",
         "compute_dpdt", "compute_es", "dump_cg",
-        "dump_beads", "dump_dipole", "dump_polarizability", "kspace",
+        "dump_dipole", "dump_polarizability", "kspace",
         "plumed", "dump_netcdf")},
     # item 8: measure (the tight-binding transport solver)
     "compute_lsqt": 8,
@@ -171,14 +187,24 @@ UNPORTED = {
 }
 
 # potential file headers not ported yet: all ROADMAP queue 1, item 9
-_UNPORTED_POTENTIALS = (
-    "tersoff_1988", "tersoff_mini", "eam_zhou_2004", "adp", "eam/alloy",
-    "eam_dai_2006", "dp", "tersoff_ilp", "nep_ilp", "sw_ilp", "sw_1985",
-    "fcp",
-)
+_UNPORTED_POTENTIALS = ("dp", "tersoff_ilp", "nep_ilp", "sw_ilp", "fcp")
 
-# ensembles not ported yet: ROADMAP queue 1, item 7 (path integrals)
-_UNPORTED_ENSEMBLES = ("pimd", "rpmd", "trpmd")
+# potential file headers read by a class's from_file(path, dtype, device)
+# whose type names are the header's symbols, `potential <T> <syms>`
+_HEADER_POTENTIALS = {
+    "lj": LJ, "tersoff_1989": Tersoff1989, "tersoff_1988": Tersoff1988,
+    "tersoff_mini": TersoffMini, "sw_1985": SW,
+    "eam_zhou_2004": EAMZhou2004, "eam_dai_2006": EAMDai2006,
+}
+
+# setfl potentials: their type names are the file's symbols
+_SETFL_POTENTIALS = {"adp": ADP, "eam/alloy": EAMAlloy}
+
+# many-body potentials without a neighbour-count hint: the list capacity
+# is their density bound alone (a (B, MN, MN) angle tensor a block grows
+# with MN^2)
+_MANY_BODY = (Tersoff1989, Tersoff1988, TersoffMini, SW, EAMZhou2004,
+              EAMAlloy, ADP, EAMDai2006)
 
 
 def _not_ported(what: str, item: int):
@@ -396,6 +422,8 @@ class Session:
         self.mobile_mask = None  # set by `fix`
         self.move_pin = None  # set by `move`
         self.deform = None  # set by `deform`: A a step a direction
+        self._dump_beads = None  # (interval, velocities, forces)
+        self._last_velocity_t = 300.0  # rpmd/trpmd's temperature
         self._ens_aux = None  # the list path's ensemble aux, a chunk's end
         self.properties: List[PropertyRequest] = []
         self.measure_props: list = []
@@ -463,12 +491,12 @@ class Session:
             head = f.readline().split()
         name = head[0]
         dev = dict(dtype=self.dtype, device=self.device)
-        if name == "lj":
-            pot = LJ.from_file(path, **dev)
+        if name in _HEADER_POTENTIALS:
+            pot = _HEADER_POTENTIALS[name].from_file(path, **dev)
             self.type_names = head[2:2 + int(head[1])]
-        elif name == "tersoff_1989":
-            pot = Tersoff1989.from_file(path, **dev)
-            self.type_names = head[2:2 + int(head[1])]
+        elif name in _SETFL_POTENTIALS:
+            pot = _SETFL_POTENTIALS[name].from_file(path, **dev)
+            self.type_names = list(pot.symbols)
         elif name == "nnap":
             raise RuntimeError(
                 "nnap requires the external Java NNAP runtime (the "
@@ -509,6 +537,9 @@ class Session:
         if len(args) >= 3 and args[1] == "seed":
             seed = int(args[2])
         self.state = initialize_velocity(self.state, t, seed=seed)
+        # rpmd/trpmd take their temperature from the last velocity keyword
+        # (ref: run.cu sets it from the integrate parsing)
+        self._last_velocity_t = t
         self.log(f"velocity: {t} K (seed {seed})")
 
     def kw_time_step(self, args):
@@ -517,8 +548,6 @@ class Session:
 
     def kw_ensemble(self, args):
         name = args[0]
-        if name in _UNPORTED_ENSEMBLES:
-            raise _not_ported(f"ensemble {name!r}", 7)
         if name == "nve":
             self.ensemble = NVE()
         elif name in ("nvt_ber", "nvt_lan", "nvt_bdp", "nvt_nhc", "nvt_bao"):
@@ -576,9 +605,26 @@ class Session:
             self.ensemble = self._parse_wall(name, args[1:])
         elif name == "msst":
             self.ensemble = self._parse_msst(args[1:])
+        elif name in ("pimd", "rpmd", "trpmd"):
+            self.ensemble = self._parse_path_integral(name, args[1:])
         else:
             raise ValueError(f"unsupported ensemble {name!r}")
         self.log(f"ensemble: {name} {args[1:]}")
+
+    def _parse_path_integral(self, name, toks):
+        """ensemble pimd <nbeads> T1 [T2] Tc (a T1 -> T2 linear ramp, ref:
+        run.cu's temperature interpolation) | rpmd|trpmd <nbeads> (the
+        last `velocity` keyword's temperature, default 300 K): the tuple
+        (mode, nbeads, T1, Tc, T2) that `run` hands to _run_pimd."""
+        p = [float(x) for x in toks]
+        nbeads = int(p[0])
+        if name == "pimd":
+            t1 = p[1]
+            t2 = p[2] if len(p) > 3 else t1
+            tc = p[3] if len(p) > 3 else (p[2] if len(p) > 2 else 100.0)
+            return ("pimd", nbeads, t1, tc, t2)
+        t = self._last_velocity_t
+        return (name, nbeads, t, 100.0, t)
 
     def _parse_nvt_qtb(self, args):
         """ensemble nvt_qtb T1 T2 Tc [f_max v] [N_f n]."""
@@ -1295,6 +1341,14 @@ class Session:
             self.ensemble = NVE()
         self._ens_aux = None
         ens = self.ensemble
+        if isinstance(ens, tuple):
+            # the path integrals run their own runner whatever the engine
+            # (the JAX app's kw_run does the same)
+            self.route_reason = "path integrals"
+            self.log(f"engine {self.engine_mode}: list path (path "
+                     f"integrals)")
+            self.md = None
+            return self._run_pimd(n_steps)
         # temperature ramp length = this run's steps
         if hasattr(ens, "n_steps"):
             ens = dataclasses.replace(ens, n_steps=n_steps)
@@ -1320,12 +1374,17 @@ class Session:
         self.md = None
         self._run_list(n_steps, ens)
 
+    def _check_capacity(self, peak: int, cap: int, where: str):
+        """The list path's loud neighbour-capacity check: the reference
+        aborts on overflow; a silently truncated row corrupts forces."""
+        if peak > cap:
+            raise RuntimeError(
+                f"neighbor overflow {where}: an atom has {peak} neighbors "
+                f"but the list capacity is {cap}; increase mn")
+
     def _run_list(self, n_steps, ens):
         """MD block on the general path: ForceField + integrate/run.py,
         chunk by chunk."""
-        if any(isinstance(p, Tersoff1989) for p in self.potentials):
-            raise _not_ported("Tersoff-1989 on the list path (its "
-                              "ForceField force)", 9)
         if self.mobile_mask is not None and hasattr(ens, "mobile"):
             ens = dataclasses.replace(ens, mobile=self.mobile_mask)
         if self.move_pin is not None and hasattr(ens, "pinned"):
@@ -1371,10 +1430,8 @@ class Session:
                 [counts.min().double(), counts.max().double(),
                  counts.double().mean()]).tolist()
             cap = nbr0.idx.shape[1]
-            if cmax > cap:
-                raise RuntimeError(
-                    f"neighbor overflow: an atom has {int(cmax)} neighbors "
-                    f"but the list capacity is {cap}; increase mn")
+            self._check_capacity(int(cmax), cap,
+                                 f"at step {self.global_step}")
             # neighbor.out: one occupancy row per `run` (ref: nep.cu:
             # 1014-1034 logs every 1000 calls)
             fnb = self._file("neighbor.out")
@@ -1402,7 +1459,16 @@ class Session:
             done += chunk
             self.global_step += chunk
             self.state = state
-            pe = float(torch.sum(state.potential_energy * state.mask))
+            # the chunk end's one read: the energy and the deepest row of
+            # every list the chunk built
+            pe_t = torch.sum(state.potential_energy * state.mask)
+            if cache is not None:
+                pe, peak = torch.stack([pe_t.double(),
+                                        cache.peak.double()]).tolist()
+                self._check_capacity(int(peak), cap,
+                                     f"by step {self.global_step}")
+            else:
+                pe = float(pe_t)
             if not np.isfinite(pe):
                 raise RuntimeError(
                     f"non-finite potential energy at step "
@@ -1449,6 +1515,97 @@ class Session:
             self.log(f"{type(ens).__name__}: F = {summary['F']:.6f} eV/atom "
                      f"(G {summary['G']:.6f})")
         self._finish_run()
+
+    def _run_pimd(self, n_steps):
+        """A PIMD/RPMD/TRPMD block (ref: run.cu:222-246 bead loop), the
+        beads a leading tensor axis (integrate/pimd.py), in chunks of the
+        dump_beads interval (else of at most MAX_CHUNK steps); a chunk's
+        end reads the bead temperatures, energies and the deepest
+        neighbour row of every bead's lists at once.  The T1 -> T2 ramp
+        runs across the whole block, chunks and all.  The centroid is
+        folded back into the classical state."""
+        mode, nbeads, t, tc, t_end = self.ensemble
+        beads_cfg = self._dump_beads
+        if beads_cfg is not None:
+            chunk = beads_cfg[0]
+            if n_steps % chunk:
+                raise ValueError(f"dump_beads: the interval {chunk} does not "
+                                 f"divide the run's {n_steps} steps")
+        else:
+            chunk = _bounded_chunk(n_steps, n_steps)
+        runner = PIMDRunner(ff=self.ff, base=self.state, n_beads=nbeads,
+                            temperature=t, coupling=tc, mode=mode)
+        cap = self.ff.neighbor.mn
+        st = runner.init(seed=7)
+        t0 = time.time()
+        obs = {"t_beads": [], "pe": []}
+        done = 0
+        while done < n_steps:
+            st, o = runner.run(st, self.dt, chunk, t_end=t_end, first=done,
+                               total=n_steps)
+            done += chunk
+            row = torch.cat([o["t_beads"], o["pe"],
+                             st.max_count[None].to(o["pe"].dtype)]
+                            ).to(torch.float64).cpu().numpy()
+            self._check_capacity(int(row[-1]), cap,
+                                 f"by step {self.global_step + done}")
+            if not np.all(np.isfinite(row)):
+                raise RuntimeError(f"non-finite bead observables at step "
+                                   f"{self.global_step + done}")
+            obs["t_beads"].append(row[:chunk])
+            obs["pe"].append(row[chunk:2 * chunk])
+            if beads_cfg is not None:
+                self._write_beads(st, nbeads, beads_cfg[1], beads_cfg[2],
+                                  (self.global_step + done) * self.dt)
+        if st.position.is_cuda:
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        self.run_seconds.append(wall)
+        self.global_step += n_steps
+        self.state = runner.centroid(st)
+        self._pimd_obs = {k: np.concatenate(v) for k, v in obs.items()}
+        rate = self._n * n_steps * nbeads / max(wall, 1e-9)
+        self.log(f"PIMD({mode}, {nbeads} beads): bead-T "
+                 f"{float(self._pimd_obs['t_beads'][-1]):.1f} K; "
+                 f"Speed of this run = {rate:.5g} atom*step/second")
+
+    def kw_dump_beads(self, args):
+        """dump_beads interval has_velocity has_force -> beads_dump_<k>.xyz
+        a bead (ref: dump_beads.cu:36-90)."""
+        self._dump_beads = (int(args[0]), bool(int(args[1])),
+                            bool(int(args[2])))
+        self.log(f"dump_beads {args}")
+
+    def _write_beads(self, st, nbeads, has_vel, has_force, time_nat):
+        """One frame a bead file: positions as integrated (unwrapped),
+        velocities in natural units, the JAX app's header and digits."""
+        mask = _np(self.state.mask) > 0
+        h = _np(self.box.h)
+        pbc = " ".join("T" if p else "F" for p in _np(self.box.pbc) > 0)
+        lat = " ".join(f"{h[i, j]:.8f}" for j in range(3) for i in range(3))
+        props = "species:S:1:pos:R:3"
+        if has_vel:
+            props += ":vel:R:3"
+        if has_force:
+            props += ":forces:R:3"
+        pos_all = _np(st.position)
+        vel_all = _np(st.velocity) if has_vel else None
+        frc_all = _np(st.force) if has_force else None
+        symbols = np.asarray(self.symbols)[mask]
+        for k in range(nbeads):
+            f = self._file(f"beads_dump_{k}.xyz")
+            cols = [pos_all[k][mask]]
+            if has_vel:
+                cols.append(vel_all[k][mask])
+            if has_force:
+                cols.append(frc_all[k][mask])
+            vals = np.concatenate(cols, axis=1)
+            f.write(f"{int(mask.sum())}\n")
+            f.write(f"Time={time_nat * TIME_UNIT_CONVERSION:.8f} "
+                    f'pbc="{pbc}" Lattice="{lat}" Properties={props}\n')
+            for sym, v in zip(symbols, vals):
+                f.write(sym + "".join(f" {x:.8f}" for x in v) + "\n")
+            f.flush()
 
     def _write_ttm(self, ens, aux):
         """ttm_electron_temperature.out, overwritten at a run's end
@@ -1949,6 +2106,7 @@ class Session:
         "move": kw_move,
         "deform": kw_deform,
         "dump_shock_nemd": kw_dump_shock_nemd,
+        "dump_beads": kw_dump_beads,
         "run": kw_run,
     }
 
@@ -1971,7 +2129,10 @@ class Session:
 
 def _auto_mn(potentials, n_atoms=None, box=None) -> int:
     """Neighbour capacity: NEP files carry MN hints, otherwise 256; and at
-    least a density bound, so the list cannot silently truncate."""
+    least a density bound, so the list cannot silently truncate.  The
+    many-body potentials without a hint (_MANY_BODY) take the density
+    bound alone, at least 32: their angle tensors grow with MN^2, and the
+    list path raises at a chunk's end if a row outgrows it."""
     mn = 0
     rc_max = max((getattr(p, "rc", 0.0) for p in potentials), default=0.0)
     rc_base = 0.0
@@ -1981,7 +2142,9 @@ def _auto_mn(potentials, n_atoms=None, box=None) -> int:
             rc_base = max(rc_base, p.rc)
     if mn and rc_base and rc_max > rc_base:
         mn = int(mn * (rc_max / rc_base) ** 3)
-    out = int(mn * 1.3) if mn else 256
+    many_body = bool(potentials) and all(isinstance(p, _MANY_BODY)
+                                         for p in potentials)
+    out = int(mn * 1.3) if mn else (32 if many_body else 256)
     if n_atoms and box is not None and rc_max > 0.0:
         dens = n_atoms / float(box.volume)
         bound = dens * 4.0 / 3.0 * math.pi * (rc_max + 1.5) ** 3

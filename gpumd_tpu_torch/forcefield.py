@@ -30,6 +30,7 @@ from gpumd_tpu_torch.neighbor.neighbor import (
     build_reverse_map,
     choose_grid,
     default_cell_cap,
+    max_cell_occupancy,
     neighbor_brute,
     neighbor_cell_dense,
 )
@@ -67,12 +68,17 @@ class NeighborConfig:
                               cell_cap=default_cell_cap(box, grid, n_atoms))
 
     def build(self, position, box: Box, mask) -> NeighborList:
+        """The list of `position` (wrapped).  The cell bins hold at least
+        the fullest cell of this build (one host read): a compressed region
+        (a shock, a deformed box) past the plan's cell_cap would otherwise
+        drop atoms from every list of its cells."""
         if self.method == "brute":
             return neighbor_brute(position, box, mask, rc=self.rc,
                                   mn=self.mn, reps=self.reps)
+        cap = max(self.cell_cap,
+                  max_cell_occupancy(position, box, mask, self.grid))
         return neighbor_cell_dense(position, box, mask, rc=self.rc,
-                                   mn=self.mn, grid=self.grid,
-                                   cell_cap=self.cell_cap)
+                                   mn=self.mn, grid=self.grid, cell_cap=cap)
 
 
 class NeighborCache(NamedTuple):
@@ -88,6 +94,9 @@ class NeighborCache(NamedTuple):
     count: torch.Tensor  # (N,)
     ref_position: torch.Tensor  # (N, 3) positions at build time
     rev: torch.Tensor  # (N, MN) int32 reverse-pair map
+    # () the deepest row (pre-cap count) of every list this cache has
+    # held: compared with MN at a caller's chunk end, with no sync here
+    peak: Optional[torch.Tensor] = None
 
 
 @dataclass(frozen=True)
@@ -212,7 +221,8 @@ class ForceField:
         return NeighborCache(idx=nbr.idx, shift_frac=shift_frac,
                              mask=nbr.mask, count=nbr.count,
                              ref_position=pos_raw,
-                             rev=build_reverse_map(nbr, shift_frac))
+                             rev=build_reverse_map(nbr, shift_frac),
+                             peak=torch.max(nbr.count))
 
     def cache_r12(self, state: MDState, cache: NeighborCache) -> NeighborList:
         dtype = state.position.dtype
@@ -240,7 +250,8 @@ class ForceField:
         need = (torch.max(torch.sum(disp * disp, dim=-1))
                 > (0.5 * self.skin) ** 2)
         if bool(need):  # the step's host sync
-            cache = self.refresh_cache(state)
+            fresh = self.refresh_cache(state)
+            cache = fresh._replace(peak=torch.maximum(cache.peak, fresh.peak))
         return self._evaluate(state, self.cache_r12(state, cache)), cache
 
 

@@ -199,6 +199,14 @@ def _bin_atoms(position, box: Box, mask, grid):
     return cell_xyz, cell_id
 
 
+def max_cell_occupancy(position: torch.Tensor, box: Box, mask: torch.Tensor,
+                       grid: tuple) -> int:
+    """The most real atoms any cell of `grid` holds (one host read)."""
+    _, cell_id = _bin_atoms(position, box, mask, grid)
+    n_cells = grid[0] * grid[1] * grid[2]
+    return int(torch.bincount(cell_id, minlength=n_cells + 1)[:n_cells].max())
+
+
 def neighbor_cell_list(position: torch.Tensor, box: Box, mask: torch.Tensor,
                        *, rc: float, mn: int, grid: tuple, cell_cap: int,
                        row_block: int = 16384) -> NeighborList:

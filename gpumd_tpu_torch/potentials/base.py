@@ -107,3 +107,30 @@ def compute_from_pair_energy(energy_fn: Callable, nbr: NeighborList,
         n_real = torch.clamp(torch.sum(mask), min=1.0)
         virial = (w_total / n_real) * mask[:, None, None]
     return PotentialOutput(energy=e_atom, force=force, virial=virial)
+
+
+# centres a block of a many-body potential's energy and its autograd sweep
+# (the JAX package's block of pair_energies): the (B, MN, MN) angle
+# tensors of one block are alive at a time
+MANY_BODY_BLOCK = 2048
+
+
+def compute_typed(pair_energies: Callable, type_: torch.Tensor,
+                  nbr: NeighborList, mask: torch.Tensor,
+                  per_atom_virial: bool = True) -> PotentialOutput:
+    """compute_from_pair_energy of `pair_energies(r12, t1, t2)` (the
+    centre types (B,) and the neighbour types (B, MN)), a block of
+    MANY_BODY_BLOCK centres at a time."""
+    t2 = type_[nbr.idx.long()]
+    return compute_from_pair_energy(
+        lambda r12, rows: pair_energies(r12, type_[rows], t2[rows]), nbr,
+        mask, per_atom_virial=per_atom_virial, block=MANY_BODY_BLOCK)
+
+
+def read_tokens(path: str, header: str) -> list:
+    """The whitespace tokens of a potential file whose first is `header`."""
+    with open(path) as f:
+        tokens = f.read().split()
+    if tokens[0] != header:
+        raise ValueError(f"{path}: not a {header} file")
+    return tokens

@@ -15,10 +15,11 @@ NEP (cutoffs 5/4 A, 3 cells of rc + skin an axis) under npt_ber, and the
 same under nve with compute_hnemd, compute_shc and compute_hac; Tersoff
 Si 216 atoms under nvt_ber.  After 20 steps: positions within 1e-4 A,
 energies within 1e-5 eV/atom, the box within 1e-5 relative, kappa.out,
-shc.out and hac.out within 1e-4 of each column's largest magnitude.  A
-Tersoff deck on the list path raises, naming ROADMAP queue 1, item 9 (the
-port's list path has no Tersoff force).  Each ensemble the compact engine
-does not integrate (the heat baths, MTTK, NPHug, QTB, MSST, the walls,
+shc.out and hac.out within 1e-4 of each column's largest magnitude.  The
+Tersoff deck off the compact engine, which raised until the list path
+had a Tersoff force, runs under `engine list` and `engine auto` within
+1e-4 A of the JAX app's list path, and a heat-bath Tersoff deck takes
+the list path.  Each ensemble the compact engine does not integrate (the heat baths, MTTK, NPHug, QTB, MSST, the walls,
 TTM, the TI family) and `deform` take the list path on the card with
 their reason, and `engine dense` refuses each ensemble by name before
 any step (ROADMAP queue 3, item 14).
@@ -171,17 +172,6 @@ def test_engine_dense_refuses_what_it_cannot_carry(tmp_path):
         tapp.Session(str(tmp_path), quiet=True, device="cpu").execute()
 
 
-def test_tersoff_on_the_list_path_raises(tmp_path):
-    write_si(tmp_path)
-    for engine in ("list", "auto"):
-        (tmp_path / "run.in").write_text(
-            f"potential si.txt\nengine {engine}\nrun 2\n")
-        s = tapp.Session(str(tmp_path), quiet=True, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 9"):
-            s.execute()
-        assert s.global_step == 0
-
-
 DECKS = {
     "nep_npt": (write_pbte, "potential nep.txt\ntime_step 1\n"
                 "ensemble npt_ber 300 300 100 0 40 1000\nENGINE\n"
@@ -259,6 +249,36 @@ def test_compact_deck_matches_jax(runs, name):
             assert got.shape == want.shape == shape, f
             _col_close(got, want, 1e-4, f)
         assert ts.ff.hnemd_fe is None  # reset after the run
+
+
+def test_tersoff_on_the_list_path_raises(runs, tmp_path, no_launches):
+    """The Tersoff deck off the compact engine, which raised (ROADMAP queue
+    1, item 9) until the list path had a Tersoff force: under `engine
+    list` and `engine auto` (on the CPU) it runs, its movie.xyz within
+    1e-4 A of the JAX app's list-path run after 20 steps; a heat-bath
+    Tersoff deck takes the list path on the card too, with its reason."""
+    dirs, ss = runs["tersoff"]
+    want = read_xyz_frames(str(dirs["jax"] / "movie.xyz"))[-1]
+    lengths = np.diag(want.lattice)
+    for engine in ("list", "auto"):
+        d = tmp_path / engine
+        write_si(d)
+        (d / "run.in").write_text(DECKS["tersoff"][1].replace(
+            "ENGINE", f"engine {engine}"))
+        s = tapp.Session(str(d), quiet=True, device="cpu")
+        s.execute()
+        assert s.global_step == 20 and s.md is None
+        assert s.route_reason.startswith(
+            "engine list" if engine == "list" else "CPU device")
+        got = read_xyz_frames(str(d / "movie.xyz"))[-1]
+        dx = got.positions - want.positions
+        dx -= np.round(dx / lengths) * lengths
+        assert np.abs(dx).max() <= 1e-4, (engine, np.abs(dx).max())
+    s = _session(tmp_path / "heat", write_si, "potential si.txt\n"
+                 "ensemble heat_lan 300 100 20 0 1\nrun 2\n")
+    assert s.global_step == 2 and s.md is None
+    assert tapp.dense_route_reason(s, s.ensemble, "cuda") == \
+        "ensemble HeatLangevin"
 
 
 # the ensembles the compact engine does not integrate (they hold group
