@@ -336,6 +336,31 @@ written with velocities drawn by numpy:
              beads_dump_<k>.xyz of two frames; (d) no hand-written kernel
              launched; (e) ms/step and the peak device memory of every
              4,000-atom deck and of (c)
+ 16. other-potentials  the ILP hybrids, FCP, DP, DFT-D3 and qNEP through
+             Session on the list path (plain torch; the phase fails on
+             any launch of a hand-written kernel), the decks of
+             potentials/sets.py's OTHER_DECKS (synthetic ILP, Tersoff-
+             1988, SW, FCP and qNEP sets; the trained PbTe NEP under
+             nep_ilp and D3): (a) tersoff_ilp (bilayer graphene),
+             nep_ilp with one NEP and with a NEP a layer (PbTe slabs),
+             sw_ilp (bilayer MoS2), fcp (order 4), dftd3 pbe 12 6 over
+             PbTe, qNEP charge_mode 1 under Ewald and under PPPM and
+             charge_mode 2, 216-392 atoms, 20 NVE steps on the card
+             (float32) against the CPU's float64 run (four worker
+             processes): positions within 1e-3 A, the last potential
+             energy within 1e-4 eV/atom; qNEP's Born charges and charges
+             at step 0 within 1e-4 of their largest, PPPM's reciprocal
+             energy within 1e-4 of Ewald's (CPU f64: 1.71e-5); (b) each
+             at 4,032-4,608 atoms (the qNEP decks under PPPM and Ewald)
+             for 150 NVE steps: KE + U within 5e-4 eV/atom of step 10's,
+             every row within its capacity (the ILP's intralayer list
+             too); (c) 3 steps of compute_dpdt, compute_es and
+             add_efield bec on the 4,096-ion qNEP deck: finite, dpdt.out
+             integrating to its P columns; (d) the DP bridge through a
+             stub DeepPot (numpy LJ argon, 500 atoms): the card's forces
+             within 1e-5 eV/A of the stub's; (e) no hand-written kernel
+             launched; (f) ms/step and the peak device memory of every
+             (b) deck
 
 Not among the default phases (ask for it with --phases):
 
@@ -357,7 +382,8 @@ Not among the default phases (ask for it with --phases):
 Usage: python3 chip_smoke.py [--phases build,kernels,md,npt-md,
        hnemd-md,drift,list-md,train,time,dense-kernels,dense-md,dense-time,
        tersoff-kernels,tersoff-md,tersoff-time,probes,app,measure,
-       ensembles,pimd-potentials,app-spread,ensembles-time]
+       ensembles,pimd-potentials,other-potentials,app-spread,
+       ensembles-time]
        [--parent DIR]
 Prints the kernels' JSON line, then, last, {"ok": true, "device": {...}}.
 A kernel's "launches" are those of the 200-step NVE run of its path;
@@ -5259,13 +5285,325 @@ def phase_pimd_potentials(results):
     print(f"[pimd-potentials] phase done in {time.time() - t0:.1f} s")
 
 
+# ---- phase 16: the last potentials (the ILP hybrids, FCP, DP, DFT-D3 and
+# qNEP) through the app on the list path, plain torch: no hand-written
+# kernel launches ---------------------------------------------------------
+
+# (a) each deck of potentials/sets.py's OTHER_DECKS, small (200-600
+# atoms), OP_STEPS of NVE on the card (float32) against the same deck on
+# the CPU (float64, in worker processes while the card works): positions
+# within POS_TOL, the last potential energy within PP_PE_TOL eV/atom; the
+# qNEP decks' Born effective charges and charges at step 0 within
+# OP_BEC_TOL of their largest magnitude (float32 descriptor sums: ~1e-6),
+# and their reciprocal energy at step 0 by PPPM within OP_KSPACE_TOL of
+# Ewald's (the CPU's float64 run of the 216-ion deck reads 1.71e-5: the
+# 16^3 mesh's order-5 assignment error at alpha pi/8; the 4,096-ion deck's
+# 64^3 mesh 2.24e-4).
+OP_SMALL = ("tersoff_ilp", "nep_ilp", "nep_ilp_two", "sw_ilp", "fcp",
+            "dftd3", "qnep_ewald", "qnep_pppm", "qnep2")
+# (b) the decks at the size users run, OP_BIG_STEPS of NVE: KE + U within
+# PP_DRIFT_TOL eV/atom of step 10's; ms/step and the peak (f).  150 steps,
+# not 200: at 200 the phase took 91.3 s on a slower host (its 90 s
+# budget); the drift gate watches 140 steps after step 10, not 190.
+OP_BIG = ("tersoff_ilp", "sw_ilp", "nep_ilp", "fcp", "dftd3", "qnep_pppm",
+          "qnep_ewald")
+OP_STEPS, OP_BIG_STEPS = 20, 150
+OP_BEC_TOL = 1e-4
+OP_KSPACE_TOL = 1e-4
+# (d) the DP bridge through a stub DeepPot (numpy LJ argon): the card's
+# forces against the stub's own float64 forces on the card's positions
+OP_DP_TOL = 1e-5
+
+
+class _StubDeepPot:
+    """deepmd.infer.DeepPot's interface over Lennard-Jones argon in numpy
+    (all pairs, minimum image): deepmd-kit is on neither machine; this
+    stands in for a graph in (d) only, never in the package."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def get_rcut(self):
+        return 6.0
+
+    def get_type_map(self):
+        return ["Ar"]
+
+    def eval(self, coords, cell, atype, atomic=False):
+        c = np.asarray(coords, np.float64).reshape(-1, 3)
+        h = np.asarray(cell, np.float64).reshape(3, 3).T
+        r = c[None, :, :] - c[:, None, :]
+        sfrac = r @ np.linalg.inv(h).T
+        r = (sfrac - np.round(sfrac)) @ h.T
+        off = 1.0 - np.eye(len(c))
+        d2 = np.sum(r * r, -1) + np.eye(len(c))
+        sr6 = (3.405 ** 2 / d2) ** 3
+        ae = 0.5 * np.sum(4 * 1.032e-2 * (sr6 * sr6 - sr6) * off, 1)
+        g = 24 * 1.032e-2 * (2 * sr6 * sr6 - sr6) / d2 * off
+        f = -np.sum(g[..., None] * r, 1)
+        av = -0.5 * np.einsum("ija,ijb->iab", r, g[..., None] * r)
+        return (np.array([[ae.sum()]]), f.reshape(1, -1),
+                av.sum(0).reshape(1, 9), ae.reshape(1, -1),
+                av.reshape(1, -1))
+
+
+def _op_deck(d, name, big, steps, extra=""):
+    """OTHER_DECKS[name] in d: run.in runs `steps` NVE steps; start.in
+    only loads (step 0's state)."""
+    from gpumd_tpu_torch.potentials import sets
+
+    head = sets.other_deck(d, name, big=big, nep_path=str(MODEL))
+    (d / "start.in").write_text(head)
+    (d / "run.in").write_text(f"{head}time_step 1\nensemble nve\n"
+                              f"dump_thermo 10\n{extra}run {steps}\n")
+    return int((d / "model.xyz").read_text().split("\n", 1)[0])
+
+
+def _op_step0(s):
+    """A qNEP session's step 0: (Born charges, charges, PPPM and Ewald
+    reciprocal energies) as float64 numpy."""
+    from gpumd_tpu_torch.potentials.nep.pppm import pppm_reciprocal_energy
+
+    pot, st = s.potentials[0], s.state
+    with torch.no_grad():
+        nbr = s.ff.neighbor.build(st.box.wrap(st.position), st.box, st.mask)
+        bec = pot.born_effective_charges(st, nbr)
+        q = pot.charges(st, nbr)
+        k, g = pot.kvectors(st.box)
+        e_ew = pot.reciprocal_energy(q, st.position, k, g)
+        e_pp = pppm_reciprocal_energy(q, st.position, st.box, pot._alpha(),
+                                      pot.pppm_mesh)[0]
+    return (bec.double().cpu().numpy(), q.double().cpu().numpy(),
+            float(e_pp), float(e_ew))
+
+
+def _op_cpu(d):
+    """(a)'s CPU reference in a worker process: d's decks in float64 on
+    the CPU, in d/cpu: the final positions, the box, the last thermo row
+    and, for qNEP, step 0's readings."""
+    import shutil
+
+    from gpumd_tpu_torch.app.gpumd import Session
+
+    torch.set_num_threads(2)
+    c = Path(d) / "cpu"
+    shutil.copytree(d, c, ignore=shutil.ignore_patterns("cpu"))
+    s = Session(str(c), quiet=True, device="cpu", dtype=torch.float64)
+    extra = None
+    if Path(d).name.startswith("qnep"):
+        s.execute("start.in")
+        extra = _op_step0(s)
+        s = Session(str(c), quiet=True, device="cpu", dtype=torch.float64)
+    s.execute()
+    return (s.state.position.numpy(), s.state.box.h.numpy(),
+            np.atleast_2d(np.loadtxt(c / "thermo.out"))[-1], extra)
+
+
+def _op_small(tmp, pool):
+    """(a) the small decks: the CPU's references submitted first, then
+    each on the card and compared."""
+    from gpumd_tpu_torch.app.gpumd import Session
+    from gpumd_tpu_torch.model.box import Box
+
+    futures = {}
+    for name in OP_SMALL:
+        d = tmp / "a" / name
+        n = _op_deck(d, name, False, OP_STEPS)
+        futures[name] = (d, n, pool.submit(_op_cpu, str(d)))
+    for name, (d, n, fut) in futures.items():
+        extra = None
+        if name.startswith("qnep"):
+            s0 = Session(str(d), quiet=True, device="cuda")
+            s0.execute("start.in")
+            extra = _op_step0(s0)
+        s, ms, _ = _pp_card(d, OP_STEPS)
+        pos, h, row, want = fut.result()
+        box = Box.from_lattice(h.T, pbc=s.state.box.pbc.cpu().numpy(),
+                               dtype=torch.float64, device="cpu")
+        dx = float(box.minimum_image(
+            s.state.position.double().cpu() - torch.as_tensor(pos)
+        ).abs().max())
+        got = np.atleast_2d(np.loadtxt(d / "thermo.out"))[-1]
+        de = abs(got[2] - row[2]) / n
+        ok = dx <= POS_TOL and de <= PP_PE_TOL and s.md is None
+        msg = ""
+        if extra is not None:
+            errs = [float(np.abs(a - b).max() / np.abs(b).max())
+                    for a, b in zip(extra[:2], want[:2])]
+            ks_card = abs(extra[2] - extra[3]) / abs(extra[3])
+            ks_cpu = abs(want[2] - want[3]) / abs(want[3])
+            msg = (f"; step 0: BECs {errs[0]:.3e}, charges {errs[1]:.3e} "
+                   f"of their largest (bound {OP_BEC_TOL}); reciprocal "
+                   f"energy PPPM {extra[2]:.6e} vs Ewald {extra[3]:.6e} eV:"
+                   f" {ks_card:.3e} (CPU f64 {ks_cpu:.3e}; bound "
+                   f"{OP_KSPACE_TOL})")
+            ok = ok and max(errs) <= OP_BEC_TOL and ks_card <= OP_KSPACE_TOL
+        print(f"[other-potentials] (a) {name} {n} atoms, MN "
+              f"{s.ff.neighbor.mn}: {OP_STEPS} steps {ms:.3f} ms/step; "
+              f"route: {s.route_reason}; max |dx| against the CPU's "
+              f"float64 run {dx:.3e} A (bound {POS_TOL}), |dPE| "
+              f"{de:.3e} eV/atom (bound {PP_PE_TOL}){msg}")
+        if not ok:
+            raise RuntimeError(f"(a) {name}: departs from the CPU's run")
+
+
+def _op_rows(s):
+    """(fullest row of the session's list, the ILP's intralayer capacity
+    and fullest intralayer row, or None)."""
+    st = s.state
+    with torch.no_grad():
+        nbr = s.ff.neighbor.build(st.box.wrap(st.position), st.box, st.mask)
+        rows = int(nbr.count.max())
+        pot = s.potentials[0]
+        if not hasattr(pot, "intra_mn"):
+            return rows, None
+        lab = pot.ilp.labels
+        d2 = torch.sum(nbr.r12 ** 2, -1)
+        same = ((lab[:, None] == lab[nbr.idx.long()]) & (nbr.mask > 0)
+                & (d2 < pot.intra_rc ** 2))
+        return rows, (pot.intra_mn, int(same.sum(1).max()))
+
+
+def _op_big(tmp):
+    """(b) and (f): the big decks on the card, KE + U over OP_BIG_STEPS,
+    ms/step and the peak."""
+    out = {}
+    for name in OP_BIG:
+        d = tmp / "b" / name
+        n = _op_deck(d, name, True, OP_BIG_STEPS)
+        s, ms, peak = _pp_card(d, OP_BIG_STEPS)
+        rows = np.atleast_2d(np.loadtxt(d / "thermo.out"))
+        e = rows[:, 1] + rows[:, 2]
+        drift = float(np.abs(e - e[0]).max()) / n
+        full, intra = _op_rows(s)
+        print(f"[other-potentials] (b) {name} {n} atoms, MN "
+              f"{s.ff.neighbor.mn} (fullest row {full}"
+              + (f"; intralayer {intra[0]}, fullest {intra[1]}" if intra
+                 else "") + f"): {ms:.3f} ms/step over {OP_BIG_STEPS} NVE "
+              f"steps, peak {peak:.0f} MiB; KE + U within {drift:.3e} "
+              f"eV/atom of step 10's (bound {PP_DRIFT_TOL}), T "
+              f"{rows[-1, 0]:.1f} K")
+        out[name] = (ms, peak)
+        if not (rows.shape == (OP_BIG_STEPS // 10, 18) and s.md is None
+                and np.isfinite(rows).all() and drift <= PP_DRIFT_TOL
+                and full <= s.ff.neighbor.mn
+                and (intra is None or intra[1] <= intra[0])):
+            raise RuntimeError(f"(b) {name}: KE + U moved, a row outgrew "
+                               f"its capacity or a value went non-finite")
+    return out
+
+
+def _op_measures(tmp):
+    """(c) compute_dpdt, compute_es and add_efield bec on the big PPPM
+    qNEP deck, 3 steps (dpdt.out's P the running sum of dP/dt dt)."""
+    d = tmp / "c"
+    n = _op_deck(d, "qnep_pppm", True, 3, "compute_dpdt 1\ncompute_es 1\n"
+                 "add_efield 0 0 0.01 0.0 0.0 bec\n")
+    s, ms, peak = _pp_card(d, 3)
+    dp = np.atleast_2d(np.loadtxt(d / "dpdt.out"))
+    fe = np.atleast_1d(np.loadtxt(d / "elactrostatic_energy.out"))
+    ff = np.atleast_2d(np.loadtxt(d / "elactrostatic_force.out"))
+    integ = float(np.abs(np.cumsum(dp[:, 1:4], 0) * s.dt
+                         - dp[:, 4:]).max())
+    print(f"[other-potentials] (c) qnep_pppm {n} atoms with compute_dpdt, "
+          f"compute_es and add_efield bec: {ms:.3f} ms/step, peak "
+          f"{peak:.0f} MiB; dpdt.out {dp.shape}, |P - sum dP/dt dt| "
+          f"{integ:.3e}; electrostatic energy {fe.tolist()} eV; forces "
+          f"{ff.shape}")
+    if not (dp.shape == (3, 7) and fe.shape == (3,) and ff.shape == (3 * n, 3)
+            and np.isfinite(dp).all() and np.isfinite(fe).all()
+            and np.isfinite(ff).all()
+            and integ <= 1e-6 * max(np.abs(dp[:, 4:]).max(), 1e-30)):
+        raise RuntimeError("(c) the qNEP measures: malformed or non-finite")
+
+
+def _op_dp(tmp):
+    """(d) the DP bridge through the stub on the card."""
+    import sys
+    import types
+
+    from gpumd_tpu_torch.app.gpumd import Session
+
+    mod = types.ModuleType("deepmd")
+    infer = types.ModuleType("deepmd.infer")
+    infer.DeepPot = _StubDeepPot
+    mod.infer = infer
+    saved = {k: sys.modules.get(k) for k in ("deepmd", "deepmd.infer")}
+    sys.modules.update({"deepmd": mod, "deepmd.infer": infer})
+    try:
+        d = tmp / "d"
+        d.mkdir(parents=True)
+        fcc = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5]])
+        cells = np.stack(np.meshgrid(*[np.arange(5)] * 3, indexing="ij"),
+                         -1).reshape(-1, 3)
+        pos = ((cells[:, None] + fcc[None]) * 5.26).reshape(-1, 3)
+        pos = pos + np.random.default_rng(3).normal(0, 0.05, pos.shape)
+        n = len(pos)
+        _write_model(d, ["Ar"] * n, pos, np.full(n, 39.948), np.full(3, 26.3),
+                     40.0, 5)
+        (d / "graph.pb").write_text("stub")
+        (d / "dp.txt").write_text("dp 1 Ar\ngraph.pb\n")
+        (d / "run.in").write_text("potential dp.txt\ntime_step 2\n"
+                                  "ensemble nve\ndump_thermo 5\nrun 10\n")
+        s, ms, _ = _pp_card(d, 10)
+        with torch.no_grad():
+            out = s.ff.compute(s.state)
+        pos_f = out.position.double().cpu().numpy()
+        h = s.state.box.h.double().cpu().numpy()
+        want = _StubDeepPot("").eval(pos_f.reshape(1, -1),
+                                     h.T.reshape(1, 9), np.zeros(n, int),
+                                     atomic=True)[1].reshape(n, 3)
+        err = float(np.abs(out.force.double().cpu().numpy() - want).max())
+        print(f"[other-potentials] (d) dp (stub LJ argon) {n} atoms: 10 NVE "
+              f"steps {ms:.3f} ms/step on {out.force.device}; forces "
+              f"against the stub's float64 {err:.3e} eV/A (bound "
+              f"{OP_DP_TOL})")
+        if not (out.force.is_cuda and err <= OP_DP_TOL):
+            raise RuntimeError("(d) dp: the card's forces depart from the "
+                               "stub's")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def phase_other_potentials(results):
+    """The last potentials (phase 16 of the module docstring): (a) each
+    small deck card against CPU, (b) the big decks' KE + U, (c) the qNEP
+    measures and bec driver, (d) the DP bridge, (e) no launch of a
+    hand-written kernel anywhere in the phase, (f) ms/step and peaks."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from gpumd_tpu_torch.engine import cuda_build
+
+    t0 = time.time()
+    cuda_build.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
+            ENS_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        tmp = Path(tmp)
+        _op_small(tmp, pool)
+        t1 = time.time()
+        print(f"[other-potentials] (a) small decks done in {t1 - t0:.1f} s")
+        _op_big(tmp)
+        _op_measures(tmp)
+        _op_dp(tmp)
+    torch.cuda.synchronize()
+    counts = dict(cuda_build.launches)
+    _launch_check("other-potentials (e)", counts, {}, never=tuple(counts))
+    print(f"[other-potentials] phase done in {time.time() - t0:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,md,npt-md,hnemd-md,"
                     "drift,list-md,train,time,dense-kernels,dense-md,"
                     "dense-time,"
                     "tersoff-kernels,tersoff-md,tersoff-time,probes,app,"
-                    "measure,ensembles,pimd-potentials")
+                    "measure,ensembles,pimd-potentials,other-potentials")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: the probes "
                     "phase then times its blocked gather and its wrappers' "
@@ -5303,6 +5641,7 @@ def main():
                 ("measure", phase_measure),
                 ("ensembles", phase_ensembles),
                 ("pimd-potentials", phase_pimd_potentials),
+                ("other-potentials", phase_other_potentials),
                 ("ensembles-time", phase_ensembles_time),
                 ("app-spread", lambda r: phase_app_spread(r, pot_path))):
             if name in phases:

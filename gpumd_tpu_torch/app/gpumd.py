@@ -134,14 +134,27 @@ from gpumd_tpu_torch.measure.properties import (
 from gpumd_tpu_torch.model.box import Box, inv3
 from gpumd_tpu_torch.model.groups import Groups
 from gpumd_tpu_torch.model.state import MDState, make_state
+from gpumd_tpu_torch.potentials.base import _scatter_rows
+from gpumd_tpu_torch.potentials.dftd3 import DFTD3
+from gpumd_tpu_torch.potentials.dp import DP
 from gpumd_tpu_torch.potentials.eam import (
     ADP,
     EAMAlloy,
     EAMDai2006,
     EAMZhou2004,
 )
+from gpumd_tpu_torch.potentials.fcp import FCP
+from gpumd_tpu_torch.potentials.ilp import (
+    ILPHybrid,
+    layer_bound,
+    load_nep_ilp,
+    load_sw_ilp,
+    load_tersoff_ilp,
+)
 from gpumd_tpu_torch.potentials.lj import LJ
+from gpumd_tpu_torch.potentials.nep.charge import NEPCharge
 from gpumd_tpu_torch.potentials.nep.model import NEP
+from gpumd_tpu_torch.potentials.nep.pppm import best_mesh
 from gpumd_tpu_torch.potentials.sw import SW
 from gpumd_tpu_torch.potentials.tersoff import (
     Tersoff1988,
@@ -174,20 +187,13 @@ UNPORTED = {
     # item 6: the rest of the app surface
     **{kw: 6 for kw in (
         "compute_cohesive", "compute_elastic", "change_box", "deposit",
-        "dump_observer", "active", "compute_extrapolation",
-        "compute_dpdt", "compute_es", "dump_cg",
-        "dump_dipole", "dump_polarizability", "kspace",
-        "plumed", "dump_netcdf")},
+        "dump_observer", "active", "compute_extrapolation", "dump_cg",
+        "dump_dipole", "dump_polarizability", "plumed", "dump_netcdf")},
     # item 8: measure (the tight-binding transport solver)
     "compute_lsqt": 8,
-    # item 9: potentials
-    "dftd3": 9,
     # item 10: MC, minimize, phonon
     **{kw: 10 for kw in ("minimize", "mc", "compute_phonon")},
 }
-
-# potential file headers not ported yet: all ROADMAP queue 1, item 9
-_UNPORTED_POTENTIALS = ("dp", "tersoff_ilp", "nep_ilp", "sw_ilp", "fcp")
 
 # potential file headers read by a class's from_file(path, dtype, device)
 # whose type names are the header's symbols, `potential <T> <syms>`
@@ -202,9 +208,14 @@ _SETFL_POTENTIALS = {"adp": ADP, "eam/alloy": EAMAlloy}
 
 # many-body potentials without a neighbour-count hint: the list capacity
 # is their density bound alone (a (B, MN, MN) angle tensor a block grows
-# with MN^2)
+# with MN^2); the ILP hybrids' layers add their own bound (_auto_mn), and
+# FCP reads no list
 _MANY_BODY = (Tersoff1989, Tersoff1988, TersoffMini, SW, EAMZhou2004,
-              EAMAlloy, ADP, EAMDai2006)
+              EAMAlloy, ADP, EAMDai2006, ILPHybrid, FCP)
+
+# the ILP hybrids' potential headers and their loaders
+_ILP_LOADERS = {"tersoff_ilp": load_tersoff_ilp, "sw_ilp": load_sw_ilp,
+                "nep_ilp": load_nep_ilp}
 
 
 def _not_ported(what: str, item: int):
@@ -368,6 +379,9 @@ def dense_route_reason(session, ens, device) -> Optional[str]:
     if torch.device(device).type != "cuda":
         return ("CPU device (the kernels' plain versions run slower than "
                 "the list path there)")
+    if len(session.potentials) != 1:
+        return (f"{len(session.potentials)} potentials (the compact engine "
+                f"drives one)")
     pot = session.potentials[0]
     if isinstance(pot, NEP):
         try:
@@ -434,6 +448,7 @@ class Session:
         self.run_seconds: List[float] = []  # each run block's wall time
         self._n = frame.n_atoms
         self._files: Dict[str, object] = {}
+        self._kspace_method = "pppm"  # qNEP's k-space (the `kspace` keyword)
 
     # ------------------------------------------------------------------ utils
 
@@ -502,9 +517,24 @@ class Session:
                 "nnap requires the external Java NNAP runtime (the "
                 "reference gates it behind USE_NNAP + a JVM, nnap.cu:21); "
                 "it is not bridged in this build")
-        elif name in _UNPORTED_POTENTIALS or (
-                name.startswith("nep") and "charge" in name):
-            raise _not_ported(f"potential {name!r}", 9)
+        elif name in _ILP_LOADERS:
+            if len(args) < 2:
+                raise ValueError(f"{name} needs two potential files")
+            pot = self._load_ilp(name, path,
+                                 os.path.join(self.workdir, args[1]))
+            self.type_names = head[2:2 + int(head[1])]
+        elif name == "fcp":
+            pot = FCP.from_file(path, workdir=self.workdir, **dev)
+            pot = pot.attach_box(self.box)
+            self.type_names = head[2:2 + int(head[1])]
+        elif name == "dp":
+            pot = DP.from_file(path)
+            self.type_names = head[2:2 + int(head[1])]
+        elif name.startswith("nep") and "charge" in name:
+            pot = NEPCharge.from_file(path, **dev)._replace(
+                kspace_method=self._kspace_method,
+                pppm_mesh=best_mesh(self.box))
+            self.type_names = list(pot.model.symbols)
         elif name.startswith("nep"):
             pot = NEP.from_file(path, **dev)
             # foundation models: slice the type tables down to the species
@@ -525,10 +555,34 @@ class Session:
         self._rebuild_ff()
         self.log(f"potential: {name} ({path})")
 
+    def _load_ilp(self, name, path, path2) -> ILPHybrid:
+        """An ILP hybrid with the layer labels of its file's group method,
+        nep_ilp's per-group NEP indices, and the intralayer list's
+        capacity from the layers' bound at the intralayer cutoff."""
+        dev = dict(dtype=self.dtype, device=self.device)
+        labels = np.zeros(self._n, np.int32)
+        if name == "nep_ilp":
+            pot, gm, gm_nep, nep_map = load_nep_ilp(path, path2, labels,
+                                                    **dev)
+            if nep_map is not None:
+                gids = self.groups.labels[:, gm_nep]
+                pot = pot._replace(nep_labels=torch.as_tensor(
+                    nep_map[gids], dtype=torch.int64, device=self.device))
+        else:
+            pot, gm = _ILP_LOADERS[name](path, path2, labels, **dev)
+        labels = self.groups.labels[:, gm]
+        pot = pot._replace(ilp=pot.ilp._replace(labels=torch.as_tensor(
+            labels, dtype=torch.int64, device=self.device)))
+        n = self._n
+        return pot._replace(intra_mn=layer_bound(
+            self.frame.positions[:n], labels[:n], _np(self.box.h),
+            self.frame.pbc, pot.intra_rc))
+
     def _rebuild_ff(self):
         self.ff = ForceField.create(
             self.potentials, self.box, self._n,
-            mn=_auto_mn(self.potentials, self._n, self.box), skin=1.0)
+            mn=_auto_mn(self.potentials, self._n, self.box,
+                        self.frame.positions, self.frame.pbc), skin=1.0)
 
     def kw_velocity(self, args):
         self._require_state()
@@ -1999,6 +2053,108 @@ class Session:
         self.properties.append(PropertyRequest(sample_interval, process))
         self.log(f"compute_chunk {args}")
 
+    # ------------------------------------------------ D3, k-space, qNEP
+
+    def kw_dftd3(self, args):
+        """dftd3 <functional> rc_potential rc_cn: the D3(BJ) dispersion
+        term added to the loaded potential (ref: nep.cu:45-73 scans run.in
+        for it; here a keyword of its own, as in the JAX app)."""
+        if self.ff is None:
+            raise ValueError("dftd3 must come after the potential keyword")
+        self.potentials.append(DFTD3.create(
+            args[0], float(args[1]), float(args[2]), self.type_names,
+            dtype=self.dtype, device=self.device))
+        self._rebuild_ff()
+        self.log(f"dftd3 {args}")
+
+    def kw_kspace(self, args):
+        """kspace ewald|pppm: qNEP's k-space method, for a charge model
+        loaded before or after (ref: nep_charge.cu:46-75)."""
+        method = args[0]
+        if method not in ("ewald", "pppm"):
+            raise ValueError("kspace method can only be ewald or pppm")
+        self._kspace_method = method
+        self.potentials = [p._replace(kspace_method=method)
+                           if isinstance(p, NEPCharge) else p
+                           for p in self.potentials]
+        if self.ff is not None:
+            self.ff = dataclasses.replace(self.ff,
+                                          potentials=tuple(self.potentials))
+        self.log(f"kspace {method}")
+
+    def _charge_model(self, what: str) -> NEPCharge:
+        pot = next((p for p in self.potentials if isinstance(p, NEPCharge)),
+                   None)
+        if pot is None:
+            raise ValueError(f"{what} needs a NEP-Charge model")
+        return pot
+
+    def _fresh_list(self, state):
+        """(state with wrapped positions, a fresh neighbour list)."""
+        pos = state.box.wrap(state.position)
+        return (state._replace(position=pos),
+                self.ff.neighbor.build(pos, state.box, state.mask))
+
+    def kw_compute_dpdt(self, args):
+        """compute_dpdt sample_interval -> dpdt.out: dP/dt = sum_i Z*_i v_i
+        and its running integral, the polarization (ref: compute_dpdt.cu;
+        the Born charges of the qNEP model)."""
+        interval = int(args[0])
+        pot = self._charge_model("compute_dpdt")
+        f = self._file("dpdt.out")
+        f.write(f"# compute_dpdt {interval}\n# format_version 1\n")
+        f.write(f"# num_atoms {self._n}\n")
+        f.write(f"# dt_output "
+                f"{self.dt * interval * TIME_UNIT_CONVERSION:.10e} fs\n")
+        f.write("# columns time_fs dpdt_x dpdt_y dpdt_z P_x P_y P_z\n")
+        acc = {"P": np.zeros(3)}
+
+        def process(session, state, step):
+            with torch.no_grad():
+                bec = pot.born_effective_charges(state,
+                                                 self._fresh_list(state)[1])
+                dp = _np(torch.einsum("nab,nb->a", bec, state.velocity
+                                      * state.mask[:, None]))
+            acc["P"] += dp * self.dt * interval
+            row = [step * self.dt * TIME_UNIT_CONVERSION, *dp, *acc["P"]]
+            f.write(" ".join(f"{x:.10e}" for x in row) + "\n")
+            f.flush()
+
+        self.properties.append(PropertyRequest(interval, process))
+        self.log(f"compute_dpdt {args}")
+
+    def kw_compute_es(self, args):
+        """compute_es sample_interval -> elactrostatic_force.out and
+        elactrostatic_energy.out (the reference's file names, typo and
+        all; ref: compute_es.cu): the full qNEP output minus its
+        short-range NEP + ZBL part, so the charge chain is included."""
+        interval = int(args[0])
+        pot = self._charge_model("compute_es")
+        ff_out = self._file("elactrostatic_force.out")
+        fe_out = self._file("elactrostatic_energy.out")
+
+        def process(session, state, step):
+            st, nbr = self._fresh_list(state)
+            m = st.mask
+            full = pot.compute_with_state(st, nbr)
+            t2 = st.type[nbr.idx.long()]
+            with torch.enable_grad():
+                r12 = nbr.r12.detach().requires_grad_(True)
+                e_s, _ = pot.energy_and_charge(r12, st.type, t2)
+                (p,) = torch.autograd.grad(torch.sum(e_s * m), r12)
+            recv = _scatter_rows(p.reshape(-1, 3), nbr.idx, p.shape[0])
+            f_es = full.force - (torch.sum(p, dim=1) - recv) * m[:, None]
+            e_es = torch.sum((full.energy - e_s.detach()) * m)
+            f_np = _np(f_es)[_np(m) > 0]
+            for r in f_np:
+                ff_out.write(f"{r[0]:16.8e}{r[1]:16.8e}{r[2]:16.8e}\n")
+            fe_out.write(f"{float(e_es):16.8e}\n")
+            ff_out.flush()
+            fe_out.flush()
+
+        self.properties.append(PropertyRequest(interval, process))
+        self.log(f"compute_es {args}")
+
     # --------------------------------------------------------------- drivers
 
     def kw_add_force(self, args):
@@ -2017,8 +2173,19 @@ class Session:
         if rest and rest[-1] in ("charge", "bec"):
             mode = rest.pop()
         table = parse_table_or_values(rest, self.workdir)
+        bec_fn = None
+        if mode == "bec":
+            # the Born charges on a fresh list each step (the JAX app's
+            # bec_fn, ref: add_efield.cu's BEC branch)
+            pot = self._charge_model("add_efield bec mode")
+
+            def bec_fn(state):
+                return pot.born_effective_charges(
+                    state, self._fresh_list(state)[1])
+
         self.drivers.append(AddEfield(gmask=self._gmask(gm, gid), table=table,
-                                      use_bec=(mode == "bec")))
+                                      use_bec=(mode == "bec"),
+                                      bec_fn=bec_fn))
         self.log(f"add_efield {args}")
 
     def kw_add_spring(self, args):
@@ -2107,6 +2274,10 @@ class Session:
         "deform": kw_deform,
         "dump_shock_nemd": kw_dump_shock_nemd,
         "dump_beads": kw_dump_beads,
+        "dftd3": kw_dftd3,
+        "kspace": kw_kspace,
+        "compute_dpdt": kw_compute_dpdt,
+        "compute_es": kw_compute_es,
         "run": kw_run,
     }
 
@@ -2127,12 +2298,16 @@ class Session:
             self._files.clear()
 
 
-def _auto_mn(potentials, n_atoms=None, box=None) -> int:
+def _auto_mn(potentials, n_atoms=None, box=None, position=None,
+             pbc=(True, True, True)) -> int:
     """Neighbour capacity: NEP files carry MN hints, otherwise 256; and at
     least a density bound, so the list cannot silently truncate.  The
     many-body potentials without a hint (_MANY_BODY) take the density
     bound alone, at least 32: their angle tensors grow with MN^2, and the
-    list path raises at a chunk's end if a row outgrows it."""
+    list path raises at a chunk's end if a row outgrows it.  An ILP
+    hybrid's rows also get the layers' bound (potentials/ilp.py's
+    layer_bound, from `position`): the density of a bilayer in a vacuum
+    box counts the vacuum."""
     mn = 0
     rc_max = max((getattr(p, "rc", 0.0) for p in potentials), default=0.0)
     rc_base = 0.0
@@ -2151,6 +2326,10 @@ def _auto_mn(potentials, n_atoms=None, box=None) -> int:
         # images of a small periodic cell can exceed n_atoms, so no clamp
         # by atom count here
         out = max(out, int(bound * 1.5) + 8)
+        if position is not None and any(isinstance(p, ILPHybrid)
+                                        for p in potentials):
+            out = max(out, layer_bound(position[:n_atoms], None,
+                                       _np(box.h), pbc, rc_max + 1.5))
     return out
 
 

@@ -99,11 +99,22 @@ class NeighborCache(NamedTuple):
     peak: Optional[torch.Tensor] = None
 
 
+def _dispatch(pot, state: MDState, nbr: NeighborList, per_atom_virial):
+    """One potential's output: compute_with_state where it has one (as the
+    JAX package's _evaluate_prec), else compute on the types."""
+    if hasattr(pot, "compute_with_state"):
+        return pot.compute_with_state(state, nbr)
+    return pot.compute(state.type, nbr, state.mask,
+                       per_atom_virial=per_atom_virial)
+
+
 @dataclass(frozen=True)
 class ForceField:
     """One or more potentials on a shared neighbour plan.  A potential
-    exposes .compute(type_, nbr, mask, per_atom_virial) -> PotentialOutput
-    and .rc."""
+    exposes .rc and .compute(type_, nbr, mask, per_atom_virial) ->
+    PotentialOutput, or .compute_with_state(state, nbr) when it needs more
+    of the state than the types (positions, the box: FCP, DP, qNEP, the
+    ILP hybrids), which the dispatch then prefers."""
 
     potentials: tuple
     neighbor: NeighborConfig
@@ -145,8 +156,7 @@ class ForceField:
         f = torch.zeros_like(state.force)
         w = torch.zeros_like(state.virial)
         for pot in self.potentials:
-            out = pot.compute(state.type, nbr, state.mask,
-                              per_atom_virial=self.per_atom_virial)
+            out = _dispatch(pot, state, nbr, self.per_atom_virial)
             e = e + out.energy
             f = f + out.force
             w = w + out.virial
@@ -194,7 +204,7 @@ class ForceField:
         _pin_fp32(state.position)
         pos = state.box.wrap(state.position)
         nbr = self.neighbor.build(pos, state.box, state.mask)
-        out = pot.compute(state.type, nbr, state.mask)
+        out = _dispatch(pot, state._replace(position=pos), nbr, True)
         j = torch.einsum("nab,nb->na", out.virial, state.velocity)
         return state._replace(position=pos, force=out.force,
                               potential_energy=out.energy,

@@ -63,22 +63,26 @@ class AddForce:
 
 @dataclass(frozen=True)
 class AddEfield:
-    """add_efield <gm> <gid> Ex Ey Ez [charge] (ref: add_efield.cu):
-    F += q E with the state's charges.  The bec mode (Born effective
-    charges of a qNEP model) comes with qNEP, ROADMAP queue 1, item 9."""
+    """add_efield <gm> <gid> Ex Ey Ez [charge|bec] (ref: add_efield.cu):
+    F += q E with the state's charges, or F += Z* E with the per-atom Born
+    effective charge tensors of a qNEP model (bec mode), which `bec_fn`
+    (state -> (N, 3, 3)) evaluates every step."""
 
     gmask: object
     table: object  # (L, 3) E-field table (V/A)
     use_bec: bool = False
+    bec_fn: Optional[Callable] = None
     _dev: dict = field(default_factory=dict, repr=False, compare=False)
 
-    def __post_init__(self):
-        if self.use_bec:
-            raise NotImplementedError(
-                "add_efield bec mode needs qNEP, not ported yet (ROADMAP "
-                "queue 1, item 9)")
-
     def apply(self, state):
+        if self.use_bec:
+            if self.bec_fn is None:
+                raise ValueError("add_efield bec mode needs a qNEP model")
+            ef = _row(self, self.table, state)
+            gm = _on(self, "gmask", self.gmask, state.force)
+            add = torch.einsum("nab,b->na", self.bec_fn(state), ef)
+            f = state.force + gm[:, None] * add
+            return state._replace(force=f * state.mask[:, None])
         if state.charge is None:
             raise ValueError("add_efield needs charges (model.xyz or qNEP)")
         ef = _row(self, self.table, state)

@@ -96,6 +96,14 @@ def compute_from_pair_energy(energy_fn: Callable, nbr: NeighborList,
     stay exact); with a reverse map the per-atom virial is a cheap gather
     and is always computed."""
     e_atom, p = energy_and_partials(energy_fn, nbr.r12, mask, block)
+    return output_from_partials(e_atom, p, nbr, mask, per_atom_virial)
+
+
+def output_from_partials(e_atom: torch.Tensor, p: torch.Tensor,
+                         nbr: NeighborList, mask: torch.Tensor,
+                         per_atom_virial: bool = True) -> PotentialOutput:
+    """PotentialOutput from the masked per-atom energies and the partials
+    p = d sum(e * mask) / d r12 (see compute_from_pair_energy)."""
     if per_atom_virial or nbr.rev is not None:
         force, virial = forces_virial_from_partials(p, nbr)
     else:

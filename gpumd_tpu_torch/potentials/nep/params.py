@@ -33,6 +33,10 @@ class NepParams(NamedTuple):
     b0_pol: Optional[torch.Tensor] = None  # (T, neurons)
     w1_pol: Optional[torch.Tensor] = None  # (T, neurons)
     b1_pol: Optional[torch.Tensor] = None  # ()
+    # the charge head of a qNEP model (charge_mode > 0; ref: main_nep/
+    # nep_charge.cu:236-253)
+    w1_charge: Optional[torch.Tensor] = None  # (T, neurons)
+    sqrt_epsilon_inf: Optional[torch.Tensor] = None  # ()
 
 
 @dataclass(frozen=True)
@@ -138,9 +142,23 @@ def unflatten_params(model: NepModel, flat: np.ndarray, q_scaler: np.ndarray,
                      device=torch.device("cuda")) -> NepParams:
     """Split the flat parameter vector as the reference's update_potential
     (ref: nep.cu:227-283) and c-refactor (ref: nep.cu:75-98) do; a
-    polarizability model carries a second ANN block after the first."""
+    polarizability model carries a second ANN block after the first, a
+    charge model a charge head after each type's energy head and
+    sqrt(epsilon_inf) before the bias (ref: nep_charge.cu:236-253)."""
     t, neu, dim = model.num_types, model.neurons, model.dim
     p = 0
+    charge = {}
+    if model.charge_mode:
+        w0, b0 = np.empty((t, neu, dim)), np.empty((t, neu))
+        w1, w1q = np.empty((t, neu)), np.empty((t, neu))
+        for ty in range(t):
+            for arr, size in ((w0, neu * dim), (b0, neu), (w1, neu),
+                              (w1q, neu)):
+                arr[ty] = flat[p:p + size].reshape(arr.shape[1:])
+                p += size
+        charge = dict(w1_charge=w1q, sqrt_epsilon_inf=np.asarray(flat[p]))
+        b1 = np.asarray(flat[p + 1])
+        p += 2
 
     def ann_block():
         nonlocal p
@@ -164,7 +182,10 @@ def unflatten_params(model: NepModel, flat: np.ndarray, q_scaler: np.ndarray,
         p += 1
         return w0, b0, w1, np.asarray(b1), b1_type
 
-    w0, b0, w1, b1, b1_type = ann_block()
+    if model.charge_mode:
+        b1_type = np.zeros((t,))
+    else:
+        w0, b0, w1, b1, b1_type = ann_block()
     pol = {}
     if model.model_type == 2:
         pw0, pb0, pw1, pb1, _ = ann_block()
@@ -180,8 +201,8 @@ def unflatten_params(model: NepModel, flat: np.ndarray, q_scaler: np.ndarray,
         t, t, model.n_max_angular + 1, model.basis_size_angular + 1)
     return params_from_numpy(dict(
         w0=w0, b0=b0, w1=w1, b1=b1, b1_type=b1_type,
-        c_radial=c_rad, c_angular=c_ang, q_scaler=q_scaler, **pol),
-        device=device, dtype=dtype)
+        c_radial=c_rad, c_angular=c_ang, q_scaler=q_scaler, **pol,
+        **charge), device=device, dtype=dtype)
 
 
 def load_nep_txt(path: str, dtype=torch.float64,
@@ -197,8 +218,6 @@ def load_nep_txt(path: str, dtype=torch.float64,
         return out
 
     version, model_type, zbl, charge_mode = _parse_header_name(take(1)[0])
-    if charge_mode:
-        raise NotImplementedError("qNEP (charge) models: separate loader")
     num_types = int(take(1)[0])
     symbols = tuple(take(num_types))
 
@@ -256,6 +275,7 @@ def load_nep_txt(path: str, dtype=torch.float64,
         l_max=l_vals[0], has_q=has_q, neurons=neurons, zbl=zbl,
         zbl_rc_inner=zbl_inner, zbl_rc_outer=zbl_outer,
         zbl_flexible=zbl_flexible, zbl_typewise_factor=zbl_factor,
+        charge_mode=charge_mode,
     )
     n_para = model.num_ann_params() + model.num_descriptor_params()
     values = np.array([float(v) for v in take(n_para + model.dim)])
@@ -293,17 +313,18 @@ def params_from_vector(model: NepModel, theta: torch.Tensor,
                        q_scaler: Optional[torch.Tensor] = None) -> NepParams:
     """Flat vector -> NepParams on theta's device, in the reference's file
     order: per-type ANN blocks, the global bias, a polarizability model's
-    second head, then c basis-major and type-pair-minor.  Differentiable
-    in theta.  As in the JAX package, a NEP3 vector is read as one ANN
-    block per type (the trainer's layout), not the file's shared block."""
-    if model.charge_mode:
-        raise NotImplementedError("qNEP (charge) models: not ported yet")
+    second head, then c basis-major and type-pair-minor; a charge model
+    has a charge head after each type's energy head and sqrt(epsilon_inf)
+    before the bias (ref: nep_charge.cu:246-251).  Differentiable in
+    theta.  As in the JAX package, a NEP3 vector is read as one ANN block
+    per type (the trainer's layout), not the file's shared block."""
     t, neu, dim = model.num_types, model.neurons, model.dim
     p = 0
+    charge = {}
 
     def heads(keep_type_bias):
         nonlocal p
-        w0, b0, w1, bt = [], [], [], []
+        w0, b0, w1, bt, w1q = [], [], [], [], []
         for _ in range(t):
             w0.append(theta[p:p + neu * dim].reshape(neu, dim))
             p += neu * dim
@@ -311,10 +332,17 @@ def params_from_vector(model: NepModel, theta: torch.Tensor,
             p += neu
             w1.append(theta[p:p + neu])
             p += neu
+            if model.charge_mode:
+                w1q.append(theta[p:p + neu])
+                p += neu
             if model.version == 5:
                 if keep_type_bias:
                     bt.append(theta[p])
                 p += 1  # the pol head's per-type bias slot is unused
+        if model.charge_mode:
+            charge.update(w1_charge=torch.stack(w1q),
+                          sqrt_epsilon_inf=theta[p])
+            p += 1
         b1 = theta[p]
         p += 1
         return torch.stack(w0), torch.stack(b0), torch.stack(w1), bt, b1
@@ -338,7 +366,7 @@ def params_from_vector(model: NepModel, theta: torch.Tensor,
         w0=w0, b0=b0, w1=w1, b1=b1,
         b1_type=(torch.stack(b1_type) if b1_type else
                  torch.zeros(t, dtype=theta.dtype, device=theta.device)),
-        c_radial=c_rad, c_angular=c_ang, q_scaler=q_scaler, **pol)
+        c_radial=c_rad, c_angular=c_ang, q_scaler=q_scaler, **pol, **charge)
 
 
 def variable_types(model: NepModel) -> np.ndarray:

@@ -21,3 +21,7 @@ HBAR = 6.465412e-2
 
 # natural thermal conductivity -> W/(m K).
 KAPPA_UNIT_CONVERSION = 1.573769e5
+
+# pi to the reference's 15 digits (ref: common.cuh): the qNEP Ewald split
+# alpha = PI / rc takes it
+PI = 3.14159265358979

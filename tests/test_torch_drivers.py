@@ -103,12 +103,22 @@ def test_random_force_matches_jax_with_its_draws():
 
 
 def test_efield_needs_charges_and_bec_is_not_ported():
-    _, t, rng = _states()
+    """Charge mode needs charges; bec mode (ported with qNEP) needs a
+    Born-charge function and, given one, matches the JAX driver's
+    F += Z* E on the same tensors."""
+    j, t, rng = _states()
     kw = _drivers(rng)["add_efield"]
     with pytest.raises(ValueError, match="charge"):
         tdrv.AddEfield(**kw).apply(t._replace(charge=None))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tdrv.AddEfield(**kw, use_bec=True)
+    with pytest.raises(ValueError, match="qNEP"):
+        tdrv.AddEfield(**kw, use_bec=True).apply(t)
+    z = rng.normal(size=(N, 3, 3))
+    got = tdrv.AddEfield(**kw, use_bec=True,
+                         bec_fn=lambda s: torch.as_tensor(z)).apply(t)
+    want = jdrv.AddEfield(**kw, use_bec=True,
+                          bec_fn=lambda s: jnp.asarray(z)).apply(j)
+    np.testing.assert_allclose(got.force.numpy(), np.asarray(want.force),
+                               rtol=1e-12, atol=1e-12)
 
 
 def test_table_file_and_electron_stop_file(tmp_path):

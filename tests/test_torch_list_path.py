@@ -384,13 +384,27 @@ def test_params_from_vector_matches(name):
 
 
 def test_global_bias_index_charge_models():
+    """The charge layout's bias slot and size, and (NEP4) its
+    params_from_vector (the charge head after each type's energy head,
+    sqrt(epsilon_inf) before the bias) against the JAX package's on the
+    same vector.  A NEP5 charge model's vector has no per-type bias slots
+    (num_trainable) while both packages' bias index and params_from_vector
+    count them: the port keeps the JAX numbers."""
     for kw in (dict(charge_mode=1), dict(charge_mode=2, version=5)):
         jm = dataclasses.replace(_base_model(), **kw)
         tm = TP.NepModel(**dataclasses.asdict(jm))
         assert TP.global_bias_index(tm) == JP.global_bias_index(jm)
         assert TP.num_trainable(tm) == JP.num_trainable(jm)
-        with pytest.raises(NotImplementedError):
-            TP.params_from_vector(tm, torch.zeros(TP.num_trainable(tm)))
+        if tm.version == 5:
+            continue
+        theta = np.random.default_rng(4).normal(size=TP.num_trainable(tm))
+        got = TP.params_from_vector(tm, torch.as_tensor(theta))
+        want = JP.params_from_vector(jm, jnp.asarray(theta))
+        for field in ("w0", "b0", "w1", "b1", "b1_type", "w1_charge",
+                      "sqrt_epsilon_inf", "c_radial", "c_angular"):
+            np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                          np.asarray(getattr(want, field)))
+        assert float(got.b1) == theta[TP.global_bias_index(tm)]
 
 
 @pytest.mark.parametrize("name", ["nep4_zbl", "nep5_polarizability",
