@@ -362,6 +362,52 @@ written with velocities drawn by numpy:
              launched; (f) ms/step and the peak device memory of every
              (b) deck
 
+ 17. app-surface  the rest of the app surface and the qNEP trainer
+             (in four worker processes beside the card's work: the CPU
+             references of (b)-(d) and the reader's input; the timings
+             of (a), (c) and the reader come last, while no worker is
+             busy): (a) PbTe 32,768 with the trained
+             model driving NVE on the compact route (engine auto), 200
+             steps, two models observed (dump_observer observe every 10
+             steps, frames every 100: the same model and a committee
+             member, its output weights scaled by 1 + 0.01 N(0, 1) with
+             numpy's seed 17): each observer pass on the kernels with the
+             driving model's plan and lists (44 passes; K1, K2, the
+             scatter and the fold launched once more a pass, the
+             compaction twice,
+             against the same deck without observers); observer0.out
+             equal to thermo.out (1e-6, the stress 1e-4), observer1 on the
+             kernels equal to its pass on a fresh list of each snapshot
+             (1e-5), and its
+             rows against the same deck under engine list; one observer
+             pass on the kernels against one on the list path (ms, in
+             turns); (b) PbTe 4,096 with the two models: active (every 10
+             steps) and compute_extrapolation (identity ASI) on the
+             compact route, 100 steps, the last uncertainty and the last
+             dumped frame's gamma against the CPU's float64
+             recomputation; average mode (50 steps, the list path): the
+             state's energy the mean of the two models'; (c) qNEP
+             training: 25 rattled 216-atom NaCl frames labelled by
+             potentials/sets.py's random_nep(1) through NEPCharge (Ewald,
+             float64 on the card: energy, forces, virial, total charge 0,
+             Born charges), nep.in "type 2 Na Cl / charge_mode 1" (the
+             defaults: 8/4 A, n_max 6/6, l_max 4, 30 neurons, population
+             50); the trainer's forward at the labels' weights against
+             the labels, a fixed theta's RMSEs (E F V Q BEC) on the card
+             against the CPU's float64 on the first 5 frames,
+             app.nep.main for 20 generations (rows 10 and 20 of 14
+             finite columns, s/generation, peak memory; no hand-written
+             kernel launched); (d) on the list path against the CPU's
+             float64 runs: compute_cohesive, compute_elastic, change_box,
+             dump_netcdf and dump_cg on LJ argon 4,000, deposit on a slab
+             of it (8 atoms in 20 steps), dump_dipole and
+             dump_polarizability with random TNEP models at the trained
+             widths on PbTe 512 (the card in float64 there: the TNEP
+             sums cancel to ~1/1000 of their terms); plumed's "PLUMED
+             not installed!"; the native reader against the Python rows
+             on a 1,000,000-atom model.xyz (seconds of each, in a
+             worker alone)
+
 Not among the default phases (ask for it with --phases):
 
  ensembles-time  each deck of `ensembles` (a) and NVE (engine list), 20
@@ -382,8 +428,8 @@ Not among the default phases (ask for it with --phases):
 Usage: python3 chip_smoke.py [--phases build,kernels,md,npt-md,
        hnemd-md,drift,list-md,train,time,dense-kernels,dense-md,dense-time,
        tersoff-kernels,tersoff-md,tersoff-time,probes,app,measure,
-       ensembles,pimd-potentials,other-potentials,app-spread,
-       ensembles-time]
+       ensembles,pimd-potentials,other-potentials,app-surface,
+       app-spread,ensembles-time]
        [--parent DIR]
 Prints the kernels' JSON line, then, last, {"ok": true, "device": {...}}.
 A kernel's "launches" are those of the 200-step NVE run of its path;
@@ -393,7 +439,9 @@ them; "launches_app" those of the app phase's config-3 deck (compact
 rows, K1, K2, scatter, fold; compact_windows: the Langevin deck),
 "launches_app_hnemd" of its HNEMD deck and "launches_app_tersoff" of its
 Tersoff deck; "launches_measure" those of the measure phase's deck (a)
-and "launches_measure_modal" of its deck (b), at 12 channels.  "max_abs_err_pav" is the largest error of a kernel's instances at
+and "launches_measure_modal" of its deck (b), at 12 channels;
+"launches_observer" those of the app-surface phase's deck (a) and
+"launches_observer_passes" how many of them its observers made.  "max_abs_err_pav" is the largest error of a kernel's instances at
 12 channels (per-atom virials: K2, scatter, fold, the tersoff modes), and
 K2's, the scatter's and the fold's "ms_pav", "plain_ms_pav",
 "library_ms_pav", "bound_ms_pav" and "bound_by_pav" their step at 12
@@ -5597,13 +5645,780 @@ def phase_other_potentials(results):
     print(f"[other-potentials] phase done in {time.time() - t0:.1f} s")
 
 
+# -------------------------------------------------------------- app-surface
+
+SURF_CELLS = 16  # deck (a): PbTe 32,768
+SURF_SMALL = 8  # decks (b): PbTe 4,096
+SURF_STEPS = 200
+SURF_OBS = 10  # dump_observer's thermo interval
+SURF_EXYZ = 100  # and its frames'
+# observer0's rows against the driving model's thermo rows: the same
+# kernels on the same carry give the same energies; the run spreads its total
+# virial over the atoms in float32 and the thermo row sums it again,
+# where the observer parks the total on one atom, so the stress (near
+# zero at 300 K, a sum that cancels) parts by up to ~1e-5 of its largest
+# component (T KE PE, stress, box)
+SURF_ROW_TOL = (1e-6, 1e-4, 1e-9)
+# observer1 on the kernels (the driving model's plan and lists) against
+# its pass on a fresh list of the same snapshot: two float32 summation
+# orders of one energy and virial (the total over T KE PE, the stress,
+# the box)
+SURF_SAME_TOL = 1e-5
+# observer1's rows against the `engine list` deck's: two float32
+# trajectories (compact and list forces part by ~1e-6 relative) over
+# 200 fs; T, KE and PE of 32,768 atoms move by far less than 1e-4 of
+# themselves, the stress (near zero at 300 K) by less than 1e-2 of its
+# largest component
+SURF_LIST_TOL = (1e-4, 1e-2, 1e-9)
+# (b) gamma and the committee's uncertainty against the CPU's float64
+# recomputation from the dumped frame (positions at 8 decimals, gamma at
+# 6) and the final state: float32 sums, relative to the largest
+SURF_GAMMA_TOL = 1e-4
+SURF_UNC_TOL = 1e-3
+# average mode: the state's PE against the mean of the two models' passes
+# on a fresh list (the same list path, another list): float32 sums
+SURF_AVG_TOL = 1e-6
+# (c) the qNEP trainer: at the labelling model's weights the forward's
+# RMSEs against its f64 labels (E eV/atom, F eV/A, V eV/atom, BEC);
+# a fixed theta's RMSEs on the card (float32) against the CPU's float64
+SURF_Q_TOLS = {"E": 2e-5, "F": 2e-4, "V": 2e-4, "BEC": 1e-4}
+SURF_Q_REL = 1e-4
+SURF_Q_FRAMES = 25
+SURF_Q_CPU = 5
+# (d) the card's float32 decks against the CPU's float64 runs: a column's
+# largest magnitude (thermo, cohesive, netcdf coordinates, the CG frames)
+SURF_D_TOL = 1e-3
+# compute_elastic's constants (GPa: second differences of float32
+# energies), the trajectory's positions and the CG beads' centres of mass
+# (A: POS_TOL, as every card-against-CPU deck), the beads' forces (eV/A:
+# sums of ~1,000 float32 atom forces that cancel to ~1/10 of their
+# terms), the CG energy and virial (relative)
+SURF_TNEP_TOL = 1e-8
+SURF_D_BOUNDS = {"dipole.out": SURF_TNEP_TOL,
+                 "polarizability.out": SURF_TNEP_TOL,
+                 "elastic.out": 0.05, "all.nc": POS_TOL,
+                 "train.xyz COM": POS_TOL, "train.xyz force": 1e-3,
+                 "train.xyz energy, virial": 1e-5}
+SURF_XYZ_ATOMS = 1_000_000
+
+
+def _surf_bounds(worst):
+    """SURF_D_BOUNDS' entries for the keys of `worst` that have one."""
+    return {k: SURF_D_BOUNDS[k.split(" (")[0]] for k in worst
+            if k.split(" (")[0] in SURF_D_BOUNDS}
+
+
+def _np64(t):
+    return t.detach().cpu().numpy().astype(np.float64)
+
+
+def _netcdf_dx(a, b, h):
+    """The largest distance between two AMBER trajectories' coordinates,
+    each difference taken back to the cell's frame and to its minimum
+    image (a position wrapped into another image than the other run's
+    differs by a lattice vector)."""
+    from scipy.io import netcdf_file
+
+    from gpumd_tpu_torch.measure.netcdf_dump import cell_to_restricted
+
+    x, y = (netcdf_file(str(p), "r", mmap=False).variables["coordinates"]
+            .data.astype(np.float64) for p in (a, b))
+    if x.shape != y.shape:
+        raise RuntimeError(f"(d) {a.name}: {x.shape} vs {y.shape}")
+    t = cell_to_restricted(h)[2]
+    dx = (x - y) @ t
+    s = dx @ np.linalg.inv(h).T
+    dx = (s - np.round(s)) @ h.T
+    return float(np.abs(dx).max())
+
+
+def _perturbed_model(src, dst, seed, scale=0.01):
+    """dst: the NEP at src with each output weight w1 scaled by 1 + scale
+    N(0, 1) from numpy's seed (a committee member of the same
+    architecture)."""
+    from gpumd_tpu_torch.potentials.nep.params import load_nep_txt
+
+    model, _ = load_nep_txt(str(src), device="cpu")
+    lines = Path(src).read_text().splitlines()
+    neu, dim = model.neurons, model.dim
+    per_type = (dim + 2) * neu + (model.version == 5)
+    head = len(lines) - (model.num_ann_params()
+                         + model.num_descriptor_params() + dim)
+    rng = np.random.default_rng(seed)
+    for t in range(model.num_types):
+        w1 = head + t * per_type + (dim + 1) * neu
+        for i in range(w1, w1 + neu):
+            lines[i] = f"{float(lines[i]) * (1 + scale * rng.normal()):15.7e}"
+    Path(dst).write_text("\n".join(lines) + "\n")
+
+
+def _identity_asi(path, model):
+    """An ASI file of identity matrices, one an element: gamma = max |B|."""
+    b = model.neurons * (model.dim + 2)
+    eye = np.eye(b).ravel().astype(int).astype(str)
+    with open(path, "w") as f:
+        for sym in model.symbols:
+            f.write(f"{sym} {b} {b} " + " ".join(eye) + "\n")
+
+
+def _pbte_pair(d, nc, deck, seed=3):
+    """_pbte_deck with the committee member nep_b.txt beside nep.txt."""
+    _pbte_deck(d, nc, deck, seed=seed)
+    _perturbed_model(MODEL, d / "nep_b.txt", 17)
+
+
+class _ObserverRecorder:
+    """A property at dump_observer's interval: observer1's pass on a fresh
+    list of the same snapshot (its thermo row), and the compact engine's
+    context at the run's last chunk."""
+
+    def __init__(self):
+        self.rows, self.ctx = [], None
+
+    def __call__(self, session, state, step):
+        from gpumd_tpu_torch.app.gpumd import thermo_row
+
+        pot = session.observer_models()[1]
+        with torch.no_grad():
+            self.rows.append(thermo_row(session.ff._evaluate_with(state,
+                                                                  pot)))
+        self.ctx = session._dense_eval_ctx
+
+
+def _surf_observe(tmp, results):
+    """(a) PbTe 32,768 with the trained model driving NVE on the compact
+    route and a committee observed every 10 steps.  Returns the session
+    and the last chunk's context for _surf_observer_ms."""
+    from gpumd_tpu_torch.app.gpumd import PropertyRequest, Session
+    from gpumd_tpu_torch.engine import cuda_build
+
+    head = "potential nep.txt\n"
+    tail = (f"time_step 1\nensemble nve\ndump_thermo {SURF_OBS}\n"
+            f"run {SURF_STEPS}\n")
+    obs = (f"potential nep_b.txt\ndump_observer observe {SURF_OBS} "
+           f"{SURF_EXYZ} 0 0\n")
+    base_d, obs_d, list_d = tmp / "a_base", tmp / "a_obs", tmp / "a_list"
+    _pbte_deck(base_d, SURF_CELLS, head + tail)
+    base, base_counts = _session(base_d)
+    for d, extra in ((obs_d, ""), (list_d, "engine list\n")):
+        _pbte_pair(d, SURF_CELLS, head + obs + extra + tail)
+    rec = _ObserverRecorder()
+    s = Session(str(obs_d), quiet=True, device="cuda")
+    s.properties.append(PropertyRequest(SURF_OBS, rec))
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    s.execute()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_build.launches)
+    if s.route_reason is not None or s.md is None:
+        raise RuntimeError(f"(a) not on the compact route: {s.route_reason}")
+    evals = s.observer_compact_evals
+    want = 2 * (SURF_STEPS // SURF_OBS + SURF_STEPS // SURF_EXYZ)
+    comp = ("compact_rows" if base_counts["compact_rows"]
+            else "compact_windows")
+    rise = {k: counts[k] - base_counts[k] for k in NEP_BASE + (comp,)}
+    print(f"[app-surface] (a) PbTe {s._n:,} NVE {SURF_STEPS} steps, two "
+          f"models observed every {SURF_OBS} steps (frames every "
+          f"{SURF_EXYZ}): compact route, plan {_plan(s.md)}; "
+          f"{evals} observer passes on the kernels (expected {want}); "
+          f"launches against the deck without observers: "
+          f"{ {k: (base_counts[k], counts[k]) for k in rise} }; wall "
+          f"{wall:.2f} s against {base.run_seconds[0]:.2f} s for the run "
+          f"alone")
+    if evals != want or any(rise[k] != evals for k in NEP_BASE) \
+            or rise[comp] < 2 * evals:
+        raise RuntimeError("(a) the observers' passes are not the kernels' "
+                           "launches")
+    for k in NEP_BASE + (comp,):
+        results.setdefault(k, {})["launches_observer"] = counts[k]
+        results[k]["launches_observer_passes"] = rise[k]
+    thermo = _thermo(obs_d, SURF_STEPS // SURF_OBS)
+    o0, o1 = (np.atleast_2d(np.loadtxt(obs_d / f"observer{k}.out"))
+              for k in (0, 1))
+    rel0 = _row_diff(o0, thermo)
+    rel1 = _row_diff(o1, np.array(rec.rows))
+    print(f"[app-surface] (a) observer0.out against thermo.out (max diff / "
+          f"scale, T KE PE, stress, box): {rel0[0]:.3e}, {rel0[1]:.3e}, "
+          f"{rel0[2]:.3e} (bounds {SURF_ROW_TOL}); observer1 on the kernels "
+          f"against its pass on a fresh list of each snapshot: "
+          f"{rel1[0]:.3e}, {rel1[1]:.3e}, {rel1[2]:.3e} (bound "
+          f"{SURF_SAME_TOL}); observer1's PE per atom - observer0's "
+          f"{(o1[-1, 2] - o0[-1, 2]) / s._n:+.3e} eV")
+    if not (all(r <= b for r, b in zip(rel0, SURF_ROW_TOL))
+            and max(rel1) <= SURF_SAME_TOL):
+        raise RuntimeError("(a) observer rows depart")
+    frames = [len(_read_frames(obs_d / f"observer{k}.xyz")) for k in (0, 1)]
+    if frames != [SURF_STEPS // SURF_EXYZ] * 2:
+        raise RuntimeError(f"(a) observer frames {frames}")
+    ls, _ = _session(list_d)
+    l1 = np.atleast_2d(np.loadtxt(list_d / "observer1.out"))
+    rell = _row_diff(o1, l1)
+    print(f"[app-surface] (a) the same deck under engine list "
+          f"({ls.run_seconds[0]:.2f} s): observer1.out against the compact "
+          f"deck's: {rell[0]:.3e}, {rell[1]:.3e}, {rell[2]:.3e} (bounds "
+          f"{SURF_LIST_TOL})")
+    if not all(r <= b for r, b in zip(rell, SURF_LIST_TOL)):
+        raise RuntimeError("(a) the list deck's observer rows depart")
+    return s, rec.ctx
+
+
+def _surf_observer_ms(s, ctx):
+    """(a)'s timing, taken while no worker process is busy: one observer
+    pass on the kernels against one on the list path, in turns, on the
+    last chunk's carry."""
+    pot = s.observer_models()[1]
+    snap = s.state
+    ms = {}
+    for label, c in (("kernels", ctx), ("list", None),
+                     ("kernels", ctx), ("list", None)):
+        s._dense_eval_ctx = c
+        s._observe(1, pot, snap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            s._observe(1, pot, snap)
+        torch.cuda.synchronize()
+        ms.setdefault(label, []).append(
+            (time.perf_counter() - t0) / 5 * 1e3)
+    s._dense_eval_ctx = None
+    print(f"[app-surface] (a) one observer pass at PbTe {s._n:,} (in turns, "
+          f"ms, no worker busy): on the kernels "
+          f"{[round(x, 3) for x in ms['kernels']]}, on the list path "
+          f"{[round(x, 3) for x in ms['list']]}; {_card()}")
+
+
+def _read_frames(path):
+    from gpumd_tpu_torch.io.xyz import read_xyz_frames
+
+    return read_xyz_frames(str(path))
+
+
+def _cpu_nep(path):
+    from gpumd_tpu_torch.potentials.nep.model import NEP
+
+    return NEP.from_file(str(path), dtype=torch.float64, device="cpu")
+
+
+def _cpu_state(frame, names):
+    """A frame as an MDState in float64 on the CPU, with a force field of
+    rc + 1 A lists."""
+    from gpumd_tpu_torch.model.box import Box
+    from gpumd_tpu_torch.model.state import make_state
+
+    box = Box.from_lattice(frame.lattice, dtype=torch.float64, device="cpu")
+    types = np.array([names.index(x) for x in frame.symbols])
+    return make_state(frame.positions, frame.default_masses(), types, box)
+
+
+def _surf_b_reference(d, position, h):
+    """(b)'s CPU reference in a worker process: gamma of the last frame of
+    d/extrapolation_dump.xyz and the committee's uncertainty at the final
+    state (`position`, `h`), in float64.  Returns (gamma, uncertainty)."""
+    from gpumd_tpu_torch.forcefield import ForceField
+
+    torch.set_num_threads(2)
+    d = Path(d)
+    nep64, nb = _cpu_nep(MODEL), _cpu_nep(d / "nep_b.txt")
+    fr = _read_frames(d / "extrapolation_dump.xyz")[-1]
+    st = _cpu_state(fr, list(nep64.model.symbols))
+    ff = ForceField.create([nep64], st.box, fr.n_atoms, mn=200, skin=1.0)
+    pos = st.box.wrap(st.position)
+    nbr = ff.neighbor.build(pos, st.box, st.mask)
+    with torch.no_grad():
+        b = nep64.b_projection(nbr.r12, st.type, st.type[nbr.idx.long()])
+        gamma = b.abs().amax(-1).numpy()
+        st = st._replace(position=torch.as_tensor(position),
+                         box=st.box.with_h(torch.as_tensor(h)))
+        fs = [ForceField.create([p], st.box, fr.n_atoms, mn=200,
+                                skin=1.0).compute(st).force
+              for p in (nep64, nb)]
+    unc = float(torch.sqrt(torch.sum(torch.var(torch.stack(fs), 0,
+                                               unbiased=False), -1)).max())
+    return gamma, unc
+
+
+def _surf_active(tmp, pool):
+    """(b) active, compute_extrapolation (identity ASI) and average mode at
+    PbTe 4,096; the CPU's recomputation in a worker of `pool` while the
+    average deck runs."""
+    d = tmp / "b_active"
+    _pbte_pair(d, SURF_SMALL, (
+        "potential nep.txt\npotential nep_b.txt\ntime_step 1\n"
+        "ensemble nve\ndump_thermo 10\nactive 10 0 0 0 0.0\n"
+        "compute_extrapolation asi_file asi.txt gamma_low 0 "
+        "check_interval 10 dump_interval 50\nrun 100\n"))
+    _identity_asi(d / "asi.txt", _cpu_nep(MODEL).model)
+    s, counts = _session(d)
+    act = np.atleast_2d(np.loadtxt(d / "active.out"))
+    frames = _read_frames(d / "extrapolation_dump.xyz")
+    ref = pool.submit(_surf_b_reference, str(d), _np64(s.state.position),
+                      _np64(s.state.box.h))
+    route, b_counts = s.route_reason, counts
+    n_active_frames = len(_read_frames(d / "active.xyz"))
+    d = tmp / "b_average"
+    _pbte_pair(d, SURF_SMALL, (
+        "potential nep.txt\npotential nep_b.txt\n"
+        "dump_observer average 10 10 0 0\ntime_step 1\nensemble nve\n"
+        "dump_thermo 10\nrun 50\n"))
+    s, counts = _session(d)
+    with torch.no_grad():
+        pes = [float(torch.sum(s.ff._evaluate_with(s.state, p)
+                               .potential_energy.double() * s.state.mask))
+               for p in s.observer_models()]
+    pe = float(torch.sum(s.state.potential_energy.double() * s.state.mask))
+    err = abs(pe - np.mean(pes)) / abs(pe)
+    rows = _thermo(d, 5)
+    print(f"[app-surface] (b) average mode, 50 NVE steps: route "
+          f"{s.route_reason}; the state's PE {pe:.6f} eV against the mean of "
+          f"the two models' passes {np.mean(pes):.6f} ({err:.2e}, bound "
+          f"{SURF_AVG_TOL}); KE + U per atom moved "
+          f"{(rows[-1, 1] + rows[-1, 2] - rows[0, 1] - rows[0, 2]) / s._n:+.2e}"
+          f" eV")
+    if not (err <= SURF_AVG_TOL and "averaged" in (s.route_reason or "")):
+        raise RuntimeError("(b) average mode departs")
+    _launch_check("(b) average", counts, {}, never=tuple(counts))
+    gamma, unc = ref.result()
+    err_g = float(np.abs(gamma - frames[-1].arrays["gamma"]).max()
+                  / np.abs(gamma).max())
+    err_u = abs(unc - act[-1, 1]) / unc
+    print(f"[app-surface] (b) PbTe {SURF_SMALL ** 3 * 8:,}, 2 models, 100 "
+          f"NVE steps (route: {route or 'compact engine'}; launches "
+          f"{ {k: v for k, v in b_counts.items() if v} }): active.out "
+          f"{act.shape[0]} rows, max uncertainty {act[:, 1].min():.4e}-"
+          f"{act[:, 1].max():.4e} eV/A, the last against the CPU's float64 "
+          f"{err_u:.2e} (bound {SURF_UNC_TOL}); extrapolation_dump.xyz "
+          f"{len(frames)} frames, gamma of the last against the CPU's "
+          f"float64 {err_g:.2e} of its largest {gamma.max():.4e} (bound "
+          f"{SURF_GAMMA_TOL})")
+    if (act.shape != (10, 2) or len(frames) != 2 or not np.isfinite(act).all()
+            or not err_g <= SURF_GAMMA_TOL or not err_u <= SURF_UNC_TOL
+            or n_active_frames != 10 or route is not None):
+        raise RuntimeError("(b) active / compute_extrapolation departs")
+
+
+def _nacl_frames(path, n_frames, seed=21):
+    """25 rattled 216-atom NaCl frames (a0 5.64 A x U(0.97, 1.03), 0.1 A)
+    labelled in float64 on the card by potentials/sets.py's random_nep(1)
+    through NEPCharge (Ewald): energy, forces, virial, total charge 0 and
+    Born effective charges.  Returns (model, theta, q_scaler)."""
+    from gpumd_tpu_torch.forcefield import ForceField
+    from gpumd_tpu_torch.model.box import Box
+    from gpumd_tpu_torch.model.state import make_state
+    from gpumd_tpu_torch.potentials.nep.charge import NEPCharge
+    from gpumd_tpu_torch.potentials.nep.params import write_nep_txt
+    from gpumd_tpu_torch.potentials.sets import random_nep, rocksalt
+
+    model, theta, qs = random_nep(1)
+    write_nep_txt(str(path.parent / "label.txt"), model, theta, qs)
+    pot = NEPCharge.from_file(str(path.parent / "label.txt"),
+                              dtype=torch.float64,
+                              device="cuda")._replace(
+        kspace_method="ewald")
+    rng = np.random.default_rng(seed)
+    lines = []
+    for _ in range(n_frames):
+        a0 = 5.64 * rng.uniform(0.97, 1.03)
+        pos, sym, lengths = rocksalt(3, a0, ("Na", "Cl"))
+        pos = pos + rng.normal(0, 0.1, pos.shape)
+        box = Box.orthogonal(lengths, dtype=torch.float64,
+                             device="cuda")
+        types = np.array([0 if x == "Na" else 1 for x in sym])
+        st = make_state(pos, np.where(types == 0, 22.99, 35.45), types, box)
+        ff = ForceField.create([pot], box, len(pos), mn=200)
+        with torch.no_grad():
+            out = ff.compute(st)
+            nbr = ff.neighbor.build(box.wrap(st.position), box, st.mask)
+            bec = pot.born_effective_charges(st._replace(
+                position=box.wrap(st.position)), nbr)
+        e = float(out.potential_energy.sum())
+        w = out.virial.sum(0).cpu().numpy()
+        f = out.force.cpu().numpy()
+        z = bec.reshape(-1, 9).cpu().numpy()
+        lat = " ".join(f"{x:.10f}" for x in np.diag(lengths).ravel())
+        vir = " ".join(f"{x:.10f}" for x in w.ravel())
+        lines += [str(len(pos)), f'Lattice="{lat}" energy={e:.10f} '
+                  f'virial="{vir}" charge=0 pbc="T T T" '
+                  "Properties=species:S:1:pos:R:3:force:R:3:bec:R:9"]
+        lines += [" ".join([s_] + [f"{x:.10f}" for x in
+                                   (*p, *fi, *zi)])
+                  for s_, p, fi, zi in zip(sym, pos, f, z)]
+    path.write_text("\n".join(lines) + "\n")
+    return model, theta, qs
+
+
+def _surf_theta_rmses(model, cfg, batch, theta, dtype):
+    """The global RMSEs (E F V Q BEC) of one parameter vector (q_scaler
+    ones) on `batch`, with the energy shift, as a generation's evaluate
+    takes them."""
+    from gpumd_tpu_torch.potentials.nep.params import params_from_vector
+    from gpumd_tpu_torch.train import snes
+    from gpumd_tpu_torch.train.nep_train import batched_forward
+
+    dev = batch.r12.device
+    with torch.no_grad():
+        out = batched_forward(model, params_from_vector(
+            model, torch.as_tensor(theta, dtype=dtype, device=dev),
+            torch.ones(model.dim, dtype=dtype, device=dev)), batch)
+        return np.array([float(r[-1]) for r in snes.per_type_rmses(
+            model, cfg, out, batch, do_shift=True)])
+
+
+def _surf_c_reference(d, theta, n_frames):
+    """(c)'s CPU reference in a worker process: `_surf_theta_rmses` in
+    float64 on the first n_frames of d/train.xyz (d/cpu.in's model)."""
+    from gpumd_tpu_torch.io.nep_input import model_from_config, parse_nep_in
+    from gpumd_tpu_torch.io.xyz import read_xyz_frames
+    from gpumd_tpu_torch.train.dataset import batch_structures
+
+    torch.set_num_threads(2)
+    cfg = parse_nep_in(str(Path(d) / "cpu.in"))
+    frames = read_xyz_frames(str(Path(d) / "train.xyz"))[:n_frames]
+    batch = batch_structures(frames, cfg.symbols, rc=8.0, mn=200,
+                             charge_mode=1, dtype=torch.float64,
+                             device="cpu")
+    return _surf_theta_rmses(model_from_config(cfg), cfg, batch, theta,
+                             torch.float64)
+
+
+def _surf_qnep(tmp, pool):
+    """(c) the qNEP trainer at the trained model's widths: the labels and
+    the forward's checks; returns (directory, config, nep.in) for
+    _surf_qnep_train."""
+    from gpumd_tpu_torch.app import nep as app_nep
+    from gpumd_tpu_torch.engine import cuda_build
+    from gpumd_tpu_torch.io.nep_input import model_from_config, parse_nep_in
+    from gpumd_tpu_torch.io.xyz import read_xyz_frames
+    from gpumd_tpu_torch.potentials.nep.params import (
+        num_trainable, params_from_vector,
+    )
+    from gpumd_tpu_torch.train.nep_train import batched_forward
+
+    d = tmp / "c_qnep"
+    d.mkdir()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    lab_model, lab_theta, lab_qs = _nacl_frames(d / "train.xyz",
+                                                SURF_Q_FRAMES)
+    frames = read_xyz_frames(str(d / "train.xyz"))
+    t_lab = time.perf_counter() - t0
+    nep_in = "type 2 Na Cl\ncharge_mode 1\n"
+    (d / "nep.in").write_text(nep_in)
+    cfg = parse_nep_in(str(d / "nep.in"))
+    model = model_from_config(cfg)
+    batch, = app_nep.build_batches(frames, cfg.symbols, rc=8.0,
+                                   batch_size=cfg.batch_size, charge_mode=1,
+                                   device="cuda", log=lambda *a: None)
+    # a fixed theta's first-generation RMSEs: the CPU's float64 on the
+    # first SURF_Q_CPU frames in a worker while the card works
+    rng = np.random.default_rng(5)
+    theta = rng.normal(0, 0.3, num_trainable(model))
+    (d / "cpu.in").write_text(nep_in)
+    ref = pool.submit(_surf_c_reference, str(d), theta, SURF_Q_CPU)
+    card_sub, = app_nep.build_batches(frames[:SURF_Q_CPU], cfg.symbols,
+                                      rc=8.0, batch_size=cfg.batch_size,
+                                      charge_mode=1, device="cuda",
+                                      log=lambda *a: None)
+    # the labelling model's weights reproduce its labels
+    with torch.no_grad():
+        out = batched_forward(lab_model, params_from_vector(
+            lab_model, torch.as_tensor(lab_theta, dtype=torch.float32,
+                                       device="cuda"),
+            torch.as_tensor(lab_qs, dtype=torch.float32, device="cuda")),
+            batch)
+    na = batch.n_atoms.float()
+    got = {"E": ((out.energy - batch.energy_ref) / na) ** 2,
+           "F": (out.force - batch.force_ref) ** 2,
+           "V": ((out.virial - batch.virial_ref) / na[:, None]) ** 2,
+           "BEC": (out.bec - batch.bec_ref) ** 2}
+    rm = {k: float(torch.sqrt(torch.mean(v))) for k, v in got.items()}
+    print(f"[app-surface] (c) {len(frames)} NaCl frames of "
+          f"{frames[0].n_atoms} atoms labelled by random_nep(1) through "
+          f"NEPCharge (Ewald, f64 on the card) in {t_lab:.1f} s; K "
+          f"{batch.kvec.shape[1]} k-vectors a config, MN "
+          f"{batch.idx.shape[2]}; the trainer's forward (f32) at the labels' "
+          f"weights: RMSE " + ", ".join(f"{k} {v:.3e} (bound "
+                                        f"{SURF_Q_TOLS[k]:.0e})"
+                                        for k, v in rm.items()))
+    if not all(rm[k] <= SURF_Q_TOLS[k] for k in rm):
+        raise RuntimeError("(c) the qNEP forward departs from NEPCharge's "
+                           "labels")
+    del out, got
+    rms = [_surf_theta_rmses(model, cfg, card_sub, theta, torch.float32)]
+    rms.append(ref.result())
+    rel = np.abs(rms[0] - rms[1]) / np.abs(rms[1])
+    print(f"[app-surface] (c) a fixed theta's RMSEs (E F V Q BEC) on the "
+          f"first {SURF_Q_CPU} frames, card f32 "
+          f"{np.array2string(rms[0], precision=5)} against CPU f64 "
+          f"{np.array2string(rms[1], precision=5)}: max relative "
+          f"{rel.max():.2e} (bound {SURF_Q_REL})")
+    if not (rel.max() <= SURF_Q_REL and np.all(rms[1] > 0)):
+        raise RuntimeError("(c) the card's charge RMSEs depart from the "
+                           "CPU's")
+    counts = dict(cuda_build.launches)
+    _launch_check("(c) qNEP checks", counts, {}, never=tuple(counts))
+    return d, cfg, nep_in
+
+
+def _surf_qnep_train(d, cfg, nep_in):
+    """(c)'s 20 SNES generations through app.nep.main in d, timed while no
+    worker process is busy."""
+    from gpumd_tpu_torch.app import nep as app_nep
+    from gpumd_tpu_torch.engine import cuda_build
+    from gpumd_tpu_torch.train import snes
+
+    cuda_build.reset_launches()
+    (d / "nep.in").write_text(nep_in + "generation 20\noutput_interval 10\n")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = app_nep.main([str(d)], device="cuda")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows = np.atleast_2d(np.loadtxt(d / "loss.out"))
+    chunk = snes.population_chunk(cfg.population_size, trainer.batches[0])
+    print(f"[app-surface] (c) SNES qNEP (charge_mode 1): D={trainer.d}, "
+          f"population {cfg.population_size} in chunks of {chunk}; 20 "
+          f"generations (no worker busy): "
+          f"{trainer.train_seconds / trainer.generations_run:.4f} "
+          f"s/generation ({wall:.2f} s for app.nep.main), peak {peak:.2f} "
+          f"GiB; loss.out rows {list(rows[:, 0].astype(int))} of "
+          f"{rows.shape[1]} columns; {_card()}")
+    print("[app-surface] (c) loss.out:\n" + (d / "loss.out").read_text())
+    counts = dict(cuda_build.launches)
+    if (rows.shape != (2, 14) or not np.isfinite(rows).all()
+            or not np.all(rows[:, 7:9] > 0)):
+        raise RuntimeError("(c) loss.out is not two finite 14-column rows")
+    _launch_check("(c) qNEP trainer", counts, {}, never=tuple(counts))
+
+
+SURF_D_DECKS = {
+    "box": ("compute_cohesive 0.99 1.01 0\ncompute_elastic 0.01 cubic\n"
+            "change_box 0.5 0.5 0.5 0.02 0.01 0.0\ntime_step 2\n"
+            "ensemble nve\ndump_thermo 10\ndump_netcdf -1 0 10 1 all.nc\n"
+            "dump_cg 10 0\nrun 20\n"),
+    "deposit": ("time_step 2\nensemble nve\n"
+                "deposit 10 2 {lo} {hi} atom 0 4 -0.02\ndump_thermo 10\n"
+                "dump_restart 20\nrun 20\n"),
+    "tnep": ("potential dipole.txt\npotential pol.txt\ntime_step 1\n"
+             "ensemble nve\ndump_dipole 10\ndump_polarizability 10\n"
+             "run 20\n"),
+}
+SURF_D_FILES = {"box": ("cohesive.out", "thermo.out"),
+                "deposit": ("thermo.out",), "tnep": ("dipole.out",
+                                                    "polarizability.out")}
+
+
+def _surf_d_deck(d, name):
+    """(d)'s deck `name` in d: LJ argon 4,000 (10^3 fcc cells, four slabs
+    as groups), the same slab under 5 cells of vacuum along z, or PbTe 512
+    with the trained model and random TNEP models at its widths."""
+    from gpumd_tpu_torch.io.nep_input import NepTrainConfig, model_from_config
+    from gpumd_tpu_torch.potentials.nep.params import (
+        num_trainable, write_nep_txt,
+    )
+
+    if name == "tnep":
+        _pbte_deck(d, 4, "potential nep.txt\n" + SURF_D_DECKS[name])
+        for k, mt in ((1, 1), (2, 2)):
+            m = model_from_config(NepTrainConfig(
+                num_types=2, symbols=("Te", "Pb"), model_type=mt))
+            rng = np.random.default_rng(30 + k)
+            write_nep_txt(str(d / ("dipole.txt" if mt == 1 else "pol.txt")),
+                          m, rng.normal(0, 0.1, num_trainable(m)),
+                          rng.uniform(0.5, 2.0, m.dim))
+        return
+    _ens_argon(d, SURF_D_DECKS[name].format(lo=13 * 5.26, hi=14 * 5.26),
+               steps=0, nc=10)
+    text = (d / "run.in").read_text().replace("run 0\n", "")
+    (d / "run.in").write_text(text)
+    if name == "deposit":  # 10 x 10 x 10 cells in a box of 10 x 10 x 15
+        from gpumd_tpu_torch.io.xyz import read_xyz, write_xyz
+
+        fr = read_xyz(str(d / "model.xyz"))
+        fr.lattice = np.diag([52.6, 52.6, 15 * 5.26])
+        write_xyz(str(d / "model.xyz"), fr, with_velocities=True,
+                  with_groups=True)
+
+
+def _surf_cpu(d):
+    """(d)'s CPU reference in a worker process: d's deck in float64 in
+    d/cpu; returns the final positions and mask."""
+    import shutil
+
+    torch.set_num_threads(2)
+    c = Path(d) / "cpu"
+    shutil.copytree(d, c)
+    from gpumd_tpu_torch.app.gpumd import Session
+
+    s = Session(str(c), quiet=True, device="cpu", dtype=torch.float64)
+    s.execute()
+    return s.state.position.numpy(), s.state.mask.numpy()
+
+
+def _surf_tools(tmp, futures):
+    """(d) the box tools, deposit, CG, NetCDF, TNEP outputs and plumed;
+    `futures` the decks' CPU references, {name: (directory, future)}."""
+    from gpumd_tpu_torch.app.gpumd import Session
+
+    from gpumd_tpu_torch.engine import cuda_build
+
+    for name, (d, fut) in futures.items():
+        # the TNEP sums cancel to ~1/1000 of their terms: the card in
+        # float64 there, against the CPU's float64 to SURF_TNEP_TOL
+        dtype = torch.float64 if name == "tnep" else None
+        cuda_build.reset_launches()
+        s = Session(str(d), quiet=True, device="cuda", dtype=dtype)
+        s.execute()
+        torch.cuda.synchronize()
+        counts = dict(cuda_build.launches)
+        _launch_check(f"(d) {name}", counts, {}, never=tuple(counts))
+        pos, mask = fut.result()
+        worst = {}
+        for f in SURF_D_FILES[name]:
+            a = np.atleast_2d(np.loadtxt(d / f, comments="#"))
+            b = np.atleast_2d(np.loadtxt(d / "cpu" / f, comments="#"))
+            if a.shape != b.shape or not np.isfinite(a).all():
+                raise RuntimeError(f"(d) {name}: {f} {a.shape} vs {b.shape}")
+            if f in ("dipole.out", "polarizability.out"):  # a tensor's size
+                scale = np.abs(b[:, 1:]).max()
+            else:
+                scale = np.maximum(np.abs(b).max(0), 1e-12)
+            worst[f] = float((np.abs(a - b).max(0) / scale).max())
+        if name == "box":
+            a, b = (np.loadtxt(p / "elastic.out", comments="#")
+                    for p in (d, d / "cpu"))
+            worst["elastic.out (GPa)"] = float(np.abs(a - b).max())
+            worst["all.nc (A)"] = _netcdf_dx(d / "all.nc",
+                                             d / "cpu" / "all.nc",
+                                             _np64(s.state.box.h))
+            fa, fb = _read_frames(d / "train.xyz"), _read_frames(
+                d / "cpu" / "train.xyz")
+            if len(fa) != 2 or len(fb) != 2:
+                raise RuntimeError("(d) dump_cg frames")
+            worst["train.xyz COM (A)"] = max(float(np.abs(
+                u.positions - v.positions).max()) for u, v in zip(fa, fb))
+            worst["train.xyz force (eV/A)"] = max(float(np.abs(
+                u.forces - v.forces).max()) for u, v in zip(fa, fb))
+            worst["train.xyz energy, virial"] = max(float(np.abs(
+                np.array(u.info[k].split(), float)
+                - np.array(v.info[k].split(), float)).max() / np.abs(
+                    np.array(v.info[k].split(), float)).max())
+                for u, v in zip(fa, fb) for k in ("energy", "virial"))
+        n_dep = int(s.state.mask.sum()) if name == "deposit" else None
+        print(f"[app-surface] (d) {name} ({s._n} atoms, route "
+              f"{s.route_reason}): against the CPU's float64 run "
+              + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+              + (f"; atoms switched on {n_dep} (CPU {int(mask.sum())})"
+                 if n_dep is not None else "")
+              + f" (bounds: {SURF_D_TOL} of a column's largest, "
+                f"{_surf_bounds(worst)})")
+        if any(v > SURF_D_BOUNDS.get(k.split(" (")[0], SURF_D_TOL)
+               for k, v in worst.items()) or (
+                name == "deposit" and n_dep != 4000 + 8):
+            raise RuntimeError(f"(d) {name} departs from the CPU's run")
+    d = tmp / "d_plumed"
+    d.mkdir()
+    _ens_argon(d, "plumed plumed.dat 1 0\n", steps=1, nc=4)
+    (d / "plumed.dat").write_text("")
+    try:
+        Session(str(d), quiet=True, device="cuda").execute()
+        raise RuntimeError("(d) plumed ran without libplumed")
+    except RuntimeError as e:
+        if "PLUMED not installed!" not in str(e):
+            raise
+        print(f"[app-surface] (d) plumed without libplumed: {e}")
+
+
+def _surf_write_xyz(tmp):
+    """A model.xyz of SURF_XYZ_ATOMS argon atoms in tmp, and the native
+    reader built, in a worker process: (path, atoms, seconds to write)."""
+    from gpumd_tpu_torch.native import build
+
+    rng = np.random.default_rng(8)
+    n = SURF_XYZ_ATOMS
+    path = Path(tmp) / "big.xyz"
+    t0 = time.perf_counter()
+    pos = rng.random((n, 3)) * 250.0
+    with open(path, "w") as f:
+        f.write(f"{n}\nLattice=\"250 0 0 0 250 0 0 0 250\" "
+                "Properties=species:S:1:pos:R:3 pbc=\"T T T\"\n")
+        np.savetxt(f, pos, fmt="Ar %.10f %.10f %.10f")
+    t_write = time.perf_counter() - t0
+    build("xyz_native")
+    return str(path), n, t_write
+
+
+def _surf_read_xyz(path):
+    """The native reader against the Python rows on `path`, in a worker
+    process: (native seconds, Python rows' seconds, equal)."""
+    import gpumd_tpu_torch.io.xyz as txyz
+
+    t0 = time.perf_counter()
+    a = txyz.read_xyz(path)
+    t_native = time.perf_counter() - t0
+    txyz.NATIVE_MIN_ROWS = 10 ** 12  # this worker's module only
+    t0 = time.perf_counter()
+    b = txyz.read_xyz(path)
+    t_py = time.perf_counter() - t0
+    same = a.symbols == b.symbols and np.array_equal(a.positions,
+                                                     b.positions)
+    return t_native, t_py, same
+
+
+def phase_app_surface(results):
+    """The rest of the app surface and the qNEP trainer (phase 17 of the
+    module docstring): (a) observers on the compact route, (b) active,
+    compute_extrapolation and average mode, (c) qNEP SNES, (d) the box
+    tools, deposit, CG, NetCDF, TNEP outputs, plumed, the native
+    reader."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
+            4, mp_context=multiprocessing.get_context("spawn")) as pool:
+        tmp = Path(tmp)
+        # the host-side work starts first, in the workers: the reader's
+        # input and (d)'s CPU references
+        written = pool.submit(_surf_write_xyz, str(tmp))
+        d_started = {}
+        for name in SURF_D_DECKS:
+            d = tmp / f"d_{name}"
+            d.mkdir()
+            _surf_d_deck(d, name)
+            d_started[name] = (d, pool.submit(_surf_cpu, str(d)))
+        obs_session, obs_ctx = _surf_observe(tmp, results)
+        print(f"[app-surface] (a) done at {time.time() - t0:.1f} s")
+        _surf_active(tmp, pool)
+        print(f"[app-surface] (b) done at {time.time() - t0:.1f} s")
+        q_args = _surf_qnep(tmp, pool)
+        print(f"[app-surface] (c) checks done at {time.time() - t0:.1f} s")
+        _surf_tools(tmp, d_started)
+        print(f"[app-surface] (d) done at {time.time() - t0:.1f} s")
+        # the timings, with every worker's result in: nothing else runs
+        path, n, t_write = written.result()
+        _surf_qnep_train(*q_args)
+        _surf_observer_ms(obs_session, obs_ctx)
+        del obs_session, obs_ctx
+        t_native, t_py, same = pool.submit(_surf_read_xyz, path).result()
+        print(f"[app-surface] (d) model.xyz of {n:,} atoms ({t_write:.1f} s "
+              f"to write), read in a worker process while nothing else "
+              f"runs: the native reader {t_native:.2f} s, the Python rows "
+              f"{t_py:.2f} s; equal: {same}")
+        if not same:
+            raise RuntimeError("(d) the native reader departs from the "
+                               "Python rows")
+    print(f"[app-surface] phase done in {time.time() - t0:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,md,npt-md,hnemd-md,"
                     "drift,list-md,train,time,dense-kernels,dense-md,"
                     "dense-time,"
                     "tersoff-kernels,tersoff-md,tersoff-time,probes,app,"
-                    "measure,ensembles,pimd-potentials,other-potentials")
+                    "measure,ensembles,pimd-potentials,other-potentials,"
+                    "app-surface")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: the probes "
                     "phase then times its blocked gather and its wrappers' "
@@ -5642,6 +6457,7 @@ def main():
                 ("ensembles", phase_ensembles),
                 ("pimd-potentials", phase_pimd_potentials),
                 ("other-potentials", phase_other_potentials),
+                ("app-surface", phase_app_surface),
                 ("ensembles-time", phase_ensembles_time),
                 ("app-spread", lambda r: phase_app_spread(r, pot_path))):
             if name in phases:

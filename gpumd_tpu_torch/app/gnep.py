@@ -61,6 +61,12 @@ def main(argv=None, stop_after=None, device="cuda"):
     prepare_device(device)
     workdir = args.workdir
     cfg = parse_nep_in(os.path.join(workdir, "nep.in"))
+    if cfg.charge_mode:
+        # the JAX package's gnep builds its batches without the charge
+        # labels and fails in its first epoch; the port adds no trainer
+        # the JAX package lacks
+        raise ValueError(f"gnep does not train qNEP models (charge_mode "
+                         f"{cfg.charge_mode}): train them with nep")
     model = model_from_config(cfg)
 
     def batches_of(name):

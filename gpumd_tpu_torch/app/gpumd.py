@@ -8,9 +8,11 @@ once, property keywords register observers, `run N` performs a run block.
 The handlers keep the JAX module's names (`kw_<keyword>`).
 
 `engine auto` (the default) sends a run that the compact engine takes
-(one NEP or Tersoff-1989 potential, an ensemble of DENSE_ENSEMBLES, no
-fix/move group, no deform, no driver, no HNEMDEC and no per-step stress
-or Onsager observer, a box of >= 3 cells of rc + skin an axis) to
+(one driving NEP or Tersoff-1989 potential, where several `potential`
+lines in dump_observer's observe mode drive with the first, an ensemble
+of DENSE_ENSEMBLES, no fix/move group, no deform, no add_force-type
+term, no HNEMDEC, no per-step stress or Onsager observer, no deposition
+and no plumed, a box of >= 3 cells of rc + skin an axis) to
 DenseNEPMD or CompactTersoffMD, whose steps launch the hand-written CUDA
 kernels on the card; anything else runs the general (list) path,
 ForceField + integrate/run.py, and the log says why
@@ -61,7 +63,12 @@ import torch
 
 from gpumd_tpu_torch.bench import prepare_device
 from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
-from gpumd_tpu_torch.engine.nep_compact import CompactSpec, plan_grid_compact
+from gpumd_tpu_torch.elements import MASS_TABLE
+from gpumd_tpu_torch.engine.nep_compact import (
+    CompactSpec,
+    compact_nep_compute,
+    plan_grid_compact,
+)
 from gpumd_tpu_torch.engine.tersoff_compact import CompactTersoffMD
 from gpumd_tpu_torch.forcefield import ForceField, hnemdec_coefficients
 from gpumd_tpu_torch.integrate.drivers import (
@@ -112,6 +119,8 @@ from gpumd_tpu_torch.integrate.velocity import (
     initialize_velocity,
 )
 from gpumd_tpu_torch.io.xyz import XYZFrame, read_xyz, write_xyz
+from gpumd_tpu_torch.measure.netcdf_dump import DumpNetCDF
+from gpumd_tpu_torch.measure.plumed_bridge import PlumedBridge
 from gpumd_tpu_torch.measure.properties import (
     ADF,
     DOS,
@@ -184,11 +193,6 @@ DENSE_ENSEMBLES = (
 # run.in keywords of the JAX app whose modules are not ported yet, and the
 # ROADMAP queue 1 item that ports each
 UNPORTED = {
-    # item 6: the rest of the app surface
-    **{kw: 6 for kw in (
-        "compute_cohesive", "compute_elastic", "change_box", "deposit",
-        "dump_observer", "active", "compute_extrapolation", "dump_cg",
-        "dump_dipole", "dump_polarizability", "plumed", "dump_netcdf")},
     # item 8: measure (the tight-binding transport solver)
     "compute_lsqt": 8,
     # item 10: MC, minimize, phonon
@@ -299,6 +303,10 @@ class PropertyRequest:
     # samples per-atom virials (the compact engine must not spread the
     # total over the atoms)
     needs_atom_virial: bool = False
+    # replaces session.state (plumed's bias, deposit's new atoms): the list
+    # path hands the next chunk that state and rebuilds its lists; the
+    # compact engine does not take it
+    mutates_state: bool = False
 
 
 def _bounded_chunk(interval_gcd: int, n_steps: int) -> int:
@@ -359,6 +367,10 @@ def _dense_blocker(session, ens) -> Optional[str]:
                "add_spring drivers"
     if session.ff is not None and session.ff.hnemdec_mode is not None:
         return "compute_hnemdec"
+    if getattr(session, "_deposit", None) is not None:
+        return "deposition source"
+    if any(p.mutates_state for p in session.properties):
+        return "state-mutating property (plumed)"
     if any(getattr(m, "needs_stress", False) for m in session.measure_props):
         return "per-step stress observer"
     if any(getattr(m, "needs_onsager", False)
@@ -379,10 +391,13 @@ def dense_route_reason(session, ens, device) -> Optional[str]:
     if torch.device(device).type != "cuda":
         return ("CPU device (the kernels' plain versions run slower than "
                 "the list path there)")
-    if len(session.potentials) != 1:
-        return (f"{len(session.potentials)} potentials (the compact engine "
+    driving = session.driving_potentials()
+    if len(driving) != 1:
+        averaged = (" averaged" if getattr(session.ff, "average", False)
+                    else "")
+        return (f"{len(driving)} potentials{averaged} (the compact engine "
                 f"drives one)")
-    pot = session.potentials[0]
+    pot = driving[0]
     if isinstance(pot, NEP):
         try:
             CompactSpec.from_model(pot.model, pot.params)
@@ -449,6 +464,16 @@ class Session:
         self._n = frame.n_atoms
         self._files: Dict[str, object] = {}
         self._kspace_method = "pppm"  # qNEP's k-space (the `kspace` keyword)
+        # several `potential` lines: potential 0 drives and the others are
+        # observed ("observe"), or the forces are averaged ("average"), as
+        # dump_observer sets it (ref: force.cu:211-217)
+        self.observer_mode = "observe"
+        self._deposit = None  # the `deposit` keyword's request
+        # (engine, carry) of the compact run at a chunk's end, for the
+        # observers that evaluate on its plan and lists
+        self._dense_eval_ctx = None
+        self.observer_compact_evals = 0  # observer passes on the kernels
+        self._observer_specs: Dict[int, Optional[CompactSpec]] = {}
 
     # ------------------------------------------------------------------ utils
 
@@ -496,11 +521,6 @@ class Session:
     # -------------------------------------------------------------- keywords
 
     def kw_potential(self, args):
-        if self.potentials:
-            # several potentials drive in the reference's observe/average
-            # modes, which need dump_observer
-            raise _not_ported("a second potential (dump_observer's "
-                              "observe/average modes)", 6)
         path = os.path.join(self.workdir, args[0])
         with open(path) as f:
             head = f.readline().split()
@@ -551,7 +571,10 @@ class Session:
         self.potentials.append(pot)
         vel = (self.frame.velocities * TIME_UNIT_CONVERSION
                if self.frame.velocities is not None else None)
-        self.state = self._make_state(velocity=vel)
+        state = self._make_state(velocity=vel)
+        if self.state is not None:  # a later potential keeps the velocities
+            state = state._replace(velocity=self.state.velocity)
+        self.state = state
         self._rebuild_ff()
         self.log(f"potential: {name} ({path})")
 
@@ -578,11 +601,35 @@ class Session:
             self.frame.positions[:n], labels[:n], _np(self.box.h),
             self.frame.pbc, pot.intra_rc))
 
+    def observer_models(self) -> list:
+        """The potentials of the `potential` lines (dftd3's term, which
+        adds to the driving model, left out)."""
+        return [p for p in self.potentials if not isinstance(p, DFTD3)]
+
+    def driving_potentials(self) -> list:
+        """What the force pass sums: with several `potential` lines in
+        observe mode (the default) potential 0 and any dftd3 term, else
+        every potential (averaged in average mode)."""
+        models = self.observer_models()
+        if len(models) > 1 and self.observer_mode == "observe":
+            return models[:1] + [p for p in self.potentials
+                                 if isinstance(p, DFTD3)]
+        return list(self.potentials)
+
+    def _force_field(self, box: Box, skin: float = 1.0) -> ForceField:
+        """The force field of the driving potentials on `box` (ref:
+        force.cu:211-217), its list sized for every potential loaded."""
+        ff = ForceField.create(
+            self.driving_potentials(), box, self._n,
+            mn=_auto_mn(self.potentials, self._n, box,
+                        self.frame.positions, self.frame.pbc), skin=skin)
+        if len(self.observer_models()) > 1 and \
+                self.observer_mode == "average":
+            ff = dataclasses.replace(ff, average=True)
+        return ff
+
     def _rebuild_ff(self):
-        self.ff = ForceField.create(
-            self.potentials, self.box, self._n,
-            mn=_auto_mn(self.potentials, self._n, self.box,
-                        self.frame.positions, self.frame.pbc), skin=1.0)
+        self.ff = self._force_field(self.box)
 
     def kw_velocity(self, args):
         self._require_state()
@@ -1253,14 +1300,17 @@ class Session:
     # ----------------------------------------------------------- the route
 
     def _run_dense(self, n_steps, ens):
-        """MD block on the compact engine (one NEP or Tersoff-1989
+        """MD block on the compact engine (one driving NEP or Tersoff-1989
         potential); properties observe input-order snapshots at chunk
-        boundaries, SHC accumulates on the card inside the chunk."""
-        if len(self.potentials) != 1 or not isinstance(
-                self.potentials[0], (NEP, Tersoff1989)):
+        boundaries, SHC accumulates on the card inside the chunk, and
+        dump_observer's models evaluate on the chunk end's plan and
+        lists (`_dense_eval_ctx`)."""
+        driving = self.driving_potentials()
+        if len(driving) != 1 or not isinstance(driving[0],
+                                               (NEP, Tersoff1989)):
             raise ValueError("engine dense: exactly one driving NEP or "
                              "Tersoff1989 potential")
-        pot = self.potentials[0]
+        pot = driving[0]
         needs_heat = any(getattr(m, "needs_heat", False)
                          for m in self.measure_props)
         needs_av = any(getattr(m, "needs_atom_virial", False)
@@ -1338,12 +1388,14 @@ class Session:
                     raise RuntimeError(f"non-finite potential energy at "
                                        f"step {self.global_step}")
                 self.state = snap
+                self._dense_eval_ctx = (md, carry)
                 for prop in self.properties:
                     if done % prop.interval == 0:
                         prop.process(self, snap, self.global_step)
                 for m in host_props:
                     if done % m.interval == 0 and hasattr(m, "sample_state"):
                         m.sample_state(self, snap, self.global_step)
+        self._dense_eval_ctx = None
         wall = time.time() - t0
         self.run_seconds.append(wall)
         self.log(f"Speed of this run = {n * n_steps / max(wall, 1e-9):.5g} "
@@ -1385,12 +1437,14 @@ class Session:
             p._replace(temperature=float(t_tgt))
             if isinstance(p, NEP) and p.model.model_type == 3 else p
             for p in self.potentials]
-        self.ff = dataclasses.replace(self.ff,
-                                      potentials=tuple(self.potentials))
+        self.ff = dataclasses.replace(
+            self.ff, potentials=tuple(self.driving_potentials()))
 
     def kw_run(self, args):
         self._require_state()
         n_steps = int(args[0])
+        if self._deposit is not None:
+            self._prepare_deposit(n_steps)
         if self.ensemble is None:
             self.ensemble = NVE()
         self._ens_aux = None
@@ -1552,6 +1606,12 @@ class Session:
                 if done % prop.interval == 0:
                     prop.process(self, state, self.global_step)
                     state = self.state  # processors may replace it
+                    if prop.mutates_state and cache is not None:
+                        # atoms switched on or moved: fresh lists for the
+                        # next force pass
+                        fresh = self.ff.refresh_cache(state)
+                        cache = fresh._replace(
+                            peak=torch.maximum(cache.peak, fresh.peak))
         if state.position.is_cuda:
             torch.cuda.synchronize()
         wall = time.time() - t0
@@ -2078,8 +2138,8 @@ class Session:
                            if isinstance(p, NEPCharge) else p
                            for p in self.potentials]
         if self.ff is not None:
-            self.ff = dataclasses.replace(self.ff,
-                                          potentials=tuple(self.potentials))
+            self.ff = dataclasses.replace(
+                self.ff, potentials=tuple(self.driving_potentials()))
         self.log(f"kspace {method}")
 
     def _charge_model(self, what: str) -> NEPCharge:
@@ -2154,6 +2214,624 @@ class Session:
 
         self.properties.append(PropertyRequest(interval, process))
         self.log(f"compute_es {args}")
+
+    # ------------------------------------------- observers and TNEP outputs
+
+    def kw_dump_observer(self, args):
+        """dump_observer observe|average thermo_int exyz_int has_vel
+        has_force (ref: dump_observer.cu:81-130): every model of the
+        `potential` lines evaluated on the trajectory, observer<k>.out
+        thermo rows and observer<k>.xyz frames (a committee's disagreement
+        for active learning); average mode drives with the models' mean
+        and writes nothing of its own.  After a compact-engine chunk each
+        model that `_observer_spec` takes runs on the kernels with the
+        driving model's plan and lists; the others on the list path."""
+        mode = args[0]
+        if mode not in ("observe", "average"):
+            raise ValueError("observer mode should be 'observe' or 'average'")
+        self.observer_mode = mode
+        self._rebuild_ff()
+        int_thermo, int_exyz = int(args[1]), int(args[2])
+        with_vel, with_force = args[3] == "1", args[4] == "1"
+        if mode == "average":
+            self.log("dump_observer: average mode (forces averaged)")
+            return
+        files = {}
+
+        def process(session, state, step):
+            for k, pot in enumerate(session.observer_models()):
+                out = session._observe(k, pot, state)
+                name = f"observer{k}.out"
+                if name not in files:
+                    files[name] = session._file(name)
+                files[name].write("".join(f"{x:20.10e}"
+                                          for x in thermo_row(out)) + "\n")
+                files[name].flush()
+
+        def process_exyz(session, state, step):
+            n = session._n
+            for k, pot in enumerate(session.observer_models()):
+                out = session._observe(k, pot, state)
+                write_xyz(
+                    os.path.join(session.workdir, f"observer{k}.xyz"),
+                    XYZFrame(symbols=session.symbols,
+                             positions=_np(state.box.wrap(state.position))[:n],
+                             lattice=_np(state.box.h).T, pbc=session.frame.pbc,
+                             velocities=(_np(state.velocity)[:n]
+                                         / TIME_UNIT_CONVERSION
+                                         if with_vel else None),
+                             forces=(_np(out.force)[:n] if with_force
+                                     else None)),
+                    append=True, with_velocities=with_vel,
+                    with_forces=with_force)
+
+        self.properties.append(PropertyRequest(int_thermo, process))
+        self.properties.append(PropertyRequest(int_exyz, process_exyz))
+        self.log(f"dump_observer {args}")
+
+    def _observer_spec(self, k: int, pot) -> Optional[CompactSpec]:
+        """The compact spec on which observer model k rides the driving
+        model's plan and lists, or None; decided once a model.  It rides
+        them when it is a NEP the compact engine takes, of the driving
+        model's species, with cutoffs no larger than its: its cutoff
+        functions zero what lies beyond its own cutoffs, and the driving
+        model's rc + skin lists hold every pair it can see (ref:
+        dump_observer.cu:29-80, one neighbour pass for every model).  A
+        committee (one architecture, other weights) always qualifies."""
+        if k not in self._observer_specs:
+            self._observer_specs[k] = self._compact_spec(pot)
+        return self._observer_specs[k]
+
+    def _compact_spec(self, pot) -> Optional[CompactSpec]:
+        drv = self.driving_potentials()[0]
+        if not (isinstance(pot, NEP) and isinstance(drv, NEP)):
+            return None
+        if pot.model.model_type == 3 and pot.temperature is None:
+            return None
+        if not (tuple(pot.model.symbols) == tuple(drv.model.symbols)
+                and pot.model.rc_radial_max
+                <= drv.model.rc_radial_max + 1e-9
+                and pot.model.rc_angular_max
+                <= drv.model.rc_angular_max + 1e-9):
+            return None
+        try:
+            return CompactSpec.from_model(pot.model, pot.params)
+        except NotImplementedError:
+            return None
+
+    def _observe(self, k: int, pot, state: MDState) -> MDState:
+        """`state` with the forces, energies and virials of observer model
+        k: on the kernels through the last compact chunk's plan and lists
+        where _observer_spec takes the model (the total virial on atom 0,
+        what the thermo row reads), else on a fresh list (at the model's
+        own cutoff where it lies past the plan's)."""
+        ctx = self._dense_eval_ctx
+        spec = None if ctx is None else self._observer_spec(k, pot)
+        if spec is None:
+            with torch.no_grad():
+                return self.ff._evaluate_with(state, pot)
+        md, carry = ctx
+        c = carry.state
+        with torch.no_grad():
+            out = compact_nep_compute(
+                c.position, c.type, c.mask, c.box, md.cplan, carry.idx,
+                pot.model, pot.params, per_atom_virial=False,
+                temperature=pot.temperature, spec=spec,
+                plain=md.plain)
+        self.observer_compact_evals += 1
+        n = self._n
+        oid = carry.orig_id
+        valid = oid < n
+        inv = torch.zeros(n, dtype=torch.int64, device=oid.device)
+        inv[oid[valid]] = torch.nonzero(valid)[:, 0]
+        w = torch.zeros_like(state.virial)
+        w[0] = out.virial_total
+        return state._replace(force=out.force[inv],
+                              potential_energy=out.energy[inv] * state.mask,
+                              virial=w,
+                              heat_current=torch.zeros_like(state.force))
+
+    def kw_active(self, args):
+        """active check_interval has_velocity has_force has_uncertainty
+        threshold (ref: active.cu:118-170): the force uncertainty of the
+        loaded committee, sqrt of the per-atom population variance summed
+        over x, y, z; its largest value into active.out every check, and
+        the frame into active.xyz above the threshold.  has_uncertainty is
+        read and not used, as in the JAX app."""
+        interval = int(args[0])
+        with_vel, with_force = args[1] == "1", args[2] == "1"
+        threshold = float(args[4])
+        if len(self.observer_models()) < 2:
+            raise ValueError("active learning needs >= 2 potentials")
+        f = self._file("active.out")
+
+        def process(session, state, step):
+            n = session._n
+            with torch.no_grad():
+                forces = torch.stack([
+                    session.ff._evaluate_with(state, pot).force[:n]
+                    for pot in session.observer_models()]).to(torch.float64)
+            unc = torch.sqrt(torch.sum(torch.var(forces, dim=0,
+                                                 unbiased=False), dim=-1))
+            max_unc = float(torch.max(unc))
+            if max_unc > threshold:
+                write_xyz(
+                    os.path.join(session.workdir, "active.xyz"),
+                    XYZFrame(symbols=session.symbols,
+                             positions=_np(state.box.wrap(state.position))[:n],
+                             lattice=_np(state.box.h).T, pbc=session.frame.pbc,
+                             velocities=(_np(state.velocity)[:n]
+                                         / TIME_UNIT_CONVERSION
+                                         if with_vel else None),
+                             forces=_np(forces[0]) if with_force else None),
+                    append=True, with_velocities=with_vel,
+                    with_forces=with_force,
+                    extra_info={"uncertainty": f"{max_unc:.6f}"})
+            f.write(f"{step} {max_unc:g}\n")
+            f.flush()
+
+        self.properties.append(PropertyRequest(interval, process))
+        self.log(f"active {args}")
+
+    def kw_compute_extrapolation(self, args):
+        """compute_extrapolation asi_file <f> gamma_low x gamma_high x
+        [check_interval n] [dump_interval n] -> extrapolation_dump.xyz
+        (ref: extrapolation.cu:44-240): gamma_i = max |ASI[type_i] B_i|,
+        B_i atom i's gradient of its energy by its element's ANN
+        parameters (NEP.b_projection); a structure with max gamma at or
+        above gamma_low is dumped (at most once a dump_interval), one
+        above gamma_high is dumped and ends the run."""
+        kw = {"check_interval": 1, "dump_interval": 1, "gamma_low": 0.0,
+              "gamma_high": 1e100}
+        asi_file = None
+        for key, val in _pairs(args, "compute_extrapolation"):
+            if key == "asi_file":
+                asi_file = val
+            elif key in ("gamma_low", "gamma_high"):
+                kw[key] = float(val)
+            elif key in ("check_interval", "dump_interval"):
+                kw[key] = int(val)
+            else:
+                raise ValueError(f"compute_extrapolation: bad token {key!r}")
+        if asi_file is None:
+            raise ValueError("compute_extrapolation needs asi_file")
+        nep = self.ff.potentials[0]
+        if not hasattr(nep, "b_projection"):
+            raise ValueError("compute_extrapolation requires a NEP potential")
+        bsize = nep.model.neurons * (nep.model.dim + 2)
+        # blocks "Element shape1 shape2 <shape1 * shape2 numbers>"
+        with open(os.path.join(self.workdir, asi_file)) as fa:
+            toks = fa.read().split()
+        asi = np.zeros((len(self.type_names), bsize, bsize))
+        p = 0
+        while p < len(toks):
+            s1, s2 = int(toks[p + 1]), int(toks[p + 2])
+            if (s1, s2) != (bsize, bsize):
+                raise ValueError(f"ASI for {toks[p]}: shape {(s1, s2)} != "
+                                 f"({bsize},{bsize})")
+            asi[self.type_names.index(toks[p])] = np.asarray(
+                toks[p + 3:p + 3 + s1 * s2], np.float64).reshape(s1, s2)
+            p += 3 + s1 * s2
+        # the matrices in float32, as the JAX app holds them
+        asi_t = torch.as_tensor(asi.astype(np.float32), dtype=self.dtype,
+                                device=self.device)
+        last = {"dump": -(10 ** 9)}
+        fdump = self._file("extrapolation_dump.xyz")
+
+        def gamma_of(session, state):
+            st, nbr = session._fresh_list(state)
+            typ = st.type.long()
+            b = nep.b_projection(nbr.r12, st.type, st.type[nbr.idx.long()])
+            g = torch.zeros_like(b)
+            for t in range(asi_t.shape[0]):
+                g = g + (b @ asi_t[t].T) * (typ == t)[:, None]
+            return torch.amax(torch.abs(g), dim=-1) * st.mask
+
+        def process(session, state, step):
+            with torch.no_grad():
+                gamma = _np(gamma_of(session, state))
+            mg = float(gamma.max())
+            if mg >= kw["gamma_low"] and (
+                    step == 0 or step - last["dump"] >= kw["dump_interval"]):
+                last["dump"] = step
+                session._dump_gamma(fdump, state, gamma, mg)
+            if mg > kw["gamma_high"]:
+                session._dump_gamma(fdump, state, gamma, mg)
+                raise RuntimeError(
+                    f"extrapolation grade {mg:.4f} exceeds gamma_high at "
+                    f"step {step}; terminating (ref: extrapolation.cu:207)")
+
+        self.properties.append(PropertyRequest(kw["check_interval"], process))
+        self.log(f"compute_extrapolation {args}")
+
+    def _dump_gamma(self, f, state, gamma, max_gamma):
+        mask = _np(state.mask) > 0
+        pos = _np(state.position)[mask]
+        types = _np(state.type).astype(np.int64)[mask]
+        h = _np(state.box.h)
+        pbc = " ".join("T" if p else "F" for p in _np(state.box.pbc) > 0)
+        lat = " ".join(f"{h[i, j]:.8f}" for j in range(3) for i in range(3))
+        f.write(f"{int(mask.sum())}\n")
+        f.write(f'max_gamma={max_gamma:.8f} pbc="{pbc}" Lattice="{lat}" '
+                "Properties=species:S:1:pos:R:3:gamma:R:1\n")
+        for t, r, g in zip(types, pos, gamma[mask]):
+            f.write(f"{self.type_names[t]} {r[0]:.8f} {r[1]:.8f} "
+                    f"{r[2]:.8f} {g:8f}\n")
+        f.flush()
+
+    def _tnep(self, model_type: int, what: str):
+        pot = next((p for p in self.potentials
+                    if getattr(getattr(p, "model", None), "model_type", 0)
+                    == model_type), None)
+        if pot is None:
+            raise ValueError(what)
+        return pot
+
+    def kw_dump_dipole(self, args):
+        """dump_dipole interval -> dipole.out: the loaded *_dipole model's
+        global dipole on the trajectory (ref: dump_dipole.cu)."""
+        interval = int(args[0])
+        tnep = self._tnep(1, "dump_dipole needs a loaded *_dipole potential")
+        f = self._file("dipole.out")
+
+        def process(session, state, step):
+            st, nbr = session._fresh_list(state)
+            mu = _np(tnep.dipole(st.type, nbr, st.mask))
+            f.write(f"{step}" + "".join(f"{x:20.10e}" for x in mu) + "\n")
+            f.flush()
+
+        self.properties.append(PropertyRequest(interval, process))
+        self.log(f"dump_dipole every {interval}")
+
+    def kw_dump_polarizability(self, args):
+        """dump_polarizability interval -> polarizability.out: the loaded
+        *_polarizability model's tensor, xx yy zz xy yz xz
+        (ref: dump_polarizability.cu)."""
+        interval = int(args[0])
+        tnep = self._tnep(
+            2, "dump_polarizability needs a *_polarizability potential")
+        f = self._file("polarizability.out")
+
+        def process(session, state, step):
+            st, nbr = session._fresh_list(state)
+            p = _np(tnep.polarizability(st.type, nbr, st.mask))
+            row = [p[0, 0], p[1, 1], p[2, 2], p[0, 1], p[1, 2], p[0, 2]]
+            f.write(f"{step}" + "".join(f"{x:20.10e}" for x in row) + "\n")
+            f.flush()
+
+        self.properties.append(PropertyRequest(interval, process))
+        self.log(f"dump_polarizability every {interval}")
+
+    # ------------------------------------------------------ the box tools
+
+    def _box_energies(self, ff, boxes_positions):
+        """Each (box, positions)'s total potential energy, summed in
+        float64 on the state's device and read once."""
+        out = []
+        with torch.no_grad():
+            for box, pos in boxes_positions:
+                st = ff.compute(self.state._replace(position=pos, box=box))
+                out.append(torch.sum(st.potential_energy.to(torch.float64)
+                                     * st.mask))
+        return _np(torch.stack(out))
+
+    def kw_compute_cohesive(self, args):
+        """compute_cohesive start end d -> cohesive.out: the energy at
+        scale factors from start to end, 1000 points a unit factor
+        (ref: cohesive.cu:110-240); d 0 scales every axis, d 1-3 the x, y
+        or z component.  The cell is scaled as the positions are,
+        diag(s) h, so the atoms stay an affine image of the cell on a
+        triclinic one (the JAX app scales its lattice vectors there)."""
+        self._require_state()
+        start, end, d = float(args[0]), float(args[1]), int(args[2])
+        num_points = round((end - start) * 1000) + 1
+        factors = np.linspace(start, end, num_points)
+        st = self.state
+        base_h, base_pos = st.box.h, st.position
+        # one neighbour plan, sized for the most compressed cell
+        ff = self._force_field(st.box.with_h(base_h * min(start, end)),
+                               skin=0.0)
+
+        def geometry(fac):
+            scale = torch.ones(3, dtype=base_h.dtype, device=base_h.device)
+            if d == 0:
+                scale.fill_(fac)
+            else:
+                scale[(d - 1) % 3] = fac
+            return (st.box.with_h(scale[:, None] * base_h),
+                    base_pos * scale[None, :])
+
+        energies = self._box_energies(ff, [geometry(x) for x in factors])
+        f = self._file("cohesive.out")
+        for fac, e in zip(factors, energies):
+            f.write(f"{fac:15.7e}{e:15.7e}\n")
+        f.flush()
+        self.log(f"compute_cohesive: {num_points} points written")
+
+    def kw_compute_elastic(self, args):
+        """compute_elastic strain cubic -> elastic.out: C11, C12 and C44
+        from the energy's curvature under uniaxial, biaxial and shear
+        strains (ref: cohesive.cu:151-340), energies in float64."""
+        self._require_state()
+        strain = float(args[0])
+        st = self.state
+        v0 = float(st.box.volume)
+
+        def energy(defm):
+            dm = torch.as_tensor(defm, dtype=st.box.h.dtype,
+                                 device=st.box.h.device)
+            box = st.box.with_h(dm @ st.box.h)
+            return float(self._box_energies(self._force_field(box, 0.0), [
+                (box, st.position @ dm.T)])[0])
+
+        e0 = energy(np.eye(3))
+
+        def curvature(pairs):
+            dp, dm = np.eye(3), np.eye(3)
+            for i, j in pairs:
+                dp[i, j] += strain
+                dm[i, j] -= strain
+            return (energy(dp) + energy(dm) - 2 * e0) / strain ** 2 / v0 \
+                * PRESSURE_UNIT_CONVERSION
+
+        c11 = curvature([(0, 0)])  # d2E/de_xx^2 = C11 V
+        c12 = (curvature([(0, 0), (1, 1)]) - 2 * c11) / 2.0  # 2 C11 + 2 C12
+        c44 = curvature([(0, 1), (1, 0)]) / 4.0  # 4 C44 (gamma = 2 e_xy)
+        f = self._file("elastic.out")
+        f.write("# Elastic Constants (GPa): C11 C12 C44\n")
+        f.write(f"{c11:10.3f} {c12:10.3f} {c44:10.3f}\n")
+        f.flush()
+        self.log(f"compute_elastic: C11={c11:.1f} C12={c12:.1f} "
+                 f"C44={c44:.1f} GPa")
+
+    def kw_change_box(self, args):
+        """change_box dxx | dxx dyy dzz | dxx dyy dzz eyz exz exy
+        (ref: run.cu:712-810): diagonal entries are length changes in A,
+        off-diagonals strains; the positions deform affinely with the cell,
+        and the force field is planned anew for the new cell (the JAX app
+        keeps the old cell grid, whose cells a large compression narrows
+        below rc + skin)."""
+        self._require_state()
+        d = np.zeros((3, 3))
+        d[0, 0] = float(args[0])
+        if len(args) >= 3:
+            d[1, 1], d[2, 2] = float(args[1]), float(args[2])
+        else:
+            d[1, 1] = d[2, 2] = d[0, 0]
+        if len(args) == 6:
+            d[1, 2] = d[2, 1] = float(args[3])
+            d[0, 2] = d[2, 0] = float(args[4])
+            d[0, 1] = d[1, 0] = float(args[5])
+        h = _np(self.state.box.h)
+        for k in range(3):
+            d[k, k] = (h[k, k] + d[k, k]) / h[k, k]
+        self.box = Box.from_lattice((d @ h).T, pbc=self.frame.pbc,
+                                    dtype=self.dtype, device=self.device)
+        dm = torch.as_tensor(d, dtype=self.dtype, device=self.device)
+        st = self.state
+        self.state = st._replace(
+            position=st.position @ dm.T, box=self.box,
+            unwrapped_position=(st.unwrapped_position @ dm.T
+                                if st.unwrapped_position is not None
+                                else None))
+        self._rebuild_ff()
+        self.log(f"change_box {args}")
+
+    # ------------------------------------------- deposition, CG, NetCDF
+
+    def kw_deposit(self, args):
+        """deposit interval direction hmin hmax atom type number velocity
+        (ref: deposition.cu:48-170, 440-470): every `interval` steps
+        `number` atoms of `type` appear at random lateral positions, the
+        deposition axis coordinate in [hmin, hmax], moving at `velocity`
+        (natural units) along it.  The state is padded with masked atoms
+        at a run's start and a deposition switches them on; the positions
+        come from numpy's default_rng(777), as in the JAX app."""
+        if args[4] != "atom":
+            raise ValueError("deposit: only 'atom' mode supported")
+        self._deposit = dict(
+            interval=int(args[0]), direction=int(args[1]),
+            hmin=float(args[2]), hmax=float(args[3]), type=int(args[5]),
+            number=int(args[6]), velocity=float(args[7]), next_slot=None,
+            rng=np.random.default_rng(777))
+        self.log(f"deposit {args}")
+
+    def _prepare_deposit(self, n_steps):
+        """Pad the state with this run's deposited atoms (masked), the
+        group labels with -1, and register the activation."""
+        dep = self._deposit
+        need = (n_steps // dep["interval"]) * dep["number"]
+        if need <= 0:
+            return
+        st = self.state
+        mass_new = MASS_TABLE.get(self.type_names[dep["type"]], 1.0)
+
+        def pad(a, fill=0.0):
+            if a is None:
+                return None
+            return torch.cat([a, torch.full((need,) + tuple(a.shape[1:]),
+                                            fill, dtype=a.dtype,
+                                            device=a.device)])
+
+        self.state = st._replace(
+            position=pad(st.position), velocity=pad(st.velocity),
+            force=pad(st.force), mass=pad(st.mass, mass_new),
+            type=pad(st.type, dep["type"]),
+            potential_energy=pad(st.potential_energy),
+            virial=pad(st.virial), heat_current=pad(st.heat_current),
+            mask=pad(st.mask), charge=pad(st.charge),
+            unwrapped_position=pad(st.unwrapped_position),
+            position_c=pad(st.position_c), velocity_c=pad(st.velocity_c))
+        self.symbols = list(self.symbols) + [self.type_names[dep["type"]]
+                                             ] * need
+        if self.groups.n_methods:
+            self.groups.labels = np.pad(self.groups.labels,
+                                        ((0, need), (0, 0)),
+                                        constant_values=-1)
+        dep["next_slot"] = self._n
+        self._n += need
+        self._rebuild_ff()
+
+        def process(session, state, step):
+            s0, k = dep["next_slot"], dep["number"]
+            if s0 + k > session._n:
+                return
+            rng = dep["rng"]
+            h = _np(state.box.h)
+            axis = dep["direction"]
+            new = np.zeros((k, 3))
+            for m in range(k):
+                new[m] = [rng.random() * h[0, 0], rng.random() * h[1, 1],
+                          rng.random() * h[2, 2]]
+                new[m, axis] = (dep["hmin"]
+                                + rng.random() * (dep["hmax"] - dep["hmin"]))
+            vel = np.zeros((k, 3))
+            vel[:, axis] = dep["velocity"]
+            pos, v, mask = (state.position.clone(), state.velocity.clone(),
+                            state.mask.clone())
+            pos[s0:s0 + k] = torch.as_tensor(new, dtype=pos.dtype)
+            v[s0:s0 + k] = torch.as_tensor(vel, dtype=v.dtype)
+            mask[s0:s0 + k] = 1.0
+            dep["next_slot"] = s0 + k
+            session.state = state._replace(position=pos, velocity=v,
+                                           mask=mask)
+
+        self.properties.append(PropertyRequest(dep["interval"], process,
+                                               mutates_state=True))
+
+    def kw_dump_cg(self, args):
+        """dump_cg interval grouping_method -> train.xyz frames of
+        coarse-grained beads, a group a bead (ref: dump_cg.cu): the beads'
+        centres of mass, their forces, the energy and the virial averaged
+        over the window, the virial plus the missing degrees of freedom's
+        ideal-gas term (N - beads) k_B T.  The sums run every step in
+        float64 on the state's device and come back once a window."""
+        interval, gm = int(args[0]), int(args[1])
+        f64 = torch.float64
+        onehot = self.groups.onehot(gm, dtype=f64, device=self.device)
+        nbeads = onehot.shape[1]
+        labels = self.groups.labels[:, gm]
+        # a bead's species: its first member's (ref: dump_cg.cu:352)
+        first_sym = [self.symbols[int(np.nonzero(labels == b)[0][0])]
+                     for b in range(nbeads)]
+        acc = {"n": 0}
+        fout = self._file("train.xyz")
+
+        def process(session, state, step):
+            n = onehot.shape[0]
+            m = state.mask[:n].to(f64)
+            sums = torch.cat([
+                (onehot.T @ state.force[:n].to(f64)).reshape(-1),
+                torch.sum(state.potential_energy[:n].to(f64) * m)[None],
+                torch.sum(state.virial[:n].to(f64) * m[:, None, None],
+                          dim=0).reshape(-1)])
+            acc["sum"] = sums if acc["n"] == 0 else acc["sum"] + sums
+            acc["n"] += 1
+            if acc["n"] % interval:
+                return
+            inv = 1.0 / acc["n"]
+            mass = state.mass[:n].to(f64)
+            pos = (state.unwrapped_position
+                   if state.unwrapped_position is not None
+                   else state.position)[:n].to(f64)
+            com = (onehot.T @ (mass[:, None] * pos)) / (onehot.T @ mass
+                                                         )[:, None]
+            vals = _np(torch.cat([acc["sum"], com.reshape(-1),
+                                  torch.sum(m)[None], state.box.h.reshape(
+                                      -1).to(f64)]))
+            nf = 3 * nbeads
+            fb = vals[:nf].reshape(nbeads, 3) * inv
+            e = vals[nf] * inv
+            w = vals[nf + 1:nf + 10].reshape(3, 3) * inv
+            com = vals[nf + 10:nf + 10 + nf].reshape(nbeads, 3)
+            n_real = int(round(vals[2 * nf + 10]))
+            h = vals[2 * nf + 11:].reshape(3, 3)
+            extra = (n_real - nbeads) * K_B * session._ensemble_temperature()
+            w = w + extra * np.eye(3)
+            pbc = " ".join("T" if p else "F" for p in _np(state.box.pbc) > 0)
+            lat = " ".join(f"{h[i, j]:.8f}" for j in range(3)
+                           for i in range(3))
+            fout.write(f"{nbeads}\n")
+            fout.write(f'pbc="{pbc}" Lattice="{lat}" energy={e:.8f} '
+                       f'virial="{" ".join(f"{x:.8f}" for x in w.ravel())}" '
+                       "Properties=species:S:1:pos:R:3:forces:R:3\n")
+            for b in range(nbeads):
+                fout.write(f"{first_sym[b]} {com[b, 0]:.8f} "
+                           f"{com[b, 1]:.8f} {com[b, 2]:.8f} "
+                           f"{fb[b, 0]:.8f} {fb[b, 1]:.8f} "
+                           f"{fb[b, 2]:.8f}\n")
+            fout.flush()
+            acc["n"] = 0
+
+        self.properties.append(PropertyRequest(1, process))
+        self.log(f"dump_cg {args}")
+
+    def kw_dump_netcdf(self, args):
+        """dump_netcdf grouping_method group_id interval has_velocity file
+        [precision single|double] [compression N] -> an AMBER NetCDF
+        trajectory (ref: dump_netcdf.cu:86-200), written at a run's end
+        through scipy's NetCDF-3 writer (compression, a NetCDF-4 feature,
+        is ignored)."""
+        method, gid, interval = int(args[0]), int(args[1]), int(args[2])
+        has_vel = int(args[3]) == 1
+        precision = "double"
+        for key, val in _pairs(args[5:], "dump_netcdf"):
+            if key == "precision":
+                precision = val
+            elif key == "compression":
+                self.log("dump_netcdf: compression ignored (NetCDF-3)")
+            else:
+                raise ValueError(f"unknown dump_netcdf token {key!r}")
+        dumper = DumpNetCDF(os.path.join(self.workdir, args[4]), has_vel,
+                            precision, grouping_method=method, group_id=gid)
+
+        def process(session, state, step):
+            n = session._n
+            pick = (session.groups.labels[:n, method] == gid if method >= 0
+                    else np.ones(n, bool))
+            pos = _np(state.position)[:n][pick]
+            types = _np(state.type).astype(np.int64)[:n][pick]
+            vel = _np(state.velocity)[:n][pick] if has_vel else None
+            t_ps = step * session.dt / 1000.0 * TIME_UNIT_CONVERSION
+            dumper.add_frame(t_ps, pos, types, _np(state.box.h), vel)
+
+        def finalize(session):
+            dumper.write()
+            session.log(f"dump_netcdf: {len(dumper.frames)} frames -> "
+                        f"{dumper.path}")
+
+        self.properties.append(PropertyRequest(interval, process, finalize))
+
+    def kw_plumed(self, args):
+        """plumed <dat_file> <interval> <restart>: an enhanced-sampling bias
+        from libplumed, loaded at run time (ref: plumed.cu:108-131); the
+        bias forces replace the state's and the per-atom virials are
+        rescaled at every call, as the reference does.  Without libplumed
+        it raises the reference's "PLUMED not installed!"."""
+        self._require_state()
+        dat, interval, restart = args[0], int(args[1]), int(args[2]) == 1
+        n = self._n
+        bridge = PlumedBridge(
+            os.path.join(self.workdir, dat), interval, restart, n,
+            _np(self.state.mass)[:n], self.dt,
+            getattr(self.ensemble, "temperature", 300.0))
+
+        def process(session, state, step):
+            f_new, v_new, _ = bridge.compute(
+                _np(state.position)[:n], _np(state.force)[:n],
+                _np(state.box.h), _np(state.virial)[:n])
+            force, virial = state.force.clone(), state.virial.clone()
+            force[:n] = torch.as_tensor(f_new, dtype=force.dtype)
+            virial[:n] = torch.as_tensor(v_new, dtype=virial.dtype)
+            session.state = state._replace(force=force, virial=virial)
+
+        def finalize(session):
+            bridge.finalize()
+
+        self.properties.append(PropertyRequest(
+            interval, process, finalize, needs_atom_virial=True,
+            mutates_state=True))
+        self.log(f"plumed {args}")
 
     # --------------------------------------------------------------- drivers
 
@@ -2278,6 +2956,18 @@ class Session:
         "kspace": kw_kspace,
         "compute_dpdt": kw_compute_dpdt,
         "compute_es": kw_compute_es,
+        "dump_observer": kw_dump_observer,
+        "active": kw_active,
+        "compute_extrapolation": kw_compute_extrapolation,
+        "dump_dipole": kw_dump_dipole,
+        "dump_polarizability": kw_dump_polarizability,
+        "compute_cohesive": kw_compute_cohesive,
+        "compute_elastic": kw_compute_elastic,
+        "change_box": kw_change_box,
+        "deposit": kw_deposit,
+        "dump_cg": kw_dump_cg,
+        "dump_netcdf": kw_dump_netcdf,
+        "plumed": kw_plumed,
         "run": kw_run,
     }
 

@@ -200,10 +200,16 @@ class ForceField:
 
     def _evaluate_with(self, state: MDState, pot) -> MDState:
         """ONE potential on a fresh neighbour list (the dump_observer's
-        per-observer pass, ref: dump_observer.cu)."""
+        per-observer pass, ref: dump_observer.cu).  A potential whose
+        cutoff lies beyond the plan's rc + skin gets a plan at its own
+        cutoff, so no pair it sees is left out of its list."""
         _pin_fp32(state.position)
         pos = state.box.wrap(state.position)
-        nbr = self.neighbor.build(pos, state.box, state.mask)
+        cfg = self.neighbor
+        if pot.rc > cfg.rc:
+            cfg = NeighborConfig.create(state.box, pot.rc,
+                                        state.position.shape[0], cfg.mn)
+        nbr = cfg.build(pos, state.box, state.mask)
         out = _dispatch(pot, state._replace(position=pos), nbr, True)
         j = torch.einsum("nab,nb->na", out.virial, state.velocity)
         return state._replace(position=pos, force=out.force,

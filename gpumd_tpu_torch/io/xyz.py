@@ -12,9 +12,11 @@ src/model/read_xyz.cu:163-330 and src/main_nep/structure.cu):
           weight=... energy_weight=... temperature=... config_type=...
   lines 3..N+2: whitespace-separated columns per Properties.
 
-A pure-numpy host module.  Only the Python row parser is here: the JAX
-package's C++ fast path for large frames (gpumd_tpu/native/xyz_native.cpp)
-gives the same frames and is not ported yet.
+A numpy host module.  Frames of NATIVE_MIN_ROWS atoms or more are parsed
+by the C++ row parser (gpumd_tpu_torch/native/xyz_native.cpp, built with
+g++ at first use), as the JAX package parses them; a frame it cannot
+parse (a token that is not a number, a short row) falls through to the
+Python rows, which report the fault.
 """
 
 from __future__ import annotations
@@ -113,8 +115,55 @@ def read_xyz(path: str) -> XYZFrame:
     return read_xyz_frames(path, max_frames=1)[0]
 
 
+# the native row parser takes frames of at least this many atoms (the
+# Python loop costs ~5 us a token, the C strtod loop ~20 ns)
+NATIVE_MIN_ROWS = 4096
+
+
+def _parse_native(n: int, props, body: List[str]):
+    """(symbols, arrays) from the C++ row parser, or None when a row does
+    not parse."""
+    import ctypes
+
+    from gpumd_tpu_torch.native import xyz_native
+
+    n_cols = sum(count for _, _, count in props)
+    species_col, col = -1, 0
+    for name, _, count in props:
+        if name == "species":
+            species_col = col
+        col += count
+    buf = "".join(body).encode()
+    species = ctypes.create_string_buffer(max(n * 16, 16))
+    numeric = np.empty((n, n_cols - (species_col >= 0)), np.float64)
+    got = xyz_native().xyz_parse_mem(
+        buf, len(buf), n, n_cols, species_col, species,
+        numeric.ctypes.data_as(ctypes.c_void_p))
+    if got != n:
+        return None
+    symbols: List[str] = []
+    if species_col >= 0:
+        symbols = np.frombuffer(species.raw[:n * 16], dtype="S16").astype(
+            "U15").tolist()
+    arrays: Dict[str, np.ndarray] = {}
+    col = 0
+    for name, typ, count in props:
+        if name == "species":
+            continue
+        arr = numeric[:, col:col + count]
+        col += count
+        if typ == "I":
+            arr = arr.astype(np.int64)
+        arrays[name] = arr if count > 1 or name == "group" else arr[:, 0]
+    return symbols, arrays
+
+
 def _parse_body(props, body: List[str]):
     """Atom-line columns -> (symbols, arrays)."""
+    if len(body) >= NATIVE_MIN_ROWS:
+        parsed = _parse_native(len(body), props, body)
+        if parsed is not None:
+            return parsed
     symbols: List[str] = []
     arrays: Dict[str, np.ndarray] = {}
     cols = [ln.split() for ln in body]

@@ -182,13 +182,18 @@ def neighbor_brute(position: torch.Tensor, box: Box, mask: torch.Tensor, *,
     return NeighborList(idx=idx, r12=r12, mask=smask, count=count)
 
 
-def _bin_atoms(position, box: Box, mask, grid):
+def _bin_atoms(position, box: Box, mask, grid, shifts: bool = False):
     """Cell coordinates (N, 3) int64 and cell ids (padding atoms in the
     overflow cell nx*ny*nz); fractional coordinates wrapped along periodic
-    directions."""
+    directions.  With `shifts`, also the integer lattice shift (N, 3) that
+    moves an atom lying on a face, within rounding, to the image its cell
+    holds: s = -1e-18 wraps to 1.0, the last cell, and s = 1.0 to 0, the
+    first, so such an atom moves by a lattice vector and the
+    displacements taken from cell offsets stay exact.  An atom off the
+    faces does not move (the JAX package moves none)."""
     nx, ny, nz = grid
-    s = box.fractional(position)
-    s = s - torch.floor(s) * box.pbc.to(s.dtype)
+    s_raw = box.fractional(position)
+    s = s_raw - torch.floor(s_raw) * box.pbc.to(s_raw.dtype)
     gridf = torch.as_tensor(grid, dtype=s.dtype, device=s.device)
     hi = torch.as_tensor([nx - 1, ny - 1, nz - 1], device=s.device)
     cell_xyz = torch.clamp(torch.floor(s * gridf).long(), min=0)
@@ -196,6 +201,10 @@ def _bin_atoms(position, box: Box, mask, grid):
     cell_id = (cell_xyz[:, 2] * ny + cell_xyz[:, 1]) * nx + cell_xyz[:, 0]
     cell_id = torch.where(mask > 0, cell_id,
                           torch.full_like(cell_id, nx * ny * nz))
+    if shifts:
+        tol = 64 * torch.finfo(s_raw.dtype).eps
+        on_face = torch.abs(s_raw - torch.round(s_raw)) <= tol
+        return cell_xyz, cell_id, torch.round(s - s_raw) * on_face
     return cell_xyz, cell_id
 
 
@@ -278,8 +287,13 @@ def neighbor_cell_dense(position: torch.Tensor, box: Box, mask: torch.Tensor,
     n_cells = nx * ny * nz
     nslots = n_cells * cell_cap
 
-    # binning (stable sort: the slot layout is the JAX package's)
-    _, cell_id = _bin_atoms(position, box, mask, grid)
+    # binning (stable sort: the slot layout is the JAX package's); an atom
+    # on a face moved to the image its cell holds
+    _, cell_id, lat = _bin_atoms(position, box, mask, grid, shifts=True)
+    h = box.h.to(dtype)
+    position = position + torch.stack(
+        [lat[:, 0] * h[k, 0] + lat[:, 1] * h[k, 1] + lat[:, 2] * h[k, 2]
+         for k in range(3)], dim=-1)
     order = torch.argsort(cell_id, stable=True)
     sorted_cell = cell_id[order]
     cell_start = torch.searchsorted(sorted_cell,
@@ -307,7 +321,6 @@ def neighbor_cell_dense(position: torch.Tensor, box: Box, mask: torch.Tensor,
     coords = (coords[2], coords[1], coords[0])  # x, y, z cell coordinates
     dims = (nx, ny, nz)
     pbc = box.pbc.tolist()
-    h = box.h.to(dtype)
     eye = torch.eye(cell_cap, dtype=torch.bool, device=dev)
     valid2 = torch.empty((nslots, 27, cell_cap), dtype=torch.bool,
                          device=dev)

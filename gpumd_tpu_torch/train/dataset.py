@@ -13,6 +13,11 @@ fields it carries `rev`, the mirror slot of every pair within its config
 forces by a gather, whose order is fixed, where the JAX package uses
 segment_sum: index_add_ on the card sums in no fixed order, and a resumed
 gnep run would drift from a straight one.
+
+A qNEP batch (charge_mode > 0) also carries the positions as given, the
+total charge and Born effective charge labels, and each config's Ewald
+k-vectors and G(k) (potentials/nep/charge.py::ewald_kvectors on the
+lattice, alpha = pi / rc), padded with zeros to the batch's largest K.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 
 from gpumd_tpu_torch.io.xyz import XYZFrame
 from gpumd_tpu_torch.neighbor.neighbor import NeighborList, build_reverse_map
+from gpumd_tpu_torch.potentials.nep.charge import ewald_kvectors
 
 
 class StructureBatch(NamedTuple):
@@ -50,6 +56,13 @@ class StructureBatch(NamedTuple):
     # rev[c, a, m] = a' * MN + m', the slot of config c holding the mirror
     # pair of slot (a, m); 0 on padded slots (masked by nbr_mask)
     rev: Optional[torch.Tensor] = None  # (C, A, MN) int64
+    # qNEP training extras (charge_mode > 0; None otherwise)
+    position: Optional[torch.Tensor] = None  # (C, A, 3) as given
+    charge_ref: Optional[torch.Tensor] = None  # (C,) total config charge
+    bec_ref: Optional[torch.Tensor] = None  # (C, A, 9) Born charges
+    has_bec: Optional[torch.Tensor] = None  # (C,)
+    kvec: Optional[torch.Tensor] = None  # (C, K, 3) Ewald k (zero padded)
+    gk: Optional[torch.Tensor] = None  # (C, K) G(k); 0 on padding
 
     @property
     def num_configs(self) -> int:
@@ -179,10 +192,6 @@ def batch_structures(
     With `trim` the slot columns that are padding in every row are cut
     (MN becomes the batch's largest neighbour count, rounded up to even):
     padded slots give exact zeros, so the numbers do not change."""
-    if charge_mode:
-        raise NotImplementedError(
-            "qNEP (charge_mode) training batches: not ported yet (ROADMAP "
-            "queue 1, item 9)")
     c = len(frames)
     a = max_atoms or max(f.n_atoms for f in frames)
     r12 = np.full((c, a, mn, 3), 1.0e5)
@@ -200,6 +209,12 @@ def batch_structures(
     energy_weight = np.ones((c,))
     avirial_ref = None  # allocated on the first adipole/apol column
     has_avirial = None
+    position = np.zeros((c, a, 3)) if charge_mode else None
+    charge_ref = np.zeros((c,)) if charge_mode else None
+    bec_ref = np.zeros((c, a, 9)) if charge_mode else None
+    has_bec = np.zeros((c,)) if charge_mode else None
+    kg_list = []
+    alpha_ewald = np.pi / rc  # ref: nep_charge.cu:207 alpha = pi/rc_radial
 
     sym_index = {s: i for i, s in enumerate(symbols)}
     for ci, f in enumerate(frames):
@@ -278,6 +293,25 @@ def batch_structures(
             weight[ci] = float(f.info["weight"])
         if "energy_weight" in f.info:
             energy_weight[ci] = float(f.info["energy_weight"])
+        if charge_mode:
+            position[ci, :n] = np.asarray(f.positions)
+            if "charge" in f.info:
+                charge_ref[ci] = float(f.info["charge"])
+            bec = f.arrays.get("bec") if f.arrays else None
+            if bec is not None:
+                bec_ref[ci, :n] = np.asarray(bec).reshape(n, 9)
+                has_bec[ci] = 1.0
+            lat = np.asarray(f.lattice, np.float64).reshape(3, 3)
+            kg_list.append(ewald_kvectors(lat.T, alpha_ewald))
+
+    kvec = gk = None
+    if charge_mode:
+        kmax = max(max(len(g) for _, g in kg_list), 1)
+        kvec = np.zeros((c, kmax, 3))
+        gk = np.zeros((c, kmax))
+        for ci, (ks, gs) in enumerate(kg_list):
+            kvec[ci, :len(gs)] = ks
+            gk[ci, :len(gs)] = gs
 
     if trim:
         width = int(nbr_mask.sum(-1).max())
@@ -308,4 +342,7 @@ def batch_structures(
         energy_ref=put(energy_ref), virial_ref=put(virial_ref),
         has_virial=put(has_virial), weight=put(weight),
         energy_weight=put(energy_weight), avirial_ref=put(avirial_ref),
-        has_avirial=put(has_avirial), rev=put(rev, torch.int64))
+        has_avirial=put(has_avirial), rev=put(rev, torch.int64),
+        position=put(position), charge_ref=put(charge_ref),
+        bec_ref=put(bec_ref), has_bec=put(has_bec), kvec=put(kvec),
+        gk=put(gk))

@@ -25,16 +25,20 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from gpumd_tpu_torch.potentials.nep.charge import two_head_energy_charge
 from gpumd_tpu_torch.potentials.nep.model import NEP
 from gpumd_tpu_torch.potentials.nep.params import NepModel, NepParams
 from gpumd_tpu_torch.train.dataset import StructureBatch
+from gpumd_tpu_torch.units import K_C, PI
 
 
 class ConfigOutput(NamedTuple):
     energy: torch.Tensor  # (C,) total energy
     force: torch.Tensor  # (C, A, 3)
     virial: torch.Tensor  # (C, 6) Voigt xx yy zz xy yz zx
-    # (the JAX package's qNEP fields qsum and bec come with the charge path)
+    # qNEP extras (None for plain models)
+    qsum: Optional[torch.Tensor] = None  # (C,) raw total predicted charge
+    bec: Optional[torch.Tensor] = None  # (C, A, 9) Born effective charges
     # per-atom tensorial observable for atomic_v TNEP training (C, A, 6)
     avirial: Optional[torch.Tensor] = None
 
@@ -151,12 +155,89 @@ def _batched_forward_tnep(model: NepModel, params: NepParams,
         avirial=av * mask[..., None])
 
 
-def _batched_forward_charge(model, params, batch):
-    """qNEP training forward (two-head ANN, Ewald electrostatics, Born
-    effective charges): not ported yet."""
-    raise NotImplementedError(
-        "qNEP (charge_mode) training: not ported yet (ROADMAP queue 1, "
-        "item 9)")
+def _batched_forward_charge(model: NepModel, params: NepParams,
+                            batch: StructureBatch) -> ConfigOutput:
+    """qNEP training forward: the two-head ANN, the charges shifted to each
+    config's total, the erfc real-space pairs (charge_mode 1) and the
+    reciprocal Ewald sum; forces from one vjp over r12 and the positions
+    as separate leaves, the analytic reciprocal virial, the raw charge
+    sums and the Born effective charges in the bond-centred gauge times
+    sqrt(eps_inf) for the lambda_q / lambda_z losses (ref: main_nep/
+    nep_charge.cu find_force_charge_real_space:930-1005,
+    find_k_and_G:1020-1086, zero_total_charge:1088-1123,
+    find_bec_*:356-630).  torch.func throughout, so SNES maps it over the
+    population as it maps the plain forward."""
+    alpha = PI / model.rc_radial_max
+    rc = model.rc_radial_max
+    c, a, mn, _ = batch.r12.shape
+    dtype = batch.r12.dtype
+    mask = batch.mask.to(dtype)
+    nbr_mask = batch.nbr_mask.to(dtype)
+    t1 = batch.type.reshape(c * a)
+    t2 = _pair_types(batch).reshape(c * a, mn)
+    na = torch.clamp(torch.sum(mask, dim=1), min=1.0)  # (C,)
+    flat_idx = batch.idx.reshape(c, a * mn).long()
+    kvec, gk = batch.kvec.to(dtype), batch.gk.to(dtype)
+
+    def heads(r12):
+        e, q = two_head_energy_charge(model, params,
+                                      r12.reshape(c * a, mn, 3), t1, t2)
+        return e.reshape(c, a), q.reshape(c, a) * mask
+
+    def total_energy(r12, pos):
+        e_nep, q_raw = heads(r12)
+        # shift so the config total matches the reference total charge
+        q = (q_raw + ((batch.charge_ref - torch.sum(q_raw, dim=1))
+                      / na)[:, None]) * mask
+        if model.charge_mode == 1:
+            d = torch.sqrt(torch.clamp(torch.sum(r12 * r12, dim=-1),
+                                       min=1e-12))
+            q_j = torch.gather(q, 1, flat_idx).reshape(c, a, mn)
+            pair = torch.where((d < rc) & (nbr_mask > 0),
+                               q[..., None] * q_j
+                               * torch.special.erfc(alpha * d) / d,
+                               torch.zeros_like(d))
+            e_real = K_C * (0.5 * torch.sum(pair, dim=-1)
+                            - (alpha / math.sqrt(PI)) * q * q)
+        else:
+            e_real = torch.zeros_like(q)
+        kr = torch.einsum("cax,ckx->cak", pos, kvec)
+        s_re = torch.sum(q[..., None] * torch.cos(kr), dim=1)
+        s_im = -torch.sum(q[..., None] * torch.sin(kr), dim=1)
+        e_rec = K_C * torch.sum(gk * (s_re ** 2 + s_im ** 2), dim=1)
+        e_tot = torch.sum((e_nep + e_real) * mask, dim=1) + e_rec
+        return e_tot, (torch.sum(q_raw, dim=1), q, s_re, s_im)
+
+    e_tot, vjp, (qsum, q, s_re, s_im) = torch.func.vjp(
+        total_energy, batch.r12, batch.position, has_aux=True)
+    p, dpos = vjp(torch.ones_like(e_tot))
+    force = (torch.sum(p, dim=2) - torch.sum(_mirror(p, batch), dim=2)
+             - dpos) * mask[..., None]
+    rm = batch.r12 * nbr_mask[..., None]
+    w = -torch.einsum("camx,camy->cxy", rm, p)
+    # analytic reciprocal virial (ref: ewald.cu find_virial_reciprocal;
+    # the expression of NEPCharge.compute_with_state)
+    ksq = torch.clamp(torch.sum(kvec * kvec, dim=-1), min=1e-12)
+    pref = K_C * gk * (s_re ** 2 + s_im ** 2)  # (C, K)
+    eye = torch.eye(3, dtype=dtype, device=p.device)
+    w_rec = (torch.sum(pref, dim=1)[:, None, None] * eye
+             - torch.einsum("ck,cka,ckb->cab", pref * 2.0 * (
+                 1.0 / ksq + 1.0 / (4.0 * alpha ** 2)), kvec, kvec))
+    w = w + w_rec
+
+    # Born effective charges, bond-centred gauge (ref: find_bec_*)
+    _, qvjp = torch.func.vjp(lambda r: heads(r)[1], batch.r12)
+    (y,) = qvjp(torch.ones_like(mask))
+    b = (0.5 * batch.r12[..., :, None] * y[..., None, :]
+         * nbr_mask[..., None, None]).reshape(c, a, mn, 9)
+    rows = batch.rev.reshape(c, a * mn, 1).expand(-1, -1, 9)
+    b_rev = torch.gather(b.reshape(c, a * mn, 9), 1, rows).reshape(
+        c, a, mn, 9) * nbr_mask[..., None]
+    bec = (torch.sum(b, dim=2) - torch.sum(b_rev, dim=2)
+           + q[..., None] * eye.reshape(9)) * params.sqrt_epsilon_inf.to(
+               dtype)
+    return ConfigOutput(energy=e_tot, force=force, virial=_voigt(w),
+                        qsum=qsum, bec=bec)
 
 
 class LossWeights(NamedTuple):

@@ -232,15 +232,15 @@ def test_unknown_keyword_raises_value_error(tmp_path):
 
 
 @pytest.mark.parametrize("example, item", [
-    ("potential lj.txt\ndump_cg 10 cg.txt\nrun 10\n", 6),
-    ("01_argon_melt", 6),
+    ("potential lj.txt\nminimize sd 1e-6 100\nrun 10\n", 10),
+    ("potential lj.txt\nmc canonical 10 10 300 300\nrun 10\n", 10),
     ("potential lj.txt\ncompute_lsqt x 10 100 -5 5 6\nrun 10\n", 8)])
 def test_unported_keywords_name_their_item(tmp_path, example, item):
-    """`dump_cg` and examples/01's `dump_netcdf` (item 6) and
-    `compute_lsqt` (item 8) raise NotImplementedError naming their ROADMAP
-    item, before any run (every potential header is ported: a `dp` file
-    without deepmd-kit raises its RuntimeError, tests/
-    test_torch_fcp_dp.py)."""
+    """`minimize` and `mc` (item 10) and `compute_lsqt` (item 8) raise
+    NotImplementedError naming their ROADMAP item, before any run (every
+    potential header is ported: a `dp` file without deepmd-kit raises its
+    RuntimeError, tests/test_torch_fcp_dp.py; the item-6 keywords run,
+    tests/test_torch_app_surface.py)."""
     path = ROOT / "examples" / example / "run.in"
     lines = path.read_text() if "\n" not in example else example
     d = _deck_dir(tmp_path, lines, {"dp.txt": "dp 1 Si\n"})
@@ -251,13 +251,16 @@ def test_unported_keywords_name_their_item(tmp_path, example, item):
 
 
 def test_every_jax_keyword_is_ported_or_raises():
-    """The JAX app's 62 keywords: 46 ported, the rest raise with their
-    item; the two tables do not overlap."""
+    """The JAX app's 62 keywords: 58 ported, the other four (the LSQT
+    solver, item 8; minimize, mc and compute_phonon, item 10) raise with
+    their item; the two tables do not overlap."""
     jk, tk = set(japp.Session.KEYWORDS), set(tapp.Session.KEYWORDS)
-    assert len(jk) == 62 and len(tk) == 46 and tk <= jk
-    assert set(tapp.UNPORTED) == jk - tk
-    assert set(tapp.UNPORTED.values()) <= {6, 8, 10}
-    assert {"dftd3", "kspace", "compute_dpdt", "compute_es"} <= tk
+    assert len(jk) == 62 and len(tk) == 58 and tk <= jk
+    assert set(tapp.UNPORTED) == jk - tk == {
+        "compute_lsqt", "minimize", "mc", "compute_phonon"}
+    assert set(tapp.UNPORTED.values()) == {8, 10}
+    assert {"dftd3", "kspace", "compute_dpdt", "compute_es",
+            "dump_observer", "active", "plumed", "deposit"} <= tk
 
 
 @pytest.mark.skipif(__import__("torch").cuda.is_available(),

@@ -5,7 +5,8 @@ app, on the CPU.
 nothing launched: a NEP or Tersoff-1989 deck under each of the compact
 engine's ensembles goes to the compact engine; LJ, drivers, fix, move
 and a box under 3 cells an axis go to the list path with their reason,
-HNEMDEC too (a second potential raises at its keyword: not ported); on
+HNEMDEC and two averaged potentials too (two in observe mode drive with
+the first, on the compact engine); on
 the CPU device every deck takes the list path.  Then decks run under `engine dense` (the port's compact engine on
 its kernels' plain versions) against the JAX app's `engine list` (the
 JAX package holds its list path against its compact engine in its own
@@ -151,14 +152,17 @@ def test_list_route_for_lj_hnemdec_two_potentials_thin_box(tmp_path,
                        "potential nep.txt\ncompute_hnemdec 1 1 1e-4 0 0\n")
     assert tapp.dense_route_reason(hnemdec, tnve.NVE(),
                                    "cuda") == "compute_hnemdec"
-    # a second potential line (dump_observer's observe/average modes,
-    # ROADMAP queue 1, item 6) is not ported: its keyword raises before
-    # any route is asked
-    write_pbte(tmp_path / "two")
-    (tmp_path / "two" / "run.in").write_text("potential nep.txt\n" * 2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tapp.Session(str(tmp_path / "two"), quiet=True,
-                     device="cpu").execute()
+    # a second potential line: in observe mode (the default) potential 0
+    # drives on the compact engine and the other is observed; averaged,
+    # the two drive on the list path
+    two = _session(tmp_path / "two", write_pbte, "potential nep.txt\n" * 2)
+    assert len(two.potentials) == 2 and len(two.ff.potentials) == 1
+    assert tapp.dense_route_reason(two, tnve.NVE(), "cuda") is None
+    avg = _session(tmp_path / "avg", write_pbte, "potential nep.txt\n" * 2
+                   + "dump_observer average 1 1 0 0\n")
+    assert avg.ff.average and len(avg.ff.potentials) == 2
+    assert tapp.dense_route_reason(avg, tnve.NVE(), "cuda") == (
+        "2 potentials averaged (the compact engine drives one)")
 
 
 def test_engine_dense_refuses_what_it_cannot_carry(tmp_path):

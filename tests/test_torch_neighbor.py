@@ -274,3 +274,48 @@ def test_num_replicas_for_cutoff(lat, pbc, rc):
         want = jreps(JBox.from_lattice(lat, pbc=pbc), rc)
     assert num_replicas_for_cutoff(
         Box.from_lattice(lat, pbc=pbc, device="cpu"), rc) == want
+
+
+def _pairs(nbr):
+    idx, m = nbr.idx, np.asarray(nbr.mask) > 0
+    rows = np.repeat(np.arange(idx.shape[0])[:, None], idx.shape[1], 1)
+    return set(zip(rows[m].tolist(), np.asarray(idx)[m].tolist()))
+
+
+def test_cell_dense_on_a_sheared_lattice():
+    """An unjittered fcc lattice in a sheared cell (x' = x + 0.01 y, y' = y
+    + 0.01 x): rounding puts atoms of the x = 0 face at s = -1e-18, whose
+    wrap is 1.0 and whose cell is the last one.  The port's dense cell list
+    moves such an atom with its cell and finds every pair brute force
+    finds, with the same displacements; the JAX package's misses pairs
+    (ROADMAP queue 3)."""
+    frac, _ = _fcc((6, 6, 6), 4.0, 0.0, 0)
+    shear = np.eye(3)
+    shear[0, 1] = shear[1, 0] = 0.01
+    lat = (shear @ np.diag([24.0] * 3)).T  # rows a, b, c
+    pos = frac @ lat
+    n, rc, mn = len(pos), 4.5, 80
+    box = Box.from_lattice(lat, dtype=torch.float64, device="cpu")
+    tpos = torch.as_tensor(pos)
+    mask = torch.ones(n, dtype=torch.float64)
+    assert float(box.fractional(tpos).min()) < 0.0  # the face's rounding
+    grid = TN.choose_grid(box, rc)
+    cell = TN.neighbor_cell_dense(tpos, box, mask, rc=rc, mn=mn, grid=grid,
+                                  cell_cap=16)
+    brute = TN.neighbor_brute(tpos, box, mask, rc=rc, mn=mn,
+                              reps=num_replicas_for_cutoff(box, rc))
+    assert _pairs(cell) == _pairs(brute) and int(cell.count.sum()) == n * 18
+    d = {(i, j): tuple(np.round(cell.r12[i, k].numpy(), 9))
+         for i in range(n) for k, j in enumerate(cell.idx[i].tolist())
+         if cell.mask[i, k] > 0}
+    for i in range(n):
+        for k, j in enumerate(brute.idx[i].tolist()):
+            if brute.mask[i, k] > 0:
+                np.testing.assert_allclose(d[i, j], brute.r12[i, k].numpy(),
+                                           atol=1e-9)
+    with jax_oracle_state():
+        jbox = JBox.from_lattice(lat)
+        jcell = JN.neighbor_cell_dense(jnp.asarray(pos), jbox,
+                                       jnp.ones(n), rc=rc, mn=mn, grid=grid,
+                                       cell_cap=16)
+    assert int(np.asarray(jcell.count).sum()) < n * 18

@@ -275,9 +275,13 @@ def test_batch_structures_refuses():
     with pytest.raises(ValueError):
         TD.batch_structures(frames, ("Te",), rc=3.0, mn=8, max_atoms=1,
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TD.batch_structures(frames, ("Te",), rc=3.0, mn=8, charge_mode=1,
-                            device="cpu")
+    # a qNEP batch (ported with the charge path) carries its k-vectors;
+    # a plain one none
+    qb = TD.batch_structures(frames, ("Te",), rc=3.0, mn=8, charge_mode=1,
+                             device="cpu")
+    assert qb.kvec.shape[0] == 1 and float(qb.gk.max()) > 0.0
+    plain = TD.batch_structures(frames, ("Te",), rc=3.0, mn=8, device="cpu")
+    assert plain.kvec is None and plain.position is None
 
 
 def test_padding_cut_leaves_the_forward(tmp_path):
