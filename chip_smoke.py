@@ -407,6 +407,28 @@ written with velocities drawn by numpy:
              not installed!"; the native reader against the Python rows
              on a 1,000,000-atom model.xyz (seconds of each, in a
              worker alone)
+ 18. last-keywords  the last run.in keywords and the MDI engine, each
+             deck against its CPU float64 run (in four worker processes
+             beside the card's work; the timings come last): (a)
+             minimize fire, sd and fire box 1 1 on LJ argon 4,000
+             rattled 0.1 A (6 steps), fire on NEP PbTe 4,096 jittered
+             0.1 A (2 steps): the same steps, U a atom within 1e-5 eV,
+             the cell within 1e-4 A; (b) compute_phonon on Si Tersoff
+             (2-atom cell, replicate 4 4 4, a Gamma-X-K-Gamma-L path):
+             omega^2 within 2e-3 of the largest, the acoustic branches
+             at Gamma under 0.1 (rad/ps)^2; (c) mc canonical (20,000 K)
+             and sgc (Pb 5 eV below Te) on PbTe 4,096, two blocks of 200
+             trials each: canonical keeps the composition, SGC moves it
+             to Pb; 20 swaps' local dE against the global dE in float64
+             on the card (1e-8 eV); (d) compute_lsqt on graphene 5,040
+             (pi) and diamond 4,096 (sp3, 16 slots a row), Tersoff
+             carbon driving: the three rows of every sample within
+             their bounds of a row's largest; (e) the MDI engine on LJ
+             argon 4,000 (energy, forces), serve() over loopback and
+             serve_libmdi through tests/mdi_stub.c (built with cc);
+             no hand-written kernel launched in (a)-(c); last, ms a
+             trial of a 200-trial block with its synchronizing
+             operations (the CUDA sync debug mode) and ms an LSQT sample
 
 Not among the default phases (ask for it with --phases):
 
@@ -429,7 +451,7 @@ Usage: python3 chip_smoke.py [--phases build,kernels,md,npt-md,
        hnemd-md,drift,list-md,train,time,dense-kernels,dense-md,dense-time,
        tersoff-kernels,tersoff-md,tersoff-time,probes,app,measure,
        ensembles,pimd-potentials,other-potentials,app-surface,
-       app-spread,ensembles-time]
+       last-keywords,app-spread,ensembles-time]
        [--parent DIR]
 Prints the kernels' JSON line, then, last, {"ok": true, "device": {...}}.
 A kernel's "launches" are those of the 200-step NVE run of its path;
@@ -6411,6 +6433,551 @@ def phase_app_surface(results):
     print(f"[app-surface] phase done in {time.time() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 18
+
+LK_LJ_CELLS = 10  # (a), (e): LJ argon 4,000
+LK_PBTE_CELLS = 8  # (a), (c): PbTe 4,096
+LK_RATTLE = 0.1  # A
+# (a) the minimizers' force tolerance and step caps: the caps end each
+# run (the CPU's float64 reference, in a worker beside three others,
+# took ~1.5 s a LJ pass and ~4.2 s a NEP pass on the H100's host), so the
+# card and the CPU take the same number of steps
+LK_FMAX = 1e-4
+LK_LJ_STEPS = 6
+LK_NEP_STEPS = 2
+LK_U_TOL = 1e-5  # eV/atom, the card's float32 against the CPU's float64
+LK_H_TOL = 1e-4  # A, fire box's cell
+# (b) omega^2 against the CPU's, of the largest; the acoustic branches at
+# Gamma in (rad/ps)^2
+LK_OMEGA_REL = 2e-3
+LK_ACOUSTIC = 0.1
+LK_KPOINTS = ("0 0 0 G\n0.5 0 0.5 X\n0.375 0.375 0.75 K\n0 0 0 G\n"
+              "0.5 0.5 0.5 L\n")
+# (c) MC: a block of LK_MC_TRIALS every 10 steps of 20; canonical hot
+# enough that some of the ~8-9 eV antisite swaps pass, SGC with Pb 5 eV
+# below Te (a Te -> Pb flip costs ~4.6 eV)
+LK_MC_TRIALS = 200
+LK_MC_DECKS = {
+    "canonical": "mc canonical 10 {n} 20000 20000\n",
+    "sgc": "mc sgc 10 {n} 300 300 2 Te 0 Pb -5\n"}
+LK_DE_SWAPS = 20
+LK_DE_TOL = 1e-8  # eV, float64 on the card
+# (d) LSQT decks: graphene 5,040 (pi) and diamond 4,096 (sp3), Tersoff
+# carbon driving the MD; the rows against the CPU's float64, of a row's
+# largest (velocity divides by the DOS)
+LK_LSQT = {
+    "graphene": ("compute_lsqt x 400 101 -8 8 9\n", 3),
+    "diamond": ("compute_lsqt x 100 101 -20 20 25 sp3\n", 2)}
+LK_LSQT_TOL = {"lsqt_dos.out": 2e-3, "lsqt_velocity.out": 1e-2,
+               "lsqt_sigma.out": 2e-3}
+LK_LSQT_FILES = tuple(LK_LSQT_TOL)
+LK_GRAPHENE = (35, 36)  # armchair cells of 4 atoms: 5,040
+LK_DIAMOND_CELLS = 8  # cubic cells of 8 atoms: 4,096
+# (e) MDI: energy a atom (eV) against the CPU's; forces LIST_F_TOL; two
+# float32 engines on the card alike (the force sums' atomic order)
+LK_MDI_E_TOL = 1e-6
+LK_MDI_SAME = 1e-5
+
+
+def _lk_argon(d, deck, rattle=LK_RATTLE):
+    """LJ argon LK_LJ_CELLS^3 fcc cells rattled by `rattle` A (no
+    velocities), the repo's lj.txt, and its deck."""
+    import shutil
+
+    from gpumd_tpu_torch.io.xyz import XYZFrame, write_xyz
+
+    a0, nc = 5.26, LK_LJ_CELLS
+    base = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5]])
+    cells = np.stack(np.meshgrid(*[np.arange(nc)] * 3, indexing="ij"),
+                     axis=-1).reshape(-1, 3)
+    pos = (cells[:, None, :] + base[None]).reshape(-1, 3) * a0
+    pos = pos + np.random.default_rng(12).normal(0, rattle, pos.shape)
+    d.mkdir(parents=True)
+    write_xyz(str(d / "model.xyz"), XYZFrame(
+        symbols=["Ar"] * len(pos), positions=pos,
+        lattice=np.diag([nc * a0] * 3), pbc=(True,) * 3))
+    shutil.copy(LJ_FILE, d / "lj.txt")
+    (d / "run.in").write_text(deck)
+    return pos
+
+
+def _lk_carbon(d, kind, deck):
+    """graphene (LK_GRAPHENE armchair cells, 1.42 A bonds, vacuum along z)
+    or diamond (LK_DIAMOND_CELLS^3 cubic cells, a0 3.567 A) carbon with
+    Tersoff-1989 C, and its deck."""
+    from gpumd_tpu_torch.io.xyz import XYZFrame, write_xyz
+    from gpumd_tpu_torch.potentials.sets import C_ROW
+
+    if kind == "graphene":
+        a = 1.42
+        h = np.sqrt(3) / 2 * a
+        cell = np.array([[0, 0, 0], [a, 0, 0], [1.5 * a, h, 0],
+                         [2.5 * a, h, 0]])
+        lx, ly = 3 * a, np.sqrt(3) * a
+        nx, ny = LK_GRAPHENE
+        pos = np.concatenate([cell + [i * lx, j * ly, 0.0]
+                              for i in range(nx) for j in range(ny)])
+        lattice, pbc = np.diag([nx * lx, ny * ly, 10.0]), (True, True, False)
+    else:
+        nc = LK_DIAMOND_CELLS
+        fcc = np.array([[0, 0, 0], [0, .5, .5], [.5, 0, .5], [.5, .5, 0]])
+        base = np.concatenate([fcc, fcc + 0.25])
+        cells = np.stack(np.meshgrid(*[np.arange(nc)] * 3, indexing="ij"),
+                         axis=-1).reshape(-1, 3)
+        pos = (cells[:, None, :] + base[None]).reshape(-1, 3) * 3.567
+        lattice, pbc = np.diag([nc * 3.567] * 3), (True,) * 3
+    d.mkdir(parents=True)
+    write_xyz(str(d / "model.xyz"), XYZFrame(
+        symbols=["C"] * len(pos), positions=pos, lattice=lattice, pbc=pbc))
+    (d / "c.txt").write_text(f"tersoff_1989 1 C\n{C_ROW}\n")
+    (d / "run.in").write_text(deck)
+    return len(pos)
+
+
+def _lk_silicon(d):
+    """Si's 2-atom primitive cell with the published Tersoff set, a
+    Gamma-X-K-Gamma-L path and the phonon deck (replicate 4 4 4)."""
+    from gpumd_tpu_torch.io.xyz import XYZFrame, write_xyz
+    from gpumd_tpu_torch.potentials.tersoff import SI_TERSOFF
+
+    lat = 0.5 * 5.431 * np.array([[0.0, 1, 1], [1, 0, 1], [1, 1, 0]])
+    d.mkdir(parents=True)
+    write_xyz(str(d / "model.xyz"), XYZFrame(
+        symbols=["Si", "Si"], positions=np.array([[0.0, 0, 0],
+                                                  lat.sum(0) / 4]),
+        lattice=lat, pbc=(True,) * 3))
+    (d / "si.txt").write_text(SI_TERSOFF)
+    (d / "kpoints.in").write_text(LK_KPOINTS)
+    (d / "run.in").write_text("potential si.txt\nreplicate 4 4 4\n"
+                              "compute_phonon 0.01\n")
+
+
+def _lk_run(d, device, dtype=None):
+    """d's deck through Session on `device`: (session, launch counts from
+    0, the log's `minimize` line or None)."""
+    import contextlib
+    import io
+
+    from gpumd_tpu_torch.app.gpumd import Session
+    from gpumd_tpu_torch.engine import cuda_build
+
+    s = Session(str(d), device=device, dtype=dtype)
+    cuda_build.reset_launches()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        s.execute()
+    if s.device.type == "cuda":
+        torch.cuda.synchronize()
+    line = next((ln for ln in log.getvalue().splitlines()
+                 if ln.startswith("minimize")), None)
+    return s, dict(cuda_build.launches), line
+
+
+def _lk_u(state):
+    """Potential energy a real atom, in float64."""
+    m = state.mask.double()
+    return float(torch.sum(state.potential_energy.double() * m) / m.sum())
+
+
+def _lk_submit(pool, d, what):
+    """d's deck copied to d/cpu now (before the card's run writes into d)
+    and its CPU reference submitted to a worker."""
+    import shutil
+
+    shutil.copytree(d, d / "cpu")
+    return d, pool.submit(_lk_cpu, str(d / "cpu"), what)
+
+
+def _lk_cpu(c, what):
+    """A CPU reference in a worker process: the deck in c run in float64
+    there; returns (the result, the worker's seconds).  `what`
+    "minimize": (the log's line, U a atom, h); "files": None, the outputs
+    stay in c; "mdi": the engine's energy a atom and forces."""
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    if what == "mdi":
+        from gpumd_tpu_torch.app.mdi import HARTREE, MDIEngine
+
+        eng = MDIEngine(c, device="cpu", dtype=torch.float64)
+        out = (eng.get_energy() * HARTREE / eng.get_natoms(),
+               eng.get_forces())
+    else:
+        s, _, line = _lk_run(Path(c), "cpu", torch.float64)
+        out = ((line, _lk_u(s.state), s.state.box.h.numpy())
+               if what == "minimize" else None)
+    return out, time.perf_counter() - t0
+
+
+def _lk_steps(line):
+    return int(re.search(r"(\d+) steps", line).group(1))
+
+
+def _lk_minimize(tmp, pool):
+    """(a): four decks on the card against their CPU float64 runs."""
+    decks = {  # the longest CPU reference first
+        "nep fire": f"minimize fire {LK_FMAX} {LK_NEP_STEPS}\n",
+        "fire": f"minimize fire {LK_FMAX} {LK_LJ_STEPS}\n",
+        "sd": f"minimize sd {LK_FMAX} {LK_LJ_STEPS}\n",
+        "fire box": f"minimize fire {LK_FMAX} {LK_LJ_STEPS} 1 1\n"}
+    futures = {}
+    for name, line in decks.items():
+        d = tmp / ("a_" + name.replace(" ", "_"))
+        if name.startswith("nep"):
+            _pbte_deck(d, LK_PBTE_CELLS, "potential nep.txt\n" + line,
+                       jitter=LK_RATTLE)
+        else:
+            _lk_argon(d, "potential lj.txt\n" + line)
+        futures[name] = _lk_submit(pool, d, "minimize")
+    return futures
+
+
+def _lk_minimize_check(futures):
+    for name, (d, fut) in futures.items():
+        t0 = time.perf_counter()
+        s, counts, line = _lk_run(d, "cuda")
+        t_card = time.perf_counter() - t0
+        _launch_check(f"(a) minimize {name}", counts, {},
+                      never=tuple(counts))
+        u, h = _lk_u(s.state), s.state.box.h.double().cpu().numpy()
+        (cline, cu, ch), t_cpu = fut.result()
+        du, dh = abs(u - cu), float(np.abs(h - ch).max())
+        print(f"[last-keywords] (a) {name} ({s._n} atoms): the card's "
+              f"'{line}' ({t_card:.2f} s, the deck), the CPU's float64 "
+              f"'{cline}' ({t_cpu:.1f} s in its worker); U {u:.10f} against "
+              f"{cu:.10f} eV/atom, |dU| {du:.2e} (bound {LK_U_TOL}), cell "
+              f"|dh| {dh:.2e} A (bound {LK_H_TOL})")
+        if _lk_steps(line) != _lk_steps(cline) or du > LK_U_TOL \
+                or dh > LK_H_TOL or not np.isfinite(u):
+            raise RuntimeError(f"(a) minimize {name} departs from the CPU")
+
+
+def _lk_phonon(tmp, pool):
+    d = tmp / "b_phonon"
+    _lk_silicon(d)
+    out = _lk_submit(pool, d, "files")
+    s, counts, _ = _lk_run(d, "cuda")
+    _launch_check("(b) compute_phonon", counts, {}, never=tuple(counts))
+    return out
+
+
+def _lk_phonon_check(d, fut):
+    _, t_cpu = fut.result()
+    got, want = (np.loadtxt(p / "omega2.out", comments="#")
+                 for p in (d, d / "cpu"))
+    head = [(p / "omega2.out").read_text().splitlines()[0]
+            for p in (d, d / "cpu")]
+    scale = np.abs(want[:, 1:]).max()
+    err = float(np.abs(got - want)[:, 1:].max() / scale)
+    acoustic = float(np.abs(got[0, 1:4]).max())
+    print(f"[last-keywords] (b) compute_phonon Si Tersoff 128 (replicate 4 "
+          f"4 4, 12 force passes): {got.shape[0]} k-points Gamma-X-K-Gamma-"
+          f"L; omega^2 at Gamma {np.round(got[0, 1:], 4).tolist()} "
+          f"(rad/ps)^2; against the CPU's float64 ({t_cpu:.1f} s in its "
+          f"worker) {err:.2e} of the largest "
+          f"{scale:.1f} (bound {LK_OMEGA_REL}); acoustic at Gamma "
+          f"{acoustic:.2e} (bound {LK_ACOUSTIC})")
+    if got.shape != (401, 7) or head[0] != head[1] or err > LK_OMEGA_REL \
+            or acoustic > LK_ACOUSTIC or not np.isfinite(got).all() \
+            or not (d / "D.out").exists():
+        raise RuntimeError("(b) compute_phonon departs from the CPU")
+
+
+def _lk_mc(tmp):
+    """(c): canonical and SGC decks through the app on the card; local dE
+    against global dE for LK_DE_SWAPS swaps in float64 on the card."""
+    from gpumd_tpu_torch.forcefield import ForceField
+    from gpumd_tpu_torch.io.xyz import read_xyz
+    from gpumd_tpu_torch.mc.mcmd import ClusterDelta, GlobalDelta
+    from gpumd_tpu_torch.model.box import Box
+    from gpumd_tpu_torch.model.state import make_state
+    from gpumd_tpu_torch.potentials.nep.model import NEP
+
+    sessions = {}
+    for kind, line in LK_MC_DECKS.items():
+        d = tmp / f"c_{kind}"
+        _pbte_deck(d, LK_PBTE_CELLS, "potential nep.txt\ntime_step 1\n"
+                   "ensemble nvt_ber 300 300 100\n"
+                   + line.format(n=LK_MC_TRIALS) + "run 20\n")
+        pb0 = read_xyz(str(d / "model.xyz")).symbols.count("Pb")
+        s, counts, _ = _lk_run(d, "cuda")
+        _launch_check(f"(c) mc {kind}", counts, {}, never=tuple(counts))
+        rows = np.atleast_2d(np.loadtxt(d / "mcmd.out"))
+        pb = int((s.state.type[:s._n] == 1).sum())
+        print(f"[last-keywords] (c) mc {kind} ({s._n} atoms, route "
+              f"{s.route_reason}): mcmd.out {rows.tolist()}; Pb {pb0} -> "
+              f"{pb}")
+        moved = pb == pb0 if kind == "canonical" else pb > pb0
+        if rows.shape[0] != 2 or not np.isfinite(rows).all() or not moved:
+            raise RuntimeError(f"(c) mc {kind}: composition {pb0} -> {pb}")
+        sessions[kind] = s
+    # the canonical run's last state in float64 on the card
+    s = sessions["canonical"]
+    n = s._n
+    nep = NEP.from_file(str(MODEL), dtype=torch.float64, device="cuda")
+    box = Box.from_lattice(_np64(s.state.box.h).T, device="cuda")
+    st = make_state(_np64(s.state.position)[:n], _np64(s.state.mass)[:n],
+                    s.state.type[:n].cpu().numpy(), box)
+    ff = ForceField.create([nep], box, n, mn=112)
+    local, glob = ClusterDelta(ff, nep, st), GlobalDelta(ff, st)
+    types = st.type
+    rng = np.random.default_rng(17)
+    t_h = types.cpu().numpy()
+    worst, des = 0.0, []
+    with torch.no_grad():
+        for _ in range(LK_DE_SWAPS):
+            i = int(rng.choice(np.flatnonzero(t_h == 0)))
+            j = int(rng.choice(np.flatnonzero(t_h == 1)))
+            sites = torch.as_tensor([i, j], device="cuda")
+            new = types.clone()
+            new[i], new[j] = types[j], types[i]
+            dl, dg = (float(f(types, new, sites)) for f in (local, glob))
+            worst = max(worst, abs(dl - dg))
+            des.append(dl)
+    print(f"[last-keywords] (c) {LK_DE_SWAPS} swaps, float64 on the card: "
+          f"local dE {min(des):.4f} to {max(des):.4f} eV, against the "
+          f"global dE at most {worst:.2e} eV (bound {LK_DE_TOL})")
+    if worst > LK_DE_TOL:
+        raise RuntimeError("(c) the local dE departs from the global dE")
+    return sessions
+
+
+def _lk_lsqt(tmp, pool):
+    futures = {}
+    for kind, (line, runs) in LK_LSQT.items():
+        d = tmp / f"d_{kind}"
+        _lk_carbon(d, kind, "potential c.txt\ntime_step 1\nensemble nve\n"
+                   + line + f"run {runs}\n")
+        futures[kind] = _lk_submit(pool, d, "files")
+    return futures
+
+
+def _lk_lsqt_check(futures):
+    from gpumd_tpu_torch.measure.lsqt import neighbor_rows
+
+    sessions = {}
+    for kind, (d, fut) in futures.items():
+        t0 = time.perf_counter()
+        s, counts, _ = _lk_run(d, "cuda")
+        t_card = time.perf_counter() - t0
+        _, t_cpu = fut.result()
+        worst = {}
+        for f in LK_LSQT_FILES:
+            a, b = (np.atleast_2d(np.loadtxt(p / f)) for p in (d, d / "cpu"))
+            if a.shape != b.shape or a.shape[0] != LK_LSQT[kind][1] \
+                    or not np.isfinite(a).all():
+                raise RuntimeError(f"(d) {kind}: {f} {a.shape} {b.shape}")
+            worst[f] = float(max(np.abs(x - y).max() / np.abs(y).max()
+                                 for x, y in zip(a, b)))
+        n = s._n
+        idx, _, mask = neighbor_rows(s.state.position[:n], s.state.box,
+                                     2.6 if kind == "diamond" else 2.1)
+        print(f"[last-keywords] (d) compute_lsqt {kind} ({n} atoms, route "
+              f"{s.route_reason}, launches "
+              f"{ {k: v for k, v in counts.items() if v} or 'none'}; the "
+              f"deck {t_card:.2f} s, the CPU's {t_cpu:.1f} s in its "
+              f"worker): "
+              f"list capacity {idx.shape[1]}, rows of "
+              f"{int(mask.sum(1).min())}-{int(mask.sum(1).max())}; against "
+              f"the CPU's float64 "
+              + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+              + f" of a row's largest (bounds {LK_LSQT_TOL})")
+        if any(v > LK_LSQT_TOL[k] for k, v in worst.items()) or (
+                kind == "diamond" and idx.shape[1] != 16):
+            raise RuntimeError(f"(d) compute_lsqt {kind} departs from the "
+                               f"CPU")
+        sessions[kind] = s
+    return sessions
+
+
+def _lk_mdi(tmp, pool):
+    d = tmp / "e_mdi"
+    pos = _lk_argon(d, "potential lj.txt\ntime_step 2\nensemble nve\n")
+    return (*_lk_submit(pool, d, "mdi"), pos)
+
+
+def _lk_mdi_check(tmp, d, fut, pos):
+    """(e): the engine against the CPU's, serve() over loopback, and
+    serve_libmdi through tests/mdi_stub.c."""
+    import json as _json
+    import os
+    import queue
+    import socket
+    import struct
+    import threading
+
+    from gpumd_tpu_torch.app import mdi
+
+    eng = mdi.MDIEngine(str(d), device="cuda")
+    n = eng.get_natoms()
+    e_start = eng.get_energy()
+    e_atom = e_start * mdi.HARTREE / n
+    f = eng.get_forces()
+    (ce, cf), t_cpu = fut.result()
+    f_err = float(np.abs(f - cf).max() / np.abs(cf).max())
+    print(f"[last-keywords] (e) MDIEngine LJ argon {n}: energy {e_atom:.8f} "
+          f"eV/atom, against the CPU's float64 ({t_cpu:.1f} s in its "
+          f"worker) {abs(e_atom - ce):.2e} "
+          f"(bound {LK_MDI_E_TOL}); forces {f_err:.2e} of the largest "
+          f"(bound {LIST_F_TOL})")
+    if abs(e_atom - ce) > LK_MDI_E_TOL or f_err > LIST_F_TOL:
+        raise RuntimeError("(e) the MDI engine departs from the CPU")
+    # serve(): the JSON protocol over loopback, a thread on the card
+    ports = queue.Queue()
+    server = threading.Thread(target=mdi.serve, kwargs=dict(
+        workdir=str(d), port=0, device="cuda", on_listen=ports.put),
+        daemon=True)
+    server.start()
+    moved = (pos + 0.05) / mdi.BOHR
+    with socket.create_connection(("127.0.0.1", ports.get(timeout=120))) \
+            as conn, conn.makefile("rw") as fh:
+        def ask(**msg):
+            fh.write(_json.dumps(msg) + "\n")
+            fh.flush()
+            return _json.loads(fh.readline())
+
+        natoms = ask(cmd="<NATOMS")["value"]
+        ok = ask(cmd=">COORDS", value=moved.tolist())
+        served = np.asarray(ask(cmd="<FORCES")["value"])
+        stepped = ask(cmd="@COORDS", n=5)
+        done = ask(cmd="EXIT")
+    server.join(timeout=120)
+    eng.set_coords(moved)
+    fm = eng.get_forces()
+    s_err = float(np.abs(served - fm).max() / np.abs(fm).max())
+    print(f"[last-keywords] (e) serve() over loopback: <NATOMS {natoms}, "
+          f">COORDS {ok}, <FORCES against the engine's {s_err:.2e} of the "
+          f"largest (bound {LK_MDI_SAME}), @COORDS 5 {stepped}, EXIT "
+          f"{done}; thread ended: {not server.is_alive()}")
+    if natoms != n or s_err > LK_MDI_SAME or server.is_alive() or done != {
+            "ok": True} or stepped != {"ok": True}:
+        raise RuntimeError("(e) serve() failed")
+    # serve_libmdi through the scripted MDI library
+    so = tmp / "libfake_mdi.so"
+    subprocess.run(["cc", "-shared", "-fPIC", "-o", str(so),
+                    str(ROOT / "tests" / "mdi_stub.c")], check=True)
+    rec = tmp / "mdi_record.bin"
+    saved = {k: os.environ.get(k) for k in ("FAKE_MDI_OUT", "FAKE_MDI_SEQ")}
+    os.environ["FAKE_MDI_OUT"] = str(rec)
+    os.environ["FAKE_MDI_SEQ"] = "<NATOMS,<FORCES,<ENERGY,EXIT"
+    try:
+        count = mdi.serve_libmdi(str(d), lib_path=str(so), device="cuda")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    data, off, msgs = rec.read_bytes(), 0, []
+    while off < len(data):
+        cnt, dt = struct.unpack_from("<ii", data, off)
+        size = cnt * (8 if dt == 1 else 4)
+        msgs.append(np.frombuffer(data[off + 8:off + 8 + size],
+                                  np.float64 if dt == 1 else np.int32))
+        off += 8 + size
+    l_err = float(np.abs(msgs[1].reshape(n, 3) - f).max()
+                  / np.abs(f).max())
+    le_err = abs(msgs[2][0] - e_start) / abs(e_start)
+    print(f"[last-keywords] (e) serve_libmdi through tests/mdi_stub.c: "
+          f"{count} commands, <NATOMS {int(msgs[0][0])}, <FORCES against "
+          f"the engine's first {l_err:.2e} of the largest, <ENERGY "
+          f"{msgs[2][0]:.8f} Hartree, {le_err:.2e} off (bounds "
+          f"{LK_MDI_SAME})")
+    if count != 4 or int(msgs[0][0]) != n or l_err > LK_MDI_SAME \
+            or le_err > LK_MDI_SAME:
+        raise RuntimeError("(e) serve_libmdi failed")
+
+
+def _lk_timings(mc_session, lsqt_sessions):
+    """ms a trial of a canonical block of LK_MC_TRIALS (the decks warmed
+    it up) and its synchronizing operations by the CUDA sync debug mode
+    (host reads and copies from host memory, each waiting for the card's
+    queue) with the three lines that made the most, and ms an LSQT
+    sample, with no worker busy."""
+    import collections
+    import os
+    import types as _types
+    import warnings
+
+    from gpumd_tpu_torch.mc.mcmd import MCMD
+    from gpumd_tpu_torch.measure.lsqt import LSQT
+
+    s = mc_session
+    mc = MCMD(kind="canonical", num_steps_md=10, num_steps_mc=LK_MC_TRIALS,
+              t_initial=20000.0, t_final=20000.0)
+    trials = mc.make_trials(s.ff)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            _, na = trials(s.state, 20000.0)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = collections.Counter(
+        f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    print(f"[last-keywords] (c) a canonical block of {LK_MC_TRIALS} trials "
+          f"at PbTe {s._n} (local dE, {na} accepted): {ms / LK_MC_TRIALS:.3f}"
+          f" ms a trial; {sum(syncs.values())} synchronizing operations a "
+          f"block (CUDA sync debug mode), most at "
+          f"{syncs.most_common(3) or 'none'}")
+    with tempfile.TemporaryDirectory() as out:
+        for kind, (line, _) in LK_LSQT.items():
+            t = line.split()
+            lsqt = LSQT(t[1], int(t[2]), int(t[3]), float(t[4]),
+                        float(t[5]), float(t[6]),
+                        dt=lsqt_sessions[kind].dt,
+                        rc=2.6 if kind == "diamond" else 2.1,
+                        model="sp3" if kind == "diamond" else "graphene")
+            st = lsqt_sessions[kind].state
+            sess = _types.SimpleNamespace(workdir=out)
+            lsqt.sample_state(sess, st, 0)  # the next one evolves
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lsqt.sample_state(sess, st, 1)
+            torch.cuda.synchronize()
+            print(f"[last-keywords] (d) an LSQT sample, {kind} "
+                  f"({lsqt_sessions[kind]._n} atoms, Nm {lsqt.nm}, "
+                  f"{lsqt._bessel.shape[0]} Bessel terms): "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+
+def phase_last_keywords(results):
+    """The last run.in keywords and the MDI engine (phase 18 of the
+    module docstring): (a) minimize, (b) compute_phonon, (c) mc, (d)
+    compute_lsqt, (e) MDI; the CPU float64 references in four worker
+    processes beside the card's work, the timings last."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
+            4, mp_context=multiprocessing.get_context("spawn")) as pool:
+        tmp = Path(tmp)
+        # the longest CPU references first
+        minimize = _lk_minimize(tmp, pool)
+        lsqt = _lk_lsqt(tmp, pool)
+        phonon = _lk_phonon(tmp, pool)
+        mdi_args = _lk_mdi(tmp, pool)
+        print(f"[last-keywords] decks written, (b) run on the card, at "
+              f"{time.time() - t0:.1f} s")
+        mc_sessions = _lk_mc(tmp)
+        print(f"[last-keywords] (c) done at {time.time() - t0:.1f} s")
+        _lk_minimize_check(minimize)
+        print(f"[last-keywords] (a) done at {time.time() - t0:.1f} s")
+        _lk_phonon_check(*phonon)
+        print(f"[last-keywords] (b) done at {time.time() - t0:.1f} s")
+        lsqt_sessions = _lk_lsqt_check(lsqt)
+        print(f"[last-keywords] (d) done at {time.time() - t0:.1f} s")
+        _lk_mdi_check(tmp, *mdi_args)
+        print(f"[last-keywords] (e) done at {time.time() - t0:.1f} s")
+        _lk_timings(mc_sessions["canonical"], lsqt_sessions)
+    print(f"[last-keywords] phase done in {time.time() - t0:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,md,npt-md,hnemd-md,"
@@ -6418,7 +6985,7 @@ def main():
                     "dense-time,"
                     "tersoff-kernels,tersoff-md,tersoff-time,probes,app,"
                     "measure,ensembles,pimd-potentials,other-potentials,"
-                    "app-surface")
+                    "app-surface,last-keywords")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: the probes "
                     "phase then times its blocked gather and its wrappers' "
@@ -6458,6 +7025,7 @@ def main():
                 ("pimd-potentials", phase_pimd_potentials),
                 ("other-potentials", phase_other_potentials),
                 ("app-surface", phase_app_surface),
+                ("last-keywords", phase_last_keywords),
                 ("ensembles-time", phase_ensembles_time),
                 ("app-spread", lambda r: phase_app_spread(r, pot_path))):
             if name in phases:

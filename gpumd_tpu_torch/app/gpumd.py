@@ -38,8 +38,14 @@ the capacity, and a row past it raises.  The measure keywords sample that
 snapshot (measure/properties.py); the list path's per-step observer adds
 the heat current, stress_6 and the Onsager fluxes its measures consume.
 
-Keywords whose modules are not ported raise NotImplementedError naming
-the ROADMAP item that ports them; an unknown keyword raises ValueError.
+Every keyword of the JAX app runs; `minimize` (minimize/minimizers.py),
+`compute_phonon` (phonon/hessian.py), `compute_lsqt` (measure/lsqt.py)
+and `mc` (mc/mcmd.py: a block of trials at every num_steps_md steps'
+chunk end, on the list path) run on the session's device through
+ForceField, and `python -m gpumd_tpu_torch.app.mdi` serves a deck to an
+external driver.  `engine dense N` with N > 1 (the slab-sharded engine)
+raises NotImplementedError naming ROADMAP queue 1, item 11; an unknown
+keyword raises ValueError.
 The session runs on the card unless the caller asks for the CPU
 (`device="cpu"`), and raises without a card.  Randomness comes from
 torch generators seeded from the keyword's seed; the stochastic ensembles
@@ -50,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import itertools
 import math
 import os
@@ -63,7 +70,7 @@ import torch
 
 from gpumd_tpu_torch.bench import prepare_device
 from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
-from gpumd_tpu_torch.elements import MASS_TABLE
+from gpumd_tpu_torch.elements import MASS_TABLE, mass_of
 from gpumd_tpu_torch.engine.nep_compact import (
     CompactSpec,
     compact_nep_compute,
@@ -119,6 +126,8 @@ from gpumd_tpu_torch.integrate.velocity import (
     initialize_velocity,
 )
 from gpumd_tpu_torch.io.xyz import XYZFrame, read_xyz, write_xyz
+from gpumd_tpu_torch.mc.mcmd import MCMD
+from gpumd_tpu_torch.measure.lsqt import LSQT
 from gpumd_tpu_torch.measure.netcdf_dump import DumpNetCDF
 from gpumd_tpu_torch.measure.plumed_bridge import PlumedBridge
 from gpumd_tpu_torch.measure.properties import (
@@ -140,9 +149,15 @@ from gpumd_tpu_torch.measure.properties import (
     onsager_flux,
     stress_6,
 )
+from gpumd_tpu_torch.minimize.minimizers import (
+    minimize_fire,
+    minimize_fire_box,
+    minimize_sd,
+)
 from gpumd_tpu_torch.model.box import Box, inv3
 from gpumd_tpu_torch.model.groups import Groups
 from gpumd_tpu_torch.model.state import MDState, make_state
+from gpumd_tpu_torch.phonon.hessian import compute_phonon_dispersion
 from gpumd_tpu_torch.potentials.base import _scatter_rows
 from gpumd_tpu_torch.potentials.dftd3 import DFTD3
 from gpumd_tpu_torch.potentials.dp import DP
@@ -191,13 +206,9 @@ DENSE_ENSEMBLES = (
 )
 
 # run.in keywords of the JAX app whose modules are not ported yet, and the
-# ROADMAP queue 1 item that ports each
-UNPORTED = {
-    # item 8: measure (the tight-binding transport solver)
-    "compute_lsqt": 8,
-    # item 10: MC, minimize, phonon
-    **{kw: 10 for kw in ("minimize", "mc", "compute_phonon")},
-}
+# ROADMAP queue 1 item that ports each: none since every keyword runs (only
+# item 11's `engine dense N`, N > 1, raises, from kw_engine)
+UNPORTED: Dict[str, int] = {}
 
 # potential file headers read by a class's from_file(path, dtype, device)
 # whose type names are the header's symbols, `potential <T> <syms>`
@@ -369,6 +380,8 @@ def _dense_blocker(session, ens) -> Optional[str]:
         return "compute_hnemdec"
     if getattr(session, "_deposit", None) is not None:
         return "deposition source"
+    if getattr(session, "mc", None) is not None:
+        return "MCMD run"
     if any(p.mutates_state for p in session.properties):
         return "state-mutating property (plumed)"
     if any(getattr(m, "needs_stress", False) for m in session.measure_props):
@@ -469,6 +482,8 @@ class Session:
         # dump_observer sets it (ref: force.cu:211-217)
         self.observer_mode = "observe"
         self._deposit = None  # the `deposit` keyword's request
+        self.mc = None  # the `mc` keyword's MCMD (kept across runs)
+        self.replicate_cxyz = (1, 1, 1)  # `replicate`'s, for compute_phonon
         # (engine, carry) of the compact run at a chunk's end, for the
         # observers that evaluate on its plan and lists
         self._dense_eval_ctx = None
@@ -1192,6 +1207,7 @@ class Session:
         self.symbols = symbols
         self._n = len(pos)
         self.box = self._box(self.frame)
+        self.replicate_cxyz = (cx, cy, cz)
         self.groups = Groups(self.frame.groups, self._n)
         if self.potentials:  # rebuild the state with the new geometry
             self.state = self._make_state()
@@ -1482,6 +1498,27 @@ class Session:
         self.md = None
         self._run_list(n_steps, ens)
 
+    def _mc_block(self, mc, trials, state, done, n_steps):
+        """One MC block at a chunk end, at the temperature ramped over the
+        run, and its mcmd.out row: the acceptance and, for SGC and
+        VC-SGC, each listed species' concentration (ref:
+        mc_ensemble_sgc.cu mc_output tail)."""
+        t_now = mc.t_initial + (mc.t_final - mc.t_initial) * (
+            done / max(n_steps, 1))
+        state, na = trials(state, t_now)
+        self.state = state
+        row = f"{self.global_step}  {na / mc.num_steps_mc:.6f}"
+        if mc.sgc_types:
+            real = state.mask > 0
+            *counts, nr = torch.stack(
+                [torch.sum((state.type == tt) & real)
+                 for tt in mc.sgc_types] + [torch.sum(real)]).tolist()
+            row += "".join(f" {c / max(nr, 1):.6f}" for c in counts)
+        fmc = self._file("mcmd.out")
+        fmc.write(row + "\n")
+        fmc.flush()
+        return state
+
     def _check_capacity(self, peak: int, cap: int, where: str):
         """The list path's loud neighbour-capacity check: the reference
         aborts on overflow; a silently truncated row corrupts forces."""
@@ -1502,6 +1539,10 @@ class Session:
         self._wire_nep_temperature(ens)
         intervals = [p.interval for p in self.properties] + [
             m.interval for m in self.measure_props]
+        mc = self.mc
+        if mc is not None:
+            intervals.append(mc.num_steps_md)
+            mc_trials = mc.make_trials(self.ff)
         chunk = _bounded_chunk(
             math.gcd(*intervals) if intervals else n_steps, n_steps)
         needs_heat = any(getattr(m, "needs_heat", False)
@@ -1602,6 +1643,9 @@ class Session:
             for m in self.measure_props:
                 if hasattr(m, "sample_state") and done % m.interval == 0:
                     m.sample_state(self, state, self.global_step)
+            if mc is not None and done % mc.num_steps_md == 0:
+                # the types move, the geometry not: the cache stays valid
+                state = self._mc_block(mc, mc_trials, state, done, n_steps)
             for prop in self.properties:
                 if done % prop.interval == 0:
                     prop.process(self, state, self.global_step)
@@ -2617,6 +2661,80 @@ class Session:
         self._rebuild_ff()
         self.log(f"change_box {args}")
 
+    # ------------------------------------ minimize, phonons, LSQT, MC
+
+    def kw_minimize(self, args):
+        """minimize sd|fire tol max_steps [box_change [hydrostatic]]
+        (ref: minimize.cu:80-116): the minimizer on the session's device
+        (minimize/minimizers.py), after the list's capacity is checked
+        on the start."""
+        self._require_state()
+        method, tol, max_steps = args[0], float(args[1]), int(args[2])
+        box_change = len(args) > 3 and int(args[3]) == 1
+        if box_change:
+            if method != "fire":
+                raise ValueError("box relaxation requires the fire minimizer")
+            fn = functools.partial(
+                minimize_fire_box,
+                hydrostatic=len(args) > 4 and int(args[4]) == 1)
+        else:
+            fn = {"sd": minimize_sd, "fire": minimize_fire}.get(method)
+            if fn is None:
+                raise ValueError(f"unsupported minimizer {method!r}")
+        st = self.state
+        with torch.no_grad():
+            nbr = self.ff.neighbor.build(st.box.wrap(st.position), st.box,
+                                         st.mask)
+            self._check_capacity(int(nbr.count.max()), nbr.idx.shape[1],
+                                 "at the minimizer's start")
+        self.state, steps = fn(self.ff, st, tol, max_steps)
+        e = float(torch.sum(self.state.potential_energy * self.state.mask))
+        self.log(f"minimize {method}: {int(steps)} steps, U = {e:.10f} eV")
+
+    def kw_compute_phonon(self, args):
+        """compute_phonon <displacement>: dispersion along kpoints.in ->
+        omega2.out and D.out (ref: hessian.cu:494-507), on the cell of the
+        last `replicate` (1 1 1 without one: a primitive-cell model)."""
+        self._require_state()
+        compute_phonon_dispersion(self.ff, self.state, self.replicate_cxyz,
+                                  float(args[0]), workdir=self.workdir)
+        self.log("compute_phonon: omega2.out written")
+
+    def kw_compute_lsqt(self, args):
+        """compute_lsqt x|y|z Nm Ne E_start E_end E_max [sp3] ->
+        lsqt_dos.out / lsqt_velocity.out / lsqt_sigma.out
+        (ref: lsqt.cu:962-1035; `sp3` selects the 4-orbital carbon model,
+        the reference's non-USE_GRAPHENE_TB build, lsqt.cu:554-643)."""
+        model = "sp3" if (len(args) > 6 and args[6] == "sp3") else "graphene"
+        rc = 2.6 if model == "sp3" else 2.1
+        self.measure_props.append(
+            LSQT(args[0], int(args[1]), int(args[2]), float(args[3]),
+                 float(args[4]), float(args[5]), dt=self.dt, rc=rc,
+                 model=model))
+        self.log(f"compute_lsqt {args}")
+
+    def kw_mc(self, args):
+        """mc canonical|sgc|vcsgc n_md n_mc T1 T2
+        [num_types (sym mu_or_phi)... [kappa]] (ref: mc.cu:206-330): a
+        block of n_mc trials every n_md steps of the list path's runs."""
+        kind = args[0]
+        if kind not in ("canonical", "sgc", "vcsgc"):
+            raise ValueError(f"invalid MC ensemble {kind!r}")
+        sgc_types, sgc_mu, sgc_masses, kappa = (), (), (), 0.0
+        if kind in ("sgc", "vcsgc"):
+            ntypes = int(args[5])
+            syms = args[6:6 + 2 * ntypes:2]
+            sgc_types = tuple(self.type_names.index(x) for x in syms)
+            sgc_mu = tuple(float(m) for m in args[7:7 + 2 * ntypes:2])
+            sgc_masses = tuple(mass_of(x) for x in syms)
+            if kind == "vcsgc":
+                kappa = float(args[6 + 2 * ntypes])
+        self.mc = MCMD(kind=kind, num_steps_md=int(args[1]),
+                       num_steps_mc=int(args[2]), t_initial=float(args[3]),
+                       t_final=float(args[4]), sgc_types=sgc_types,
+                       sgc_mu=sgc_mu, sgc_masses=sgc_masses, kappa=kappa)
+        self.log(f"mc {args}")
+
     # ------------------------------------------- deposition, CG, NetCDF
 
     def kw_deposit(self, args):
@@ -2968,6 +3086,10 @@ class Session:
         "dump_cg": kw_dump_cg,
         "dump_netcdf": kw_dump_netcdf,
         "plumed": kw_plumed,
+        "minimize": kw_minimize,
+        "compute_phonon": kw_compute_phonon,
+        "compute_lsqt": kw_compute_lsqt,
+        "mc": kw_mc,
         "run": kw_run,
     }
 

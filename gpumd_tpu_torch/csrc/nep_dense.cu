@@ -245,6 +245,7 @@ __device__ __forceinline__ void dk_pair(const NepConsts& c, const float* rr,
 
 // The live centres of the cell in slot order (warp 0) as (x, y, z, type
 // index), the pair cutoff and Y_lm tables (all threads).
+static  // one definition a build part (cuda_build.PARTS)
 __device__ void dk_stage_cell(const float* centers, const NepConsts& c,
                               const DenseGeom& g, int cell, int x, int y,
                               int z, const DkTile& t, DkShared& s) {
@@ -286,6 +287,7 @@ __device__ void dk_stage_cell(const float* centers, const NepConsts& c,
 // of each window lane (-1: adds exact zeros).  Each warp counts, then
 // packs, a range of 32-lane groups, DK_BATCH groups' loads at a time.
 #define DK_BATCH 4
+static  // one definition a build part (cuda_build.PARTS)
 __device__ int dk_stage_window(const float* cand, const NepConsts& c,
                                const DenseGeom& g, int cell, int x, int y,
                                int z, int w0, int cw, DkShared& s,
@@ -349,6 +351,7 @@ __device__ int dk_stage_window(const float* cand, const NepConsts& c,
 // (independent tests in flight): bit b of mask[ci nwc + w] is set when
 // pair (c0 + ci, 32 w + b) is live.
 #define DK_QUAD 4
+static  // one definition a build part (cuda_build.PARTS)
 __device__ void dk_slot_test(const NepConsts& c, DkShared& s, int c0, int ng,
                              int nc, int nwc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -388,6 +391,7 @@ __device__ void dk_slot_test(const NepConsts& c, DkShared& s, int c0, int ng,
 // The queues: warps 0 and 1 the centres' radial and angular segment
 // offsets (gk_offsets), the other warps a centre each its words' prefixes,
 // the set bits before each word.
+static  // one definition a build part (cuda_build.PARTS)
 __device__ void dk_queues(DkShared& s, int ng, int nwc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp == 0) gk_offsets(s.mask_r, nwc, ng, s.off_r);
@@ -421,6 +425,7 @@ struct DkPiece {
   int q0, q1, c_lo, c_hi;
 };
 
+static  // one definition a build part (cuda_build.PARTS)
 __device__ DkPiece dk_expand(const unsigned* mask, const int* off,
                              const unsigned short* wpre, int ng, int nwc,
                              int q0, int qcap, int* list) {
@@ -865,6 +870,43 @@ static int dk_lmax(DkCall& k, bool bwd, int smem, cudaStream_t stream,
   }
 }
 
+// The library build compiles this file once a part, all parts at once,
+// with GK_PART set (engine/cuda_build.py's PARTS): part 0 holds the KMAX
+// = 8 instances and the entry points, parts 1 and 2 the KMAX = GK_MAXK
+// instances of odd and of even l_max.  A build without GK_PART (the
+// probes' single-source builds) takes the whole file.
+int dk_kmax_odd(DkCall& k, bool bwd, int smem, cudaStream_t stream,
+                int* occ);
+int dk_kmax_even(DkCall& k, bool bwd, int smem, cudaStream_t stream,
+                 int* occ);
+
+#if !defined(GK_PART) || GK_PART == 1
+int dk_kmax_odd(DkCall& k, bool bwd, int smem, cudaStream_t stream,
+                int* occ) {
+  switch (k.c.l_max) {
+    case 1: return dk_run<1, GK_MAXK>(k, bwd, smem, stream, occ);
+    case 3: return dk_run<3, GK_MAXK>(k, bwd, smem, stream, occ);
+    case 5: return dk_run<5, GK_MAXK>(k, bwd, smem, stream, occ);
+    case 7: return dk_run<7, GK_MAXK>(k, bwd, smem, stream, occ);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+#endif
+
+#if !defined(GK_PART) || GK_PART == 2
+int dk_kmax_even(DkCall& k, bool bwd, int smem, cudaStream_t stream,
+                 int* occ) {
+  switch (k.c.l_max) {
+    case 2: return dk_run<2, GK_MAXK>(k, bwd, smem, stream, occ);
+    case 4: return dk_run<4, GK_MAXK>(k, bwd, smem, stream, occ);
+    case 6: return dk_run<6, GK_MAXK>(k, bwd, smem, stream, occ);
+    case 8: return dk_run<8, GK_MAXK>(k, bwd, smem, stream, occ);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+#endif
+
+#if !defined(GK_PART) || GK_PART == 0
 // The wrapper's shared-memory size must be the kernel's layout: a
 // disagreement would let the kernel run past its allocation.
 static int dk_dispatch(DkCall& k, bool bwd, int smem, cudaStream_t stream,
@@ -877,7 +919,9 @@ static int dk_dispatch(DkCall& k, bool bwd, int smem, cudaStream_t stream,
     return (int)cudaErrorInvalidValue;
   const int kmax = k.c.kr1 > k.c.ka1 ? k.c.kr1 : k.c.ka1;
   if (kmax <= 8) return dk_lmax<8>(k, bwd, smem, stream, occ);
-  if (kmax <= GK_MAXK) return dk_lmax<GK_MAXK>(k, bwd, smem, stream, occ);
+  if (kmax <= GK_MAXK)
+    return (k.c.l_max & 1 ? dk_kmax_odd : dk_kmax_even)(k, bwd, smem, stream,
+                                                        occ);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -970,3 +1014,4 @@ extern "C" int dense_occupancy(int bwd, int cap, int T, int kr1, int ka1,
                      qr, qa, 0.0f, 0.0f);
   return dk_dispatch(k, bwd != 0, smem, nullptr, blocks);
 }
+#endif  // GK_PART 0

@@ -292,11 +292,26 @@ static int k1_lmax(int l_max, const K1Args& k, const NepConsts& c, int nb,
   }
 }
 
+// The library build compiles this file once a part, all parts at once,
+// with GK_PART set (engine/cuda_build.py's PARTS): part 0 holds the NMAX
+// = 8 instances and the entry points, part 1 the NMAX = 20 instances.  A
+// build without GK_PART takes the whole file.
+int k1_nmax20(int l_max, const K1Args& k, const NepConsts& c, int nb,
+              int smem, cudaStream_t stream, int* occ);
+
+#if !defined(GK_PART) || GK_PART == 1
+int k1_nmax20(int l_max, const K1Args& k, const NepConsts& c, int nb,
+              int smem, cudaStream_t stream, int* occ) {
+  return k1_lmax<20>(l_max, k, c, nb, smem, stream, occ);
+}
+#endif
+
+#if !defined(GK_PART) || GK_PART == 0
 static int k1_dispatch(int l_max, int nmax, const K1Args& k,
                        const NepConsts& c, int nb, int smem,
                        cudaStream_t stream, int* occ) {
   if (nmax == 8) return k1_lmax<8>(l_max, k, c, nb, smem, stream, occ);
-  if (nmax == 20) return k1_lmax<20>(l_max, k, c, nb, smem, stream, occ);
+  if (nmax == 20) return k1_nmax20(l_max, k, c, nb, smem, stream, occ);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -328,3 +343,4 @@ extern "C" int k1_occupancy(int l_max, int nmax, int smem, int* blocks) {
   const NepConsts c{};
   return k1_dispatch(l_max, nmax, k, c, 0, smem, nullptr, blocks);
 }
+#endif  // GK_PART 0

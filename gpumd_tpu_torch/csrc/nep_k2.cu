@@ -369,11 +369,50 @@ static int k2_lmax(int l_max, const K2Args& k, const NepConsts& c, int nb,
   }
 }
 
+// The library build compiles this file once a part, all parts at once,
+// with GK_PART set (engine/cuda_build.py's PARTS): part 0 holds the NMAX
+// = 8 instances and the entry points, parts 1 and 2 the NMAX = 20
+// instances of odd and of even l_max.  A build without GK_PART takes the
+// whole file.
+int k2_nmax20_odd(int l_max, const K2Args& k, const NepConsts& c, int nb,
+                  int smem, cudaStream_t stream, int* occ);
+int k2_nmax20_even(int l_max, const K2Args& k, const NepConsts& c, int nb,
+                   int smem, cudaStream_t stream, int* occ);
+
+#if !defined(GK_PART) || GK_PART == 1
+int k2_nmax20_odd(int l_max, const K2Args& k, const NepConsts& c, int nb,
+                  int smem, cudaStream_t stream, int* occ) {
+  switch (l_max) {
+    case 1: return k2_go<1, 20>(k, c, nb, smem, stream, occ);
+    case 3: return k2_go<3, 20>(k, c, nb, smem, stream, occ);
+    case 5: return k2_go<5, 20>(k, c, nb, smem, stream, occ);
+    case 7: return k2_go<7, 20>(k, c, nb, smem, stream, occ);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+#endif
+
+#if !defined(GK_PART) || GK_PART == 2
+int k2_nmax20_even(int l_max, const K2Args& k, const NepConsts& c, int nb,
+                   int smem, cudaStream_t stream, int* occ) {
+  switch (l_max) {
+    case 2: return k2_go<2, 20>(k, c, nb, smem, stream, occ);
+    case 4: return k2_go<4, 20>(k, c, nb, smem, stream, occ);
+    case 6: return k2_go<6, 20>(k, c, nb, smem, stream, occ);
+    case 8: return k2_go<8, 20>(k, c, nb, smem, stream, occ);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+#endif
+
+#if !defined(GK_PART) || GK_PART == 0
 static int k2_dispatch(int l_max, int nmax, const K2Args& k,
                        const NepConsts& c, int nb, int smem,
                        cudaStream_t stream, int* occ) {
   if (nmax == 8) return k2_lmax<8>(l_max, k, c, nb, smem, stream, occ);
-  if (nmax == 20) return k2_lmax<20>(l_max, k, c, nb, smem, stream, occ);
+  if (nmax == 20)
+    return (l_max & 1 ? k2_nmax20_odd : k2_nmax20_even)(l_max, k, c, nb,
+                                                        smem, stream, occ);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -409,3 +448,4 @@ extern "C" int k2_occupancy(int l_max, int nmax, int smem, int* blocks) {
   const NepConsts c{};
   return k2_dispatch(l_max, nmax, k, c, 0, smem, nullptr, blocks);
 }
+#endif  // GK_PART 0

@@ -22,6 +22,7 @@ in plain torch, as the JAX list path runs in plain XLA.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -98,6 +99,22 @@ def _chebyshev(d, rc, fc, k_max: int):
     return torch.stack(out, dim=-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """A constant table on `device`, copied there once a process: a copy
+    from host memory waits for the card's queue, so a loop of small
+    passes (an MC block's cluster energies) would stall at every one."""
+    return torch.as_tensor(np.asarray(values, np.float64), dtype=dtype,
+                           device=device)
+
+
+def _table(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """`a` as a constant in `like`'s dtype on its device."""
+    return _constant(tuple(map(tuple, np.atleast_2d(a))), like.dtype,
+                     like.device).reshape(a.shape)
+
+
 def _pair_gn(fn, c_t1, t2, num_types: int):
     """g_n(r_ij) = sum_k c[t1, t2, n, k] f_k: fn (B, MN, K1), c_t1 (B, T,
     NB1, K1) gathered at each centre's type, t2 (B, MN) -> (B, MN, NB1)."""
@@ -124,8 +141,7 @@ def _angular_components(u, gn12, l_max: int):
         ci.append(cr[-2] * y + ci[-1] * x)  # cr[-2]: the previous real part
     comps = []
     for L in range(1, l_max + 1):
-        ztab = torch.as_tensor(tables.z_coefficient_table(L), dtype=u.dtype,
-                               device=u.device)
+        ztab = _table(np.asarray(tables.z_coefficient_table(L)), u)
         zf = torch.einsum("pmk,lk->pml", zpow[..., :L + 1], ztab)
         comps.append(zf[..., 0])  # m = 0
         for m in range(1, L + 1):
@@ -152,7 +168,7 @@ def _angular_q(s, model: NepModel, channels_last: bool = True):
     for L in range(1, l_max + 1):
         lo, hi = L * L - 1, (L + 1) * (L + 1) - 1
         wmat[L - 1, lo:hi] = [1.0] + [2.0] * (2 * L)
-    wm = torch.as_tensor(wmat * c3b[None, :], dtype=s.dtype, device=s.device)
+    wm = _table(wmat * c3b[None, :], s)
     s2 = s * s
     if channels_last:
         q = [(s2 @ wm.T).transpose(1, 2)]
@@ -399,8 +415,8 @@ class NEP(NamedTuple):
         t1 = t1.long()
         t2 = t2.long()
         d = torch.sqrt(torch.sum(r12 * r12, dim=-1))  # (B, MN)
-        rc_r = torch.as_tensor(model.rc_radial, dtype=dtype, device=dev)
-        rc_a = torch.as_tensor(model.rc_angular, dtype=dtype, device=dev)
+        rc_r = _constant(tuple(model.rc_radial), dtype, dev)
+        rc_a = _constant(tuple(model.rc_angular), dtype, dev)
         rcp_r = 0.5 * (rc_r[t1][:, None] + rc_r[t2])
         rcp_a = 0.5 * (rc_a[t1][:, None] + rc_a[t2])
         # radial block

@@ -236,31 +236,34 @@ def test_unknown_keyword_raises_value_error(tmp_path):
     ("potential lj.txt\nmc canonical 10 10 300 300\nrun 10\n", 10),
     ("potential lj.txt\ncompute_lsqt x 10 100 -5 5 6\nrun 10\n", 8)])
 def test_unported_keywords_name_their_item(tmp_path, example, item):
-    """`minimize` and `mc` (item 10) and `compute_lsqt` (item 8) raise
-    NotImplementedError naming their ROADMAP item, before any run (every
-    potential header is ported: a `dp` file without deepmd-kit raises its
-    RuntimeError, tests/test_torch_fcp_dp.py; the item-6 keywords run,
-    tests/test_torch_app_surface.py)."""
-    path = ROOT / "examples" / example / "run.in"
-    lines = path.read_text() if "\n" not in example else example
-    d = _deck_dir(tmp_path, lines, {"dp.txt": "dp 1 Si\n"})
+    """The keywords ROADMAP queue 1 items 8 (`compute_lsqt`) and 10
+    (`minimize`, `mc`) ported run their decks to the end; the one module
+    left, item 11's several-device engine, still raises
+    NotImplementedError naming its item before any run (every potential
+    header is ported: a `dp` file without deepmd-kit raises its
+    RuntimeError, tests/test_torch_fcp_dp.py)."""
+    assert item in (8, 10) and not tapp.UNPORTED
+    d = _deck_dir(tmp_path, example, {"dp.txt": "dp 1 Si\n"})
     s = tapp.Session(str(d), quiet=True, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
+    s.execute()
+    assert s.global_step == 10
+    d = _deck_dir(tmp_path / "sharded", "engine dense 2\n" + example)
+    s = tapp.Session(str(d), quiet=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11\\)"):
         s.execute()
     assert s.global_step == 0
 
 
 def test_every_jax_keyword_is_ported_or_raises():
-    """The JAX app's 62 keywords: 58 ported, the other four (the LSQT
-    solver, item 8; minimize, mc and compute_phonon, item 10) raise with
-    their item; the two tables do not overlap."""
+    """The JAX app's 62 keywords: all 62 ported (the LSQT solver, item 8;
+    minimize, mc and compute_phonon, item 10, the last), so no keyword is
+    left to raise with its item."""
     jk, tk = set(japp.Session.KEYWORDS), set(tapp.Session.KEYWORDS)
-    assert len(jk) == 62 and len(tk) == 58 and tk <= jk
-    assert set(tapp.UNPORTED) == jk - tk == {
-        "compute_lsqt", "minimize", "mc", "compute_phonon"}
-    assert set(tapp.UNPORTED.values()) == {8, 10}
+    assert len(jk) == 62 and len(tk) == 62 and tk == jk
+    assert set(tapp.UNPORTED) == jk - tk == set()
     assert {"dftd3", "kspace", "compute_dpdt", "compute_es",
-            "dump_observer", "active", "plumed", "deposit"} <= tk
+            "dump_observer", "active", "plumed", "deposit", "compute_lsqt",
+            "minimize", "mc", "compute_phonon"} <= tk
 
 
 @pytest.mark.skipif(__import__("torch").cuda.is_available(),

@@ -75,3 +75,40 @@ def jax_random_force_draws(steps, shape, seed=20240813):
     base = jax.random.PRNGKey(seed)
     return [np.asarray(jax.random.normal(jax.random.fold_in(base, s), shape,
                                          jnp.float64)) for s in steps]
+
+
+@jax.jit
+def _redraw_ints(key, maxval):
+    """The 64 candidates of JAX's bounded redraw loop from `key`: kk, sub =
+    split(kk) each time, randint(sub, (), 0, maxval)."""
+    def body(kk, _):
+        kk, sub = jax.random.split(kk)
+        return kk, jax.random.randint(sub, (), 0, maxval)
+
+    return jax.lax.scan(body, key, None, length=64)[1]
+
+
+def jax_mc_draws(kind, key, nmc, n_real, ns, dtype=jnp.float64):
+    """JAX's MCMD block draws (gpumd_tpu/mc/mcmd.py), recomputed from its
+    key sequence, as the port's MCDraws fields (atom, other, uniform) in
+    numpy, and the key after the block.  Each trial splits key into (key,
+    k1, k2, k3, k4).  Canonical: i from k1, j's first pick from k2 and its
+    redraws from k3.  SGC/VC-SGC: i's first pick from k1 and its redraws
+    from k2, the species' first pick from k3 and its redraws from the
+    carried key, the stream the next trial's split starts from (JAX's
+    reuse).  The uniform from k4."""
+    atom, other, uniform = [], [], []
+    for _ in range(nmc):
+        key, k1, k2, k3, k4 = jax.random.split(key, 5)
+        first = int(jax.random.randint(k1, (), 0, n_real))
+        if kind == "canonical":
+            atom.append([first] * 65)
+            other.append([int(jax.random.randint(k2, (), 0, n_real))]
+                         + np.asarray(_redraw_ints(k3, n_real)).tolist())
+        else:
+            atom.append([first]
+                        + np.asarray(_redraw_ints(k2, n_real)).tolist())
+            other.append([int(jax.random.randint(k3, (), 0, ns))]
+                         + np.asarray(_redraw_ints(key, ns)).tolist())
+        uniform.append(float(jax.random.uniform(k4, (), dtype)))
+    return (np.asarray(atom), np.asarray(other), np.asarray(uniform)), key
