@@ -429,6 +429,29 @@ written with velocities drawn by numpy:
              no hand-written kernel launched in (a)-(c); last, ms a
              trial of a 200-trial block with its synchronizing
              operations (the CUDA sync debug mode) and ms an LSQT sample
+ 19. sharded  the z-slab sharded engine (engine/sharded.py: one slab a
+             `devices` entry, the exchanges copies between slab tensors),
+             on the trained model at full width: (a) the fold's z-halo
+             mode (fold_halo) on each slab's dcand of a pass against its
+             plain version, at 4 and 12 channels, and its time a step
+             (the four slabs' calls) beside its plain version, byte
+             bound and one `index_add_` a slab onto the halo rows; (b) one pass on 4 slabs of one card at PbTe 262,144
+             jittered 0.1 A against the single-domain full-window pass
+             and against the same slabs through plain=True (forces within
+             1e-4 of max |F|, energies and the total virial 1e-5); (c) 200
+             NVE steps on 4 slabs from the lattice in one block: ok, KE + U
+             within the md phase's bound, K1, K2, the scatter and
+             fold_halo launched 4 x 201 times and nothing else; (d) a
+             PbTe 32,768 deck under `engine dense 4` against `engine
+             dense` (20 steps, thermo rows); (e) with two or more cards,
+             (b)'s pass across min(4, count) of them, else a line saying
+             every slab shared one card; (f) ms a step at 262,144 on 1
+             slab and on 4 slabs of one card (in turns), and the device
+             time of the three exchanges a pass; (g) one SNES generation
+             at config 5's width with the population over [cuda:0] * 2
+             against one device, the same draws; (h) the atom-sharded
+             list path (parallel/domain.py::ShardedMD), LJ argon 6,912
+             atoms on 4 slices of one card, against ForceField in f64
 
 Not among the default phases (ask for it with --phases):
 
@@ -451,7 +474,7 @@ Usage: python3 chip_smoke.py [--phases build,kernels,md,npt-md,
        hnemd-md,drift,list-md,train,time,dense-kernels,dense-md,dense-time,
        tersoff-kernels,tersoff-md,tersoff-time,probes,app,measure,
        ensembles,pimd-potentials,other-potentials,app-surface,
-       last-keywords,app-spread,ensembles-time]
+       last-keywords,sharded,app-spread,ensembles-time]
        [--parent DIR]
 Prints the kernels' JSON line, then, last, {"ok": true, "device": {...}}.
 A kernel's "launches" are those of the 200-step NVE run of its path;
@@ -463,7 +486,10 @@ rows, K1, K2, scatter, fold; compact_windows: the Langevin deck),
 Tersoff deck; "launches_measure" those of the measure phase's deck (a)
 and "launches_measure_modal" of its deck (b), at 12 channels;
 "launches_observer" those of the app-surface phase's deck (a) and
-"launches_observer_passes" how many of them its observers made.  "max_abs_err_pav" is the largest error of a kernel's instances at
+"launches_observer_passes" how many of them its observers made.
+fold_halo's "launches" are those of the sharded phase's 200-step run
+(4 slabs), its "ms", "plain_ms", "bound_ms" and "library_ms" a step of 4
+slabs at 262,144 atoms ("_pav": at 12 channels).  "max_abs_err_pav" is the largest error of a kernel's instances at
 12 channels (per-atom virials: K2, scatter, fold, the tersoff modes), and
 K2's, the scatter's and the fold's "ms_pav", "plain_ms_pav",
 "library_ms_pav", "bound_ms_pav" and "bound_by_pav" their step at 12
@@ -500,7 +526,8 @@ MODEL = ROOT / "artifacts" / "trainer_parity_r5_nep.txt"
 
 PROBES = ("probe_gather", "probe_transcendentals", "probe_onehot_dot",
           "probe_feature_matmul", "probe_pair_reduce", "probe_bgather")
-KERNELS = ("k1", "k2", "scatter", "fold", "compact_rows", "compact_windows",
+KERNELS = ("k1", "k2", "scatter", "fold", "fold_halo", "compact_rows",
+           "compact_windows",
            "tersoff", "tersoff_scatter", "k1b", "k2b", "dense_k1",
            "dense_k2") + PROBES
 # Tolerances, relative to max|plain|.  K1 and the fold add the same terms
@@ -517,7 +544,8 @@ KERNELS = ("k1", "k2", "scatter", "fold", "compact_rows", "compact_windows",
 # inputs to 10 mantissa bits (2e-3; 1e-5 for the f32 FFMA path, which is
 # checked under its own tag); the pair reduce and the blocked gather add
 # the same f32 terms in another order (1e-5).
-TOL = {"k1": 1e-5, "fold": 1e-5, "k2": 1e-4, "scatter": 1e-4,
+TOL = {"k1": 1e-5, "fold": 1e-5, "fold_halo": 1e-5, "k2": 1e-4,
+       "scatter": 1e-4,
        "compact_rows": 0.0, "compact_windows": 0.0, "tersoff": 1e-4,
        "tersoff_scatter": 1e-4,
        "k1b": 1e-5, "k2b": 1e-4, "dense_k1": 1e-5, "dense_k2": 1e-4,
@@ -551,6 +579,7 @@ REPLACES = {
     "k2": "gpumd_tpu/engine/nep_compact.py:1223",
     "scatter": "gpumd_tpu/engine/nep_compact.py:1425",
     "fold": "gpumd_tpu/engine/fold_kernel.py:55",
+    "fold_halo": "gpumd_tpu/engine/fold_kernel.py:55",
     "compact_rows": "gpumd_tpu/engine/nep_compact.py:541",
     "compact_windows": "gpumd_tpu/engine/nep_compact.py:478",
     "tersoff": "gpumd_tpu/engine/tersoff_compact.py:162",
@@ -571,6 +600,7 @@ SOURCES = {
     "k2": "gpumd_tpu_torch/csrc/nep_k2.cu",
     "scatter": "gpumd_tpu_torch/csrc/scatter.cu",
     "fold": "gpumd_tpu_torch/csrc/fold.cu",
+    "fold_halo": "gpumd_tpu_torch/csrc/fold.cu",
     "compact_rows": "gpumd_tpu_torch/csrc/compact.cu",
     "compact_windows": "gpumd_tpu_torch/csrc/compact.cu",
     "tersoff": "gpumd_tpu_torch/csrc/tersoff.cu",
@@ -1876,22 +1906,34 @@ def library_calls(name, keep, cp):
         lanes = lanes[:, None, :].expand(vals.shape).contiguous()
         return [lambda: vals.new_zeros((nb, pch, cp.wl)).scatter_add_(
             2, lanes, vals)]
-    if name == "fold":
+    if name in ("fold", "fold_halo"):
+        # the halo mode's destinations: nz + 2 rows, x and y packed as the
+        # plan says, z never wrapped (rows 0 and nz + 1 are the ghosts)
         plan = cp.base
         nx, ny, nz = plan.grid
-        n_slots = nz * ny * nx * plan.cap
+        nzo = nz + 2 if name == "fold_halo" else nz
+        n_slots = nzo * ny * nx * plan.cap
         dev = keep["dcand"].device
         ids = torch.arange(n_slots, dtype=torch.float64, device=dev)
-        ghost = pack_ghost_rows(ids.reshape(nz, ny, 1, nx * plan.cap), plan,
-                                fill=-1.0)
+        ids = ids.reshape(nzo, ny, 1, nx * plan.cap)
+        if name == "fold_halo":
+            ghost = pack_ghost_rows(ids, dataclasses.replace(
+                plan, grid=(nx, ny, nzo), pbc=(*plan.pbc[:2], False)),
+                fill=-1.0)[1:-1]
+        else:
+            ghost = pack_ghost_rows(ids, plan, fill=-1.0)
         win = pack_block_windows(ghost, plan, cp.bx, cp.wl, far_channels=0)
         win[..., 9 * (cp.bx + 2) * plan.cap:] = -1.0  # pad lanes: dropped
         dest = win.reshape(-1)
-        dest = torch.where((dest >= 0) & (dest < n_slots), dest,
-                           torch.full_like(dest, n_slots)).long()
+        # a dropped lane (pad or open face) adds into a row of its own:
+        # into one shared row its atomics would serialize
+        drop = ~((dest >= 0) & (dest < n_slots))
+        dest = torch.where(drop, n_slots + torch.cumsum(drop, 0) - 1,
+                           dest).long()
+        rows_out = n_slots + int(drop.sum())
         c = keep["dcand"].shape[2]
         src = keep["dcand"].movedim(2, 0).reshape(c, -1).contiguous()
-        return [lambda: src.new_zeros((c, n_slots + 1)).index_add_(
+        return [lambda: src.new_zeros((c, rows_out)).index_add_(
             1, dest, src)]
     if name in ("compact_rows", "compact_windows"):
         cidx = keep["cidx"]
@@ -6978,6 +7020,425 @@ def phase_last_keywords(results):
     print(f"[last-keywords] phase done in {time.time() - t0:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# 19. sharded: the z-slab sharded engine (engine/sharded.py)
+# --------------------------------------------------------------------------
+
+SHARD_SLABS = 4
+SHARD_NC = 32  # PbTe 262,144
+SHARD_APP_NC = 16  # the app decks: PbTe 32,768
+SHARD_STEPS = 200
+SHARD_SKIN = 1.5  # as System's
+# A sharded pass against the single-domain full-window pass, and against
+# its own slabs through the plain versions, in f32: the same terms summed
+# on another grid (nz shrunk to a multiple of the slabs) or in another
+# order, ~1e-6 of max |F| (the kernels' own tolerances are 1e-5 to 1e-4):
+# forces within 1e-4 of max |F|, per-atom energies and the total virial
+# within 1e-5 of their largest magnitude.
+SHARD_F_TOL = 1e-4
+SHARD_EW_TOL = 1e-5
+# The app's `engine dense 4` deck against `engine dense` (compact lists,
+# another grid) after 20 steps of 1 fs: T, KE and PE within 1e-5 of a
+# column's largest value, the stress within 1e-4 (its shear parts sit near
+# zero), the box exactly.
+SHARD_ROW_TOL = (1e-5, 1e-4, 0.0)
+# One SNES generation with the population over two slabs of one card
+# against one device, the same draws (f32): mu, sigma and the loss.out row
+# within 1e-5 relative.
+SHARD_SNES_TOL = 1e-5
+# (h) ShardedMD against ForceField, f64, relative to each field's max
+SHARD_DOMAIN_TOL = 1e-10
+
+
+def _shard_start(nc, jitter=0.0, seed=3):
+    """PbTe nc^3 (a0 6.57 A) with the trained model, 300 K velocities, f32
+    on the card: (nep, box, state, positions as f64 numpy)."""
+    from gpumd_tpu_torch.bench import build_pbte
+    from gpumd_tpu_torch.integrate.velocity import initialize_velocity
+    from gpumd_tpu_torch.model.box import Box
+    from gpumd_tpu_torch.model.state import make_state
+    from gpumd_tpu_torch.potentials.nep.model import NEP
+
+    pos, types, lengths = build_pbte(nc, nc, nc, 6.57)
+    if jitter:
+        pos = pos + np.random.default_rng(seed).normal(0, jitter, pos.shape)
+    nep = NEP.from_file(str(MODEL), dtype=torch.float32)
+    box = Box.orthogonal(lengths, dtype=torch.float32)
+    state = make_state(pos, np.where(types == 1, 207.2, 127.6), types, box)
+    return nep, box, initialize_velocity(state, 300.0, seed=seed), pos
+
+
+def _shard_md(nep, box, pos, devices, **kw):
+    from gpumd_tpu_torch.engine.sharded import ShardedDenseMD
+
+    return ShardedDenseMD(nep, box, len(pos), devices, position=pos,
+                          skin=SHARD_SKIN, **kw)
+
+
+def _shard_pass(smd, state, keeps=None):
+    """One pass on fresh tiles: the input-order snapshot and the total
+    virial."""
+    n = state.position.shape[0]
+    with torch.no_grad():
+        ss, oid, overflow = smd.bin_state(state, with_id=True)
+        idxs, ok = smd.build_idx(ss)
+        if bool(overflow) or not bool(ok):
+            raise RuntimeError("sharded: overflow at the pass's rebin")
+        out = smd.force_pass(ss, idxs, keeps)
+        snap = smd.gather_input_order(smd.compute(ss, idxs), oid, n)
+    return snap, out.virial_total
+
+
+def _shard_close(what, got, ref):
+    """(forces over max |F|, energies over max |e|, total virial over its
+    max) of two (snapshot, virial_total) pairs, gated."""
+    (g, wg), (r, wr) = got, ref
+    f = float((g.force - r.force).abs().max() / r.force.abs().max())
+    e = float((g.potential_energy - r.potential_energy).abs().max()
+              / r.potential_energy.abs().max())
+    w = float((wg - wr).abs().max() / wr.abs().max())
+    ok = f <= SHARD_F_TOL and e <= SHARD_EW_TOL and w <= SHARD_EW_TOL
+    print(f"[sharded] {what}: forces {f:.3e} of max|F| (bound "
+          f"{SHARD_F_TOL:.0e}), energies {e:.3e}, total virial {w:.3e} "
+          f"(bound {SHARD_EW_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"sharded: {what} departs")
+
+
+def _shard_fold(results, smd, keeps, pav):
+    """(a) The fold's z-halo mode on each slab's dcand of a pass against
+    its plain version; at 4 channels its time a step (the four slabs'
+    calls), plain time and byte bound at 262,144."""
+    from gpumd_tpu_torch.engine.fold_kernel import (
+        fold_windows_to_halo_rows, fold_windows_to_halo_rows_plain,
+    )
+
+    cp = smd.cplan_local
+    plan = cp.base
+    failures = []
+    for j, keep in enumerate(keeps):
+        dc = keep["dcand"]
+        _compare(f"fold_halo[slab {j}{',pav' if pav else ''}]", "fold_halo",
+                 fold_windows_to_halo_rows(dc, plan, cp.bx),
+                 fold_windows_to_halo_rows_plain(dc, plan, cp.bx), results,
+                 failures, pav=pav)
+    if failures:
+        raise RuntimeError(f"sharded: the halo fold departs: {failures}")
+    dcs = [k["dcand"] for k in keeps]
+    ms = _time_ms(lambda: [fold_windows_to_halo_rows(d, plan, cp.bx)
+                           for d in dcs], 20)
+    plain = _time_ms(lambda: [fold_windows_to_halo_rows_plain(d, plan, cp.bx)
+                              for d in dcs], 3)
+    outs = [fold_windows_to_halo_rows(d, plan, cp.bx) for d in dcs]
+    nbytes = _nbytes(*dcs, *outs)
+    libs = [library_calls("fold_halo", k, cp)[0] for k in keeps]
+    lib_ms = _time_ms(lambda: [f() for f in libs], 20)
+    b_ms, b_by = bound(nbytes, sum(d.numel() for d in dcs))
+    tag = "_pav" if pav else ""
+    r = results["fold_halo"]
+    r.update({f"ms{tag}": ms, f"plain_ms{tag}": plain,
+              f"bound_ms{tag}": b_ms, f"bound_by{tag}": b_by,
+              f"library_ms{tag}": lib_ms})
+    print(f"[sharded] (a) fold_halo, {len(dcs)} slabs of grid {plan.grid} "
+          f"C {dcs[0].shape[2]} wl {cp.wl}: {ms:.4f} ms a step (plain "
+          f"{plain:.3f}, library index_add_ {lib_ms:.4f}), bound "
+          f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB), {b_ms / ms:.1%} "
+          f"of it, {nbytes / ms / 1e9:.2f} TB/s")
+
+
+def _shard_app(tmp):
+    """(d) `engine dense 4` against `engine dense` through Session."""
+    rows = {}
+    for eng in ("dense", f"dense {SHARD_SLABS}"):
+        d = tmp / eng.replace(" ", "_")
+        d.mkdir()
+        _pbte_deck(d, SHARD_APP_NC, "potential nep.txt\ntime_step 1\n"
+                   f"ensemble nve\nengine {eng}\ndump_thermo 10\nrun 20\n")
+        s, counts = _session(d)
+        rows[eng] = _thermo(d, 2)
+        need = ({"k1": 1, "k2": 1, "scatter": 1, "fold_halo": 1}
+                if eng != "dense" else {"k1": 1, "k2": 1, "scatter": 1,
+                                        "fold": 1})
+        _launch_check(f"sharded (d) engine {eng}", counts, need,
+                      never=("fold",) if eng != "dense" else ("fold_halo",))
+        if eng != "dense":
+            print(f"[sharded] (d) engine {eng}: {s.md.placement}, grid "
+                  f"{s.md.plan.grid}")
+    rel = _row_diff(rows[f"dense {SHARD_SLABS}"], rows["dense"])
+    ok = all(x <= t for x, t in zip(rel, SHARD_ROW_TOL))
+    print(f"[sharded] (d) engine dense {SHARD_SLABS} vs engine dense, PbTe "
+          f"{8 * SHARD_APP_NC ** 3} NVE 20 steps: thermo rows, max diff / "
+          f"scale (T KE PE, stress, box) {rel[0]:.3e}, {rel[1]:.3e}, "
+          f"{rel[2]:.3e} (bounds {SHARD_ROW_TOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("sharded: the engine dense 4 deck departs")
+
+
+def _shard_snes(tmp):
+    """(g) One SNES generation at config 5's width with the population
+    over [cuda:0] * 2 against one device, the same injected draws."""
+    from gpumd_tpu_torch.app import nep as app_nep
+    from gpumd_tpu_torch.io.nep_input import model_from_config, parse_nep_in
+    from gpumd_tpu_torch.io.xyz import read_xyz_frames
+    from gpumd_tpu_torch.potentials.nep.model import NEP
+    from gpumd_tpu_torch.potentials.nep.params import num_trainable
+    from gpumd_tpu_torch.scripts.pbte_train_set import write_train_set
+    from gpumd_tpu_torch.train.snes import SNESTrainer
+
+    d = tmp / "snes"
+    d.mkdir()
+    nep64 = NEP.from_file(str(MODEL), dtype=torch.float64)
+    write_train_set(d / "train.xyz", nep64, n_frames=3, cells=2)
+    frames = read_xyz_frames(str(d / "train.xyz"))
+    (d / "nep.in").write_text(TRAIN_NEP_IN)
+    cfg = parse_nep_in(str(d / "nep.in"))
+    batch, = app_nep.build_batches(frames, cfg.symbols, rc=8.0,
+                                   batch_size=cfg.batch_size, device="cuda",
+                                   log=lambda *a: None)
+    model = model_from_config(cfg)
+    z = torch.as_tensor(np.random.default_rng(4).normal(
+        size=(cfg.population_size, num_trainable(model))),
+        dtype=torch.float32, device="cuda")
+    got = {}
+    for name, devices in (("one", ["cuda:0"]), ("two", ["cuda:0"] * 2)):
+        w = d / name
+        w.mkdir()
+        tr = SNESTrainer(model, cfg, [batch], workdir=str(w),
+                         devices=devices)
+        tr._sample = lambda st: (z, st.mu[None, :] + st.sigma[None, :] * z)
+        tr.train(generations=1, log=lambda *a: None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train(generations=1, log=lambda *a: None)  # a second one, timed
+        torch.cuda.synchronize()
+        got[name] = (tr.state.mu.cpu().numpy(), tr.state.sigma.cpu().numpy(),
+                     np.loadtxt(w / "loss.out"), time.perf_counter() - t0,
+                     tr.cfg.population_size)
+    rel = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+              for a, b in zip(got["two"][:3], got["one"][:3]))
+    ok = rel <= SHARD_SNES_TOL and got["two"][4] == cfg.population_size
+    print(f"[sharded] (g) SNES, D {num_trainable(model)}, population "
+          f"{got['two'][4]} over [cuda:0] * 2 against one device, two "
+          f"generations (the second timed) of {len(frames)} frames of "
+          f"{frames[0].n_atoms} atoms with the same draws: mu, sigma and loss.out within "
+          f"{rel:.3e} (bound {SHARD_SNES_TOL:.0e}) {'ok' if ok else 'FAIL'};"
+          f" a generation {got['one'][3]:.4f} s on one device, "
+          f"{got['two'][3]:.4f} s split in two")
+    if not ok:
+        raise RuntimeError("sharded: SNES over two slabs departs")
+
+
+def _shard_domain(device="cuda"):
+    """(h) The atom-sharded list path (parallel/domain.py::ShardedMD) over
+    SHARD_SLABS entries of one device: LJ argon (the repo's lj.txt
+    parameters), fcc 12^3 cells jittered 0.1 A, sorted into slabs along
+    z, on the cell list, against ForceField's pass on the same device, in
+    f64 (LJ's default; in f32 a pair at the unshifted cutoff goes in or
+    out with the rounding of its displacement, 7e-4 of max|e|)."""
+    from gpumd_tpu_torch.forcefield import ForceField
+    from gpumd_tpu_torch.model.box import Box
+    from gpumd_tpu_torch.model.state import make_state
+    from gpumd_tpu_torch.parallel.domain import ShardedMD, sort_by_slab
+    from gpumd_tpu_torch.potentials.lj import LJ
+
+    a0, nc = 5.26, 12
+    base = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5]])
+    cells = np.stack(np.meshgrid(*[np.arange(nc)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3)
+    pos = ((cells[:, None, :] + base[None]).reshape(-1, 3) * a0
+           + np.random.default_rng(5).uniform(-0.1, 0.1, (4 * nc ** 3, 3)))
+    n = len(pos)
+    box = Box.orthogonal([nc * a0] * 3, dtype=torch.float64,
+                         device=device)
+    pos = pos[sort_by_slab(pos, box, axis=2)]
+    state = make_state(pos, np.full(n, 39.948), np.zeros(n, int), box)
+    lj = LJ.from_params(1.032e-2, 3.405, 9.0, dtype=torch.float64,
+                        device=device)
+    ref = ForceField.create([lj], box, n, mn=160).compute(state)
+    smd = ShardedMD.create([lj], box, n, [device] * SHARD_SLABS, mn=160)
+    out = smd.compute_forces(smd.shard_state(state))
+    rel = {k: float((getattr(out, k) - getattr(ref, k)).abs().max()
+                    / getattr(ref, k).abs().max())
+           for k in ("force", "potential_energy", "virial")}
+    ok = (smd.neighbor.method == "cell"
+          and max(rel.values()) <= SHARD_DOMAIN_TOL)
+    print(f"[sharded] (h) ShardedMD, LJ argon {n} atoms on the "
+          f"{smd.neighbor.method} list over {SHARD_SLABS} slices of "
+          f"{device} against ForceField, f64: forces {rel['force']:.3e} "
+          f"of max|F|, energies {rel['potential_energy']:.3e}, per-atom "
+          f"virials {rel['virial']:.3e} (bound {SHARD_DOMAIN_TOL:.0e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("sharded: ShardedMD departs from ForceField")
+
+
+def _shard_exchange_timer():
+    """Wrap the sharded module's three exchanges so that CUDA events
+    bracket each call; returns (events, restore)."""
+    import gpumd_tpu_torch.engine.sharded as S
+
+    names = ("exchange_pos_rows", "exchange_val_rows", "return_ghost_cots")
+    orig = {n: getattr(S, n) for n in names}
+    events = []
+
+    def wrap(fn):
+        def timed(*a):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            r = fn(*a)
+            e.record()
+            events.append((s, e))
+            return r
+        return timed
+
+    for n in names:
+        setattr(S, n, wrap(orig[n]))
+
+    def restore():
+        for n in names:
+            setattr(S, n, orig[n])
+
+    return events, restore
+
+
+def _shard_step_ms(smd, state, ens, dt, steps=(5, 20)):
+    """ms a step of a block, its entry (the tiles' build and a pass) taken
+    out: (t(20 steps) - t(5 steps)) / 15, each after one warm block."""
+    ss, _ = smd.bin_state(state)
+    times = []
+    with torch.no_grad():
+        for n in steps:
+            block, _ = smd.make_block(ens, dt, n)
+            block(ss)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            block(ss)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    return (times[1] - times[0]) / (steps[1] - steps[0]) * 1e3
+
+
+def phase_sharded(results):
+    """The z-slab sharded engine (phase 19 of the module docstring)."""
+    from gpumd_tpu_torch.engine import cuda_build
+    from gpumd_tpu_torch.engine.dense_md import DenseNEPMD
+    from gpumd_tpu_torch.engine.sharded import round_robin_devices
+    from gpumd_tpu_torch.integrate.ensembles.nve import NVE
+    from gpumd_tpu_torch.units import TIME_UNIT_CONVERSION
+
+    t0 = time.time()
+    dt = 1.0 / TIME_UNIT_CONVERSION
+    card = [torch.device("cuda", 0)]
+    slabs = card * SHARD_SLABS
+    results.setdefault("fold_halo", {"max_abs_err": 0.0})
+    # (b) one pass at 262,144, jittered, against the single-domain
+    # full-window pass and against the slabs' plain versions; (a) the halo
+    # fold on that pass's dcand at 4 and 12 channels
+    nep, box, state, pos = _shard_start(SHARD_NC, jitter=0.1)
+    single = DenseNEPMD(nep, box, len(pos), position=pos, skin=SHARD_SKIN,
+                        compact_lists=False)
+    with torch.no_grad():
+        carry = single.init_carry(state)
+        out = single.compute(carry.state, carry.idx)
+        ref = (single.to_input_order(carry._replace(state=out), len(pos)),
+               torch.sum(out.virial, dim=0))
+    del single, carry, out
+    for pav in (False, True):
+        smd = _shard_md(nep, box, pos, slabs, per_atom_virial=pav)
+        keeps = []
+        got = _shard_pass(smd, state, keeps)
+        if not pav:
+            print(f"[sharded] (b) PbTe {len(pos)}: {smd.placement}; grid "
+                  f"{smd.plan.grid} (nz a multiple of {SHARD_SLABS}), slab "
+                  f"grid {smd.plan_local.grid} cap {smd.plan.cap} bx "
+                  f"{smd.cplan_local.bx} mn_r {smd.cplan_local.mn_r} mn_a "
+                  f"{smd.cplan_local.mn_a}")
+            _shard_close(f"(b) {SHARD_SLABS} slabs vs the single-domain "
+                         "full-window pass", got, ref)
+            plain = _shard_pass(_shard_md(nep, box, pos, slabs, plain=True),
+                                state)
+            _shard_close(f"(b) {SHARD_SLABS} slabs vs the same slabs "
+                         "through plain=True", got, plain)
+            del plain
+        _shard_fold(results, smd, keeps, pav)
+        del keeps, got
+    # (e) across cards where there are several
+    count = torch.cuda.device_count()
+    if count >= 2:
+        devs = round_robin_devices(min(SHARD_SLABS, count), "cuda")
+        smd = _shard_md(nep, box, pos, devs)
+        _shard_close(f"(e) {len(devs)} slabs on {count} cards "
+                     f"({smd.placement}) vs the single-domain pass",
+                     _shard_pass(smd, state), ref)
+    else:
+        print(f"[sharded] (e) one card visible: every slab shared "
+              f"{torch.cuda.get_device_name(0)}; slabs across cards (the "
+              "copies between devices, each slab under its own card's "
+              "stream) were not run")
+    del ref, state
+    print(f"[sharded] (a), (b), (e) done at {time.time() - t0:.1f} s")
+    # (c) 200 NVE steps on 4 slabs from the lattice, one block: the drift
+    # and every kernel of the slab path launched once a slab a pass
+    nep, box, state, pos = _shard_start(SHARD_NC)
+    smd = _shard_md(nep, box, pos, slabs)
+    with torch.no_grad():
+        ss, overflow = smd.bin_state(state)
+        block, compute = smd.make_block(NVE(), dt, SHARD_STEPS)
+        e0 = total_energy(compute(ss))
+        cuda_build.reset_launches()
+        out, _, ok, _ = block(ss)
+        torch.cuda.synchronize()
+        counts = dict(cuda_build.launches)
+    e1 = total_energy(out)
+    drift = abs(e1 - e0)
+    want = SHARD_SLABS * (SHARD_STEPS + 1)
+    path = ("k1", "k2", "scatter", "fold_halo")
+    launched = {k: counts[k] for k in path}
+    off = {k: v for k, v in counts.items() if v and k not in path}
+    fine = (bool(ok) and not bool(overflow) and np.isfinite(e1)
+            and drift <= DRIFT_TOL and not off
+            and all(v == want for v in launched.values()))
+    print(f"[sharded] (c) PbTe {len(pos)} on {smd.placement}, NVE "
+          f"{SHARD_STEPS} steps in one block: ok {bool(ok)}, |d(KE+U)| "
+          f"{drift:.3e} eV/atom (bound {DRIFT_TOL:.0e}), launches "
+          f"{launched} (each {want} = {SHARD_SLABS} x ({SHARD_STEPS} + 1)), "
+          f"others {off or 'none'} {'ok' if fine else 'FAIL'}")
+    if not fine:
+        raise RuntimeError("sharded: the 200-step run failed its gate")
+    results["fold_halo"]["launches"] = counts["fold_halo"]
+    # (f) ms a step at 262,144: one slab against four on one card, and the
+    # device time of the exchanges a step
+    one = _shard_step_ms(_shard_md(nep, box, pos, card), state, NVE(), dt)
+    four = _shard_step_ms(smd, state, NVE(), dt)
+    four_b = _shard_step_ms(smd, state, NVE(), dt)
+    one_b = _shard_step_ms(_shard_md(nep, box, pos, card), state, NVE(), dt)
+    events, restore = _shard_exchange_timer()
+    try:
+        with torch.no_grad():
+            ss, _ = smd.bin_state(state)
+            block, _ = smd.make_block(NVE(), dt, 20)
+            block(ss)
+            torch.cuda.synchronize()
+    finally:
+        restore()
+    halo = sum(s.elapsed_time(e) for s, e in events) / 21
+    print(f"[sharded] (f) PbTe {len(pos)}, ms a step (block entry taken "
+          f"out, in turns one, four, four, one): 1 slab {one:.3f}, "
+          f"{one_b:.3f}; {SHARD_SLABS} slabs on one card {four:.3f}, "
+          f"{four_b:.3f}; the three exchanges {halo:.3f} ms a pass (CUDA "
+          f"events around each call, {len(events)} calls)")
+    del smd, state
+    print(f"[sharded] (c), (f) done at {time.time() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _shard_app(tmp)
+        print(f"[sharded] (d) done at {time.time() - t0:.1f} s")
+        _shard_snes(tmp)
+    _shard_domain()
+    print(f"[sharded] phase done in {time.time() - t0:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,md,npt-md,hnemd-md,"
@@ -6985,7 +7446,7 @@ def main():
                     "dense-time,"
                     "tersoff-kernels,tersoff-md,tersoff-time,probes,app,"
                     "measure,ensembles,pimd-potentials,other-potentials,"
-                    "app-surface,last-keywords")
+                    "app-surface,last-keywords,sharded")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: the probes "
                     "phase then times its blocked gather and its wrappers' "
@@ -7026,6 +7487,7 @@ def main():
                 ("other-potentials", phase_other_potentials),
                 ("app-surface", phase_app_surface),
                 ("last-keywords", phase_last_keywords),
+                ("sharded", phase_sharded),
                 ("ensembles-time", phase_ensembles_time),
                 ("app-spread", lambda r: phase_app_spread(r, pot_path))):
             if name in phases:

@@ -43,9 +43,10 @@ Every keyword of the JAX app runs; `minimize` (minimize/minimizers.py),
 and `mc` (mc/mcmd.py: a block of trials at every num_steps_md steps'
 chunk end, on the list path) run on the session's device through
 ForceField, and `python -m gpumd_tpu_torch.app.mdi` serves a deck to an
-external driver.  `engine dense N` with N > 1 (the slab-sharded engine)
-raises NotImplementedError naming ROADMAP queue 1, item 11; an unknown
-keyword raises ValueError.
+external driver.  `engine dense N [axis]` with N > 1 runs a NEP deck on
+the z-slab sharded engine (engine/sharded.py): N slabs round-robin over
+the visible cards (all on the CPU in a CPU session), the placement
+logged.  An unknown keyword raises ValueError.
 The session runs on the card unless the caller asks for the CPU
 (`device="cpu"`), and raises without a card.  Randomness comes from
 torch generators seeded from the keyword's seed; the stochastic ensembles
@@ -75,6 +76,10 @@ from gpumd_tpu_torch.engine.nep_compact import (
     CompactSpec,
     compact_nep_compute,
     plan_grid_compact,
+)
+from gpumd_tpu_torch.engine.sharded import (
+    ShardedDenseMD,
+    round_robin_devices,
 )
 from gpumd_tpu_torch.engine.tersoff_compact import CompactTersoffMD
 from gpumd_tpu_torch.forcefield import ForceField, hnemdec_coefficients
@@ -206,8 +211,7 @@ DENSE_ENSEMBLES = (
 )
 
 # run.in keywords of the JAX app whose modules are not ported yet, and the
-# ROADMAP queue 1 item that ports each: none since every keyword runs (only
-# item 11's `engine dense N`, N > 1, raises, from kw_engine)
+# ROADMAP queue 1 item that ports each: none since every keyword runs
 UNPORTED: Dict[str, int] = {}
 
 # potential file headers read by a class's from_file(path, dtype, device)
@@ -471,6 +475,8 @@ class Session:
         self.measure_props: list = []
         self.global_step = 0
         self.engine_mode = "auto"
+        self.engine_devices = 1  # slabs of `engine dense N`
+        self.engine_axis = "z"
         self.route_reason: Optional[str] = None  # the last run's, or None
         self.md = None  # the last compact run's engine (None: list path)
         self.run_seconds: List[float] = []  # each run block's wall time
@@ -1171,17 +1177,27 @@ class Session:
         self.properties.append(PropertyRequest(interval, process))
 
     def kw_engine(self, args):
-        """engine dense|list|auto [n_devices]: route `run` through the
-        compact engine (engine/dense_md.py, the kernels' path), the list
-        path, or let `dense_route_reason` choose (the default)."""
+        """engine dense|list|auto [n_devices] [axis]: route `run` through
+        the compact engine (engine/dense_md.py, the kernels' path), the
+        list path, or let `dense_route_reason` choose (the default).  With
+        n_devices > 1 a compact-engine run takes the slab-sharded engine
+        (engine/sharded.py), its slabs cut along `axis` (x, y or z; the
+        reference's user-selectable partition, nep_multigpu.cu:1429-1455)
+        and put round-robin over the visible cards.  The JAX app raises
+        when fewer devices than slabs are visible; here slabs share a card
+        (logged), so a one-card machine runs any N."""
         mode = args[0]
         ndev = int(args[1]) if len(args) > 1 else 1
+        axis = args[2] if len(args) > 2 else "z"
         if mode not in ("dense", "list", "auto"):
             raise ValueError("engine must be 'dense', 'list' or 'auto'")
-        if ndev > 1:
-            raise _not_ported("engine on several devices (the slab-sharded "
-                              "compact engine)", 11)
+        if ndev < 1:
+            raise ValueError("engine: the device count must be >= 1")
+        if axis not in ("x", "y", "z"):
+            raise ValueError("engine partition axis must be x, y or z")
         self.engine_mode = mode
+        self.engine_devices = ndev
+        self.engine_axis = axis
         self.log(f"engine: {mode}")
 
     def kw_replicate(self, args):
@@ -1336,15 +1352,20 @@ class Session:
         pav = needs_heat or needs_av or hnemd_fe is not None
         n = self._n
         state = self.state
+        ndev = self.engine_devices
         # measures with a device_init accumulate on the card inside the
-        # chunk; the others sample at chunk boundaries
+        # chunk (one device only); the others sample at chunk boundaries
         dev_props = [m for m in self.measure_props
-                     if hasattr(m, "device_init")]
+                     if hasattr(m, "device_init") and ndev == 1]
         host_props = [m for m in self.measure_props if m not in dev_props]
         intervals = [p.interval for p in self.properties] + [
             m.interval for m in host_props]
         chunk = _bounded_chunk(
             math.gcd(*intervals) if intervals else n_steps, n_steps)
+        if ndev > 1:
+            if not isinstance(pot, NEP):
+                raise ValueError("engine dense multi-device: NEP only")
+            return self._run_dense_sharded(n_steps, ens, pot, chunk, pav)
         position = _np(state.position)[:n]
         if isinstance(pot, Tersoff1989):
             md = CompactTersoffMD(pot, state.box, n, position=position,
@@ -1398,19 +1419,9 @@ class Session:
                     raise RuntimeError(
                         "dense engine: cell capacity overflow; rerun with "
                         "engine list or a larger skin")
-                snap = md.to_input_order(carry, n)
-                pe = float(torch.sum(snap.potential_energy * snap.mask))
-                if not np.isfinite(pe):
-                    raise RuntimeError(f"non-finite potential energy at "
-                                       f"step {self.global_step}")
-                self.state = snap
                 self._dense_eval_ctx = (md, carry)
-                for prop in self.properties:
-                    if done % prop.interval == 0:
-                        prop.process(self, snap, self.global_step)
-                for m in host_props:
-                    if done % m.interval == 0 and hasattr(m, "sample_state"):
-                        m.sample_state(self, snap, self.global_step)
+                self._chunk_end(md.to_input_order(carry, n), done,
+                                host_props)
         self._dense_eval_ctx = None
         wall = time.time() - t0
         self.run_seconds.append(wall)
@@ -1418,6 +1429,103 @@ class Session:
                  f"atom*step/second (dense)")
         for m, a in zip(dev_props, maccs):
             m.device_postprocess(self, a)
+        self._finish_run()
+
+    def _chunk_end(self, snap, done, measures):
+        """A dense run's chunk end, on its input-order snapshot: the
+        finite-energy check, then the snapshot to the session, the
+        properties and the measures that sample chunk ends."""
+        pe = float(torch.sum(snap.potential_energy * snap.mask))
+        if not np.isfinite(pe):
+            raise RuntimeError(f"non-finite potential energy at step "
+                               f"{self.global_step}")
+        self.state = snap
+        for prop in self.properties:
+            if done % prop.interval == 0:
+                prop.process(self, snap, self.global_step)
+        for m in measures:
+            if done % m.interval == 0 and hasattr(m, "sample_state"):
+                m.sample_state(self, snap, self.global_step)
+
+    def _run_dense_sharded(self, n_steps, ens, nep, chunk, pav):
+        """A NEP run on the z-slab sharded engine (engine/sharded.py):
+        blocks of `chunk` steps, a global rebin between them, and a block
+        whose atoms outran the skin rerun from its start in one-step
+        blocks with a global rebin after each, so every step starts from
+        fresh slab bins and tiles (the JAX app keeps the chunk's bins,
+        ROADMAP queue 3)."""
+        ndev = self.engine_devices
+        devices = round_robin_devices(ndev, self.device)
+        n = self._n
+        state = self.state
+        hnemd_fe = self.ff.hnemd_fe
+        smd = ShardedDenseMD(nep, state.box, n, devices,
+                             position=_np(state.position)[:n],
+                             axis=self.engine_axis,
+                             per_atom_virial=pav)
+        self.log(f"engine dense {ndev}: {smd.placement}")
+        if pav and smd.engine != "compact":
+            raise ValueError(
+                "engine dense sharded: heat observables need the compact "
+                "engine; use `engine list`")
+        smd.hnemd_fe = hnemd_fe
+        self.md = smd
+        heat_props = [m for m in self.measure_props
+                      if hasattr(m, "consume_heat")]
+        observer = heat_current_5 if heat_props else None
+        block, _ = smd.make_block(ens, self.dt, chunk, observer=observer)
+        block1 = None  # one-step blocks, for a block the drift invalidated
+        sstate, oid, overflow = smd.bin_state(state, with_id=True)
+        if bool(overflow):
+            raise RuntimeError("dense engine: cell capacity overflow")
+        aux = None
+        t0 = time.time()
+        done = 0
+        while done < n_steps:
+            pre_state, pre_aux, pre_oid = sstate, aux, oid
+            sstate, aux, ok, ys = block(sstate, aux)
+            if not bool(ok):  # the block's one read
+                self.log("sharded block invalidated by drift; retrying "
+                         "with per-step index rebuilds")
+                if block1 is None:
+                    block1 = smd.make_block(ens, self.dt, 1,
+                                            observer=observer)[0]
+                sstate, aux, oid = pre_state, pre_aux, pre_oid
+                rows = []
+                for i in range(chunk):
+                    if i:
+                        sstate, oid, overflow = smd.bin_state(
+                            smd.gather_input_order(sstate, oid, n),
+                            with_id=True)
+                        if bool(overflow):
+                            raise RuntimeError("dense engine: cell "
+                                               "capacity overflow")
+                    sstate, aux, ok, y1 = block1(sstate, aux)
+                    if not bool(ok):
+                        raise RuntimeError(
+                            "dense engine: neighbor cap overflow or an "
+                            "atom moved past skin/2 in one step")
+                    if observer is not None:
+                        rows.append(y1[0])
+                ys = torch.stack(rows) if rows else ys
+            if heat_props:
+                for m in heat_props:
+                    m.consume_heat(ys, self.global_step)
+                    if hasattr(m, "maybe_output"):
+                        m.maybe_output(self)
+            done += chunk
+            self.global_step += chunk
+            snap = smd.gather_input_order(sstate, oid, n)
+            self._chunk_end(snap, done, self.measure_props)
+            if done < n_steps:
+                sstate, oid, overflow = smd.bin_state(snap, with_id=True)
+                if bool(overflow):
+                    raise RuntimeError("dense engine: cell capacity "
+                                       "overflow")
+        wall = time.time() - t0
+        self.run_seconds.append(wall)
+        self.log(f"Speed of this run = {n * n_steps / max(wall, 1e-9):.5g} "
+                 f"atom*step/second (dense, {ndev} slabs)")
         self._finish_run()
 
     def _finish_run(self):

@@ -26,6 +26,16 @@
 // in a group the next block's cell 0, the main band, the previous block's
 // cell bx+1, then the wrapped cell 0 and cell bx+1), so each output has
 // the same bits.  Needs no 128-lane alignment, so it serves every plan.
+//
+// The z-halo mode (fold_halo_launch) serves a z slab of the sharded engine
+// (engine/sharded.py): x and y fold as above, z never wraps, and the
+// output has nz + 2 rows, ghost rows included: row g takes block row
+// g - dz of group dz where that row exists, so rows 0 and nz + 1 hold what
+// falls below and above the slab, for the caller to send to the
+// neighbouring slabs.  It replaces the hooked branch of the JAX package's
+// compact_pipeline (fold_block_windows, the ghost exchange, then
+// fold_ghost_grad_c), which is plain XLA there: the x/y fold is linear and
+// acts within a z row, so exchanging x/y-folded rows equals that order.
 #include <cuda_runtime.h>
 
 namespace {
@@ -66,16 +76,24 @@ __device__ __forceinline__ int fold_source(int i, int d, int n, int pbc) {
   return s;
 }
 
+// source block row of output ghost row `g` (0..n+1) for group offset d in
+// the z-halo mode: g - d where it lies in the slab, else -1
+__device__ __forceinline__ int halo_source(int g, int d, int n) {
+  const int s = g - d;
+  return (s >= 0 && s < n) ? s : -1;
+}
+
 }  // namespace
 
 template <int V>
 __global__ void __launch_bounds__(kFoldMaxThreads)
 fold_rows_kernel(const float* __restrict__ dw, float* __restrict__ out,
                  int nx, int ny, int nz, int cap, int bx, int C, int wl,
-                 int pbcx, int pbcy, int pbcz) {
+                 int pbcx, int pbcy, int pbcz, int zhalo) {
   using U = FoldUnit<V>;
   using T = typename U::T;
-  const int row = blockIdx.x;  // (z * ny + y) * C + c
+  // (z * ny + y) * C + c; z a ghost row (0..nz+1) in the z-halo mode
+  const int row = blockIdx.x;
   const int c = row % C, zy = row / C;
   const int y = zy % ny, z = zy / ny;
   const int capv = cap / V, w = bx * capv, nxb = nx / bx;
@@ -84,7 +102,8 @@ fold_rows_kernel(const float* __restrict__ dw, float* __restrict__ out,
   const T* src[9];
 #pragma unroll
   for (int dz = 0; dz < 3; ++dz) {
-    const int zb = fold_source(z, dz, nz, pbcz);
+    const int zb =
+        zhalo ? halo_source(z, dz, nz) : fold_source(z, dz, nz, pbcz);
 #pragma unroll
     for (int dy = 0; dy < 3; ++dy) {
       const int yb = fold_source(y, dy, ny, pbcy);
@@ -124,25 +143,45 @@ fold_rows_kernel(const float* __restrict__ dw, float* __restrict__ out,
   }
 }
 
+namespace {
+
+int fold_go(const float* dw, float* out, int nx, int ny, int nz, int cap,
+            int bx, int C, int wl, int pbcx, int pbcy, int pbcz, int zhalo,
+            int vec, int threads, void* stream) {
+  if (bx < 1 || nx % bx || threads < 1 || threads > kFoldMaxThreads ||
+      (vec != 1 && vec != 4) || cap % vec || wl % vec)
+    return (int)cudaErrorInvalidValue;
+  if (vec == 4 && (((size_t)dw | (size_t)out) & 15))
+    return (int)cudaErrorMisalignedAddress;
+  const unsigned rows = (unsigned)(nz + 2 * zhalo) * ny * C;
+  if (vec == 4)
+    fold_rows_kernel<4><<<rows, threads, 0, (cudaStream_t)stream>>>(
+        dw, out, nx, ny, nz, cap, bx, C, wl, pbcx, pbcy, pbcz, zhalo);
+  else
+    fold_rows_kernel<1><<<rows, threads, 0, (cudaStream_t)stream>>>(
+        dw, out, nx, ny, nz, cap, bx, C, wl, pbcx, pbcy, pbcz, zhalo);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // The launch comes from the wrapper's fold_plan: `vec` floats a unit (4 or
 // 1) and `threads` a block; a block a row (z, y, c).
 extern "C" int fold_launch(const float* dw, float* out, int nx, int ny,
                            int nz, int cap, int bx, int C, int wl, int pbcx,
                            int pbcy, int pbcz, int vec, int threads,
                            void* stream) {
-  if (bx < 1 || nx % bx || threads < 1 || threads > kFoldMaxThreads ||
-      (vec != 1 && vec != 4) || cap % vec || wl % vec)
-    return (int)cudaErrorInvalidValue;
-  if (vec == 4 && (((size_t)dw | (size_t)out) & 15))
-    return (int)cudaErrorMisalignedAddress;
-  const unsigned rows = (unsigned)nz * ny * C;
-  if (vec == 4)
-    fold_rows_kernel<4><<<rows, threads, 0, (cudaStream_t)stream>>>(
-        dw, out, nx, ny, nz, cap, bx, C, wl, pbcx, pbcy, pbcz);
-  else
-    fold_rows_kernel<1><<<rows, threads, 0, (cudaStream_t)stream>>>(
-        dw, out, nx, ny, nz, cap, bx, C, wl, pbcx, pbcy, pbcz);
-  return (int)cudaGetLastError();
+  return fold_go(dw, out, nx, ny, nz, cap, bx, C, wl, pbcx, pbcy, pbcz, 0,
+                 vec, threads, stream);
+}
+
+// The z-halo mode: out (nz + 2, ny, C, nx * cap), a block a row (g, y, c).
+extern "C" int fold_halo_launch(const float* dw, float* out, int nx, int ny,
+                                int nz, int cap, int bx, int C, int wl,
+                                int pbcx, int pbcy, int vec, int threads,
+                                void* stream) {
+  return fold_go(dw, out, nx, ny, nz, cap, bx, C, wl, pbcx, pbcy, 0, 1, vec,
+                 threads, stream);
 }
 
 // The resident blocks an SM of the fold kernel at (vec, threads)

@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the H100's 8-core host, the other sources 6-67 s.
 PARTS = {"nep_dense.cu": 3, "nep_k1.cu": 2, "nep_k2.cu": 3}
 
-launches = {"k1": 0, "k2": 0, "scatter": 0, "fold": 0, "compact_rows": 0,
+launches = {"k1": 0, "k2": 0, "scatter": 0, "fold": 0, "fold_halo": 0,
+            "compact_rows": 0,
             "compact_windows": 0, "tersoff": 0, "tersoff_scatter": 0,
             "k1b": 0, "k2b": 0, "dense_k1": 0, "dense_k2": 0,
             "probe_gather": 0,
@@ -58,6 +59,7 @@ _SIGNATURES = {
     "scatter_launch": [P] * 4 + [I] * 11 + [P],
     "scatter_occupancy": [I] * 3 + [P],
     "fold_launch": [P] * 2 + [I] * 12 + [P],
+    "fold_halo_launch": [P] * 2 + [I] * 11 + [P],
     "fold_occupancy": [I] * 2 + [P],
     "compact_rows_launch": [P] * 3 + [I] * 9 + [P],
     "compact_windows_launch": [P] * 3 + [I] * 4 + [P],

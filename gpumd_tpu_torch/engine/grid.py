@@ -297,24 +297,28 @@ def fold_ghost_grad(dg, plan: DenseGridPlan):
     return fold_ghost_grad_c(dg, plan)
 
 
+def fold_ghost_xy(dg, plan: DenseGridPlan):
+    """Fold the x and y ghost cells of ghost-grid cotangents onto their
+    interior cells and keep the z ghost rows (a slab's, for its
+    neighbours): (nz+2, ny+2, C, (nx+2)*cap) -> (nz+2, ny, C, nx*cap)."""
+    cap = plan.cap
+    core = dg[:, 1:-1].clone()
+    if plan.pbc[1]:
+        core[:, -1] += dg[:, 0]
+        core[:, 0] += dg[:, -1]
+    inner = core[..., cap:-cap].clone()
+    if plan.pbc[0]:
+        inner[..., -cap:] += core[..., :cap]
+        inner[..., :cap] += core[..., -cap:]
+    return inner
+
+
 def fold_ghost_grad_c(dg, plan: DenseGridPlan):
     """Fold ghost-layer cotangents back onto their interior cells:
     (nz+2, ny+2, C, (nx+2)*cap) -> (n_slots, C)."""
-    cap = plan.cap
     c = dg.shape[2]
-    g = dg
-    core = g[1:-1].clone()
+    core = dg[1:-1].clone()
     if plan.pbc[2]:
-        core[-1] += g[0]
-        core[0] += g[-1]
-    g = core
-    core = g[:, 1:-1].clone()
-    if plan.pbc[1]:
-        core[:, -1] += g[:, 0]
-        core[:, 0] += g[:, -1]
-    g = core
-    inner = g[..., cap:-cap].clone()
-    if plan.pbc[0]:
-        inner[..., -cap:] += g[..., :cap]
-        inner[..., :cap] += g[..., -cap:]
-    return inner.movedim(2, 0).reshape(c, -1).T
+        core[-1] += dg[0]
+        core[0] += dg[-1]
+    return fold_ghost_xy(core, plan).movedim(2, 0).reshape(c, -1).T

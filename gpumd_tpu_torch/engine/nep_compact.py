@@ -39,6 +39,8 @@ import torch
 
 from gpumd_tpu_torch.engine import cuda_build
 from gpumd_tpu_torch.engine.fold_kernel import (
+    fold_windows_to_halo_rows,
+    fold_windows_to_halo_rows_plain,
     fold_windows_to_rows,
     fold_windows_to_rows_plain,
     rows_to_slots,
@@ -1362,16 +1364,41 @@ def compact_pipeline(garr, type_slots, slot_mask, cplan: CompactPlan, idx,
     -> fold on the ghost array `garr`.  `idx` is build_indices' tensor, or
     a CompactNeighbors when cplan.cl > 0.  `keep`, when given, receives
     every kernel's inputs and outputs (for checks against the plain
-    versions)."""
+    versions).  It drains compact_stages, sending each stop's value back
+    unchanged."""
+    stages = compact_stages(garr, type_slots, slot_mask, cplan, idx, model,
+                            params, per_atom_virial, temperature=temperature,
+                            spec=spec, plain=plain, keep=keep)
+    try:
+        _, val = next(stages)
+        while True:
+            _, val = stages.send(val)
+    except StopIteration as stop:
+        return stop.value
+
+
+def compact_stages(garr, type_slots, slot_mask, cplan: CompactPlan, idx,
+                   model: NepModel, params: NepParams,
+                   per_atom_virial: bool, temperature=None,
+                   spec: Optional[CompactSpec] = None, plain: bool = False,
+                   keep: Optional[dict] = None, halo: bool = False):
+    """compact_pipeline as a generator, the seam where the slabs of
+    engine/sharded.py exchange rows: yields ("cot_rows", rows_p) and
+    takes back the window-cotangent grid with its z ghost rows filled,
+    then yields ("dghost", drows) and takes back the fold's rows with the
+    ghost rows returned; returns the CompactNepOutput.  `halo` runs the
+    fold's z-halo mode (drows (nz+2, ny, C, nx*cap)); else drows is the
+    plain fold's (nz, ny, C, nx*cap)."""
     plan = cplan.base
     spec = spec or CompactSpec.from_model(model, params)
     if plain:
-        k1f, k2f, scf, foldf = (k1_plain, k2_plain, scatter_plain,
-                                fold_windows_to_rows_plain)
+        k1f, k2f, scf = k1_plain, k2_plain, scatter_plain
+        foldf = (fold_windows_to_halo_rows_plain if halo
+                 else fold_windows_to_rows_plain)
         rowsf, winf = compact_rows_plain, compact_windows_plain
     else:
-        k1f, k2f, scf, foldf = (k1_call, k2_call, scatter_call,
-                                fold_windows_to_rows)
+        k1f, k2f, scf = k1_call, k2_call, scatter_call
+        foldf = fold_windows_to_halo_rows if halo else fold_windows_to_rows
         rowsf, winf = compact_rows_call, compact_windows_call
     dtype = garr.dtype
     nz, ny = plan.grid[2], plan.grid[1]
@@ -1424,6 +1451,7 @@ def compact_pipeline(garr, type_slots, slot_mask, cplan: CompactPlan, idx,
     rows = cotw_rows[..., :a].movedim(0, 2).reshape(nz, ny, spec.wch,
                                                     cplan.nxb * a)
     rows_p = pack_ghost_rows(rows, plan)
+    rows_p = yield "cot_rows", rows_p
     if cplan.cl and rows_path:
         cotw = rowsf(rows_p, cidx, cplan)
     else:
@@ -1438,6 +1466,9 @@ def compact_pipeline(garr, type_slots, slot_mask, cplan: CompactPlan, idx,
     idx_a = idx[:, :, :, :cplan.mn_a, :]
     dcand = scf(pvals, idx_a, cplan, cidx)
     drows = foldf(dcand, plan, cplan.bx)
+    drows = yield "dghost", drows
+    if halo:
+        drows = drows[1:1 + nz]
     dslots = rows_to_slots(drows)
     if keep is not None:
         keep.update(garr=garr, rows_p=rows_p, centers=centers, cand=cand,

@@ -547,7 +547,12 @@ class IonicConductivity:
         n = session._n
         sel = state.type[:n] == self.target_type
         self.frames.append(_frame(state.unwrapped_position[:n][sel]))
-        self._volume = float(state.box.volume)
+        # in float64 whatever the state's precision: a float32 cell's own
+        # product rounds the volume by ~1e-7, which flips the last of the
+        # six digits ic.out prints
+        h = state.box.h.detach().double()
+        self._volume = float(torch.abs(torch.dot(
+            h[:, 0], torch.linalg.cross(h[:, 1], h[:, 2]))))
 
     def postprocess(self, session):
         frames = _frames(self.frames)  # (Nd, Nt, 3)

@@ -143,6 +143,48 @@ def _compact_rows(valid: torch.Tensor, mn: int):
     return src, slot_valid
 
 
+def image_shifts_cart(box: Box, reps: Sequence[int]) -> torch.Tensor:
+    """The periodic images' Cartesian shifts (n_img, 3), the zero first."""
+    h = box.h
+    return box.cartesian(torch.as_tensor(_image_shifts(reps), dtype=h.dtype,
+                                         device=h.device))
+
+
+def brute_rows(position: torch.Tensor, box: Box, real: torch.Tensor,
+               rows: torch.Tensor, shifts_cart: torch.Tensor, *, rc: float,
+               mn: int) -> NeighborList:
+    """The lists of atoms `rows` against all atoms and their images
+    (global indices): one row block of neighbor_brute."""
+    n = position.shape[0]
+    dev = position.device
+    n_img = shifts_cart.shape[0]
+    rij = box.minimum_image(position[None, :, :]
+                            - position[rows][:, None, :])
+    rij_all = rij[:, :, None, :] + shifts_cart[None, None, :, :]
+    d2 = torch.sum(rij_all ** 2, dim=-1)  # (B, N, n_img)
+    pair = real[rows][:, None] & real[None, :]
+    is_self = ((rows[:, None] == torch.arange(n, device=dev)[None, :])
+               [:, :, None]
+               & (torch.arange(n_img, device=dev) == 0)[None, None, :])
+    valid = (d2 < rc * rc) & pair[:, :, None] & ~is_self
+    valid2 = valid.reshape(len(rows), n * n_img)
+    cnt = valid2.sum(-1).to(torch.int32)
+    src, slot_valid = _compact_rows(valid2, mn)
+    r12 = torch.gather(rij_all.reshape(len(rows), n * n_img, 3), 1,
+                       src[:, :, None].expand(-1, -1, 3))
+    idx = torch.where(slot_valid, src // n_img, rows[:, None])
+    r12 = torch.where(slot_valid[:, :, None], r12,
+                      torch.full_like(r12, _FAR))
+    return NeighborList(idx=idx.to(torch.int32), r12=r12,
+                        mask=slot_valid.to(position.dtype), count=cnt)
+
+
+def _cat_lists(parts) -> NeighborList:
+    """Row blocks' lists (no mirror slots) as one."""
+    return NeighborList(*(torch.cat(x)
+                          for x in zip(*(p[:4] for p in parts))))
+
+
 def neighbor_brute(position: torch.Tensor, box: Box, mask: torch.Tensor, *,
                    rc: float, mn: int, reps: tuple = (0, 0, 0),
                    row_block: int = 512) -> NeighborList:
@@ -150,36 +192,14 @@ def neighbor_brute(position: torch.Tensor, box: Box, mask: torch.Tensor, *,
     O(row_block * N * n_img)); exact for any small box given `reps` from
     `num_replicas_for_cutoff`."""
     n = position.shape[0]
-    dtype, dev = position.dtype, position.device
-    shifts_frac = torch.as_tensor(_image_shifts(reps), dtype=dtype,
-                                  device=dev)
-    shifts_cart = box.cartesian(shifts_frac)  # (n_img, 3)
-    n_img = shifts_cart.shape[0]
+    shifts_cart = image_shifts_cart(box, reps)
     real = mask > 0
-    cols = torch.arange(n, device=dev)
-    img0 = torch.arange(n_img, device=dev) == 0
-    out = []
-    for s0 in range(0, n, row_block):
-        rows = torch.arange(s0, min(s0 + row_block, n), device=dev)
-        rij = box.minimum_image(position[None, :, :]
-                                - position[rows][:, None, :])
-        rij_all = rij[:, :, None, :] + shifts_cart[None, None, :, :]
-        d2 = torch.sum(rij_all ** 2, dim=-1)  # (B, N, n_img)
-        pair = real[rows][:, None] & real[None, :]
-        is_self = ((rows[:, None] == cols[None, :])[:, :, None]
-                   & img0[None, None, :])
-        valid = (d2 < rc * rc) & pair[:, :, None] & ~is_self
-        valid2 = valid.reshape(len(rows), n * n_img)
-        cnt = valid2.sum(-1).to(torch.int32)
-        src, slot_valid = _compact_rows(valid2, mn)
-        r12 = torch.gather(rij_all.reshape(len(rows), n * n_img, 3), 1,
-                           src[:, :, None].expand(-1, -1, 3))
-        idx = torch.where(slot_valid, src // n_img, rows[:, None])
-        r12 = torch.where(slot_valid[:, :, None], r12,
-                          torch.full_like(r12, _FAR))
-        out.append((idx.to(torch.int32), r12, slot_valid.to(dtype), cnt))
-    idx, r12, smask, count = (torch.cat(x) for x in zip(*out))
-    return NeighborList(idx=idx, r12=r12, mask=smask, count=count)
+    return _cat_lists(
+        brute_rows(position, box, real,
+                   torch.arange(s0, min(s0 + row_block, n),
+                                device=position.device),
+                   shifts_cart, rc=rc, mn=mn)
+        for s0 in range(0, n, row_block))
 
 
 def _bin_atoms(position, box: Box, mask, grid, shifts: bool = False):
@@ -216,6 +236,62 @@ def max_cell_occupancy(position: torch.Tensor, box: Box, mask: torch.Tensor,
     return int(torch.bincount(cell_id, minlength=n_cells + 1)[:n_cells].max())
 
 
+def cell_bins(position: torch.Tensor, box: Box, mask: torch.Tensor,
+              grid: tuple):
+    """(cell_xyz, order, cell_start): every atom's cell, the atoms sorted
+    by cell (stable) and each cell's first place in that order."""
+    n_cells = grid[0] * grid[1] * grid[2]
+    cell_xyz, cell_id = _bin_atoms(position, box, mask, grid)
+    order = torch.argsort(cell_id, stable=True)
+    cell_start = torch.searchsorted(
+        cell_id[order], torch.arange(n_cells + 1, device=position.device))
+    return cell_xyz, order, cell_start
+
+
+def cell_rows(position: torch.Tensor, box: Box, real: torch.Tensor,
+              rows: torch.Tensor, bins, *, rc: float, mn: int, grid: tuple,
+              cell_cap: int) -> NeighborList:
+    """The lists of atoms `rows` against all atoms (global indices) over
+    the 3^3 stencil of `bins` (cell_bins'): one row block of
+    neighbor_cell_list."""
+    n = position.shape[0]
+    dev = position.device
+    nx, ny, nz = grid
+    n_cells = nx * ny * nz
+    cell_xyz, order, cell_start = bins
+    offs = torch.as_tensor(_OFFSETS, device=dev)  # (27, 3)
+    dims = torch.as_tensor(grid, device=dev)
+    pbc = box.pbc > 0
+    neigh = cell_xyz[rows][:, None, :] + offs[None]  # (B, 27, 3)
+    wrapped = torch.remainder(neigh, dims)
+    in_range = torch.all(pbc | ((neigh >= 0) & (neigh < dims)), dim=-1)
+    ncell = (wrapped[..., 2] * ny + wrapped[..., 1]) * nx + wrapped[..., 0]
+    ncell = torch.where(in_range, ncell, torch.full_like(ncell, n_cells))
+    start = cell_start[ncell]
+    end = cell_start[torch.clamp(ncell + 1, max=n_cells)]
+    end = torch.where(ncell >= n_cells, start, end)
+    cand_pos = start[:, :, None] + torch.arange(cell_cap, device=dev)
+    cand_valid = cand_pos < end[:, :, None]  # (B, 27, cap)
+    cand_j = order[torch.clamp(cand_pos, max=n - 1)]
+    rij = box.minimum_image(position[cand_j]
+                            - position[rows][:, None, None, :])
+    d2 = torch.sum(rij ** 2, dim=-1)
+    valid = (cand_valid & (d2 < rc * rc)
+             & (cand_j != rows[:, None, None]) & real[rows][:, None, None])
+    b = len(rows)
+    valid2 = valid.reshape(b, 27 * cell_cap)
+    cnt = valid2.sum(-1).to(torch.int32)
+    src, slot_valid = _compact_rows(valid2, mn)
+    r12 = torch.gather(rij.reshape(b, 27 * cell_cap, 3), 1,
+                       src[:, :, None].expand(-1, -1, 3))
+    idx = torch.gather(cand_j.reshape(b, 27 * cell_cap), 1, src)
+    idx = torch.where(slot_valid, idx, rows[:, None])
+    r12 = torch.where(slot_valid[:, :, None], r12,
+                      torch.full_like(r12, _FAR))
+    return NeighborList(idx=idx.to(torch.int32), r12=r12,
+                        mask=slot_valid.to(position.dtype), count=cnt)
+
+
 def neighbor_cell_list(position: torch.Tensor, box: Box, mask: torch.Tensor,
                        *, rc: float, mn: int, grid: tuple, cell_cap: int,
                        row_block: int = 16384) -> NeighborList:
@@ -223,50 +299,14 @@ def neighbor_cell_list(position: torch.Tensor, box: Box, mask: torch.Tensor,
     stencil of cells >= rc thick (>= 3 a periodic direction), `cell_cap`
     candidates a cell; atoms past the cap are not seen."""
     n = position.shape[0]
-    dtype, dev = position.dtype, position.device
-    nx, ny, nz = grid
-    n_cells = nx * ny * nz
-    cell_xyz, cell_id = _bin_atoms(position, box, mask, grid)
-    order = torch.argsort(cell_id, stable=True)
-    cell_start = torch.searchsorted(cell_id[order],
-                                    torch.arange(n_cells + 1, device=dev))
-    offs = torch.as_tensor(_OFFSETS, device=dev)  # (27, 3)
-    dims = torch.as_tensor(grid, device=dev)
-    pbc = box.pbc > 0
-    slot = torch.arange(cell_cap, device=dev)
+    bins = cell_bins(position, box, mask, grid)
     real = mask > 0
-    out = []
-    for s0 in range(0, n, row_block):
-        rows = torch.arange(s0, min(s0 + row_block, n), device=dev)
-        neigh = cell_xyz[rows][:, None, :] + offs[None]  # (B, 27, 3)
-        wrapped = torch.remainder(neigh, dims)
-        in_range = torch.all(pbc | ((neigh >= 0) & (neigh < dims)), dim=-1)
-        ncell = (wrapped[..., 2] * ny + wrapped[..., 1]) * nx + wrapped[..., 0]
-        ncell = torch.where(in_range, ncell, torch.full_like(ncell, n_cells))
-        start = cell_start[ncell]
-        end = cell_start[torch.clamp(ncell + 1, max=n_cells)]
-        end = torch.where(ncell >= n_cells, start, end)
-        cand_pos = start[:, :, None] + slot  # (B, 27, cap)
-        cand_valid = cand_pos < end[:, :, None]
-        cand_j = order[torch.clamp(cand_pos, max=n - 1)]
-        rij = box.minimum_image(position[cand_j]
-                                - position[rows][:, None, None, :])
-        d2 = torch.sum(rij ** 2, dim=-1)
-        valid = (cand_valid & (d2 < rc * rc)
-                 & (cand_j != rows[:, None, None]) & real[rows][:, None, None])
-        b = len(rows)
-        valid2 = valid.reshape(b, 27 * cell_cap)
-        cnt = valid2.sum(-1).to(torch.int32)
-        src, slot_valid = _compact_rows(valid2, mn)
-        r12 = torch.gather(rij.reshape(b, 27 * cell_cap, 3), 1,
-                           src[:, :, None].expand(-1, -1, 3))
-        idx = torch.gather(cand_j.reshape(b, 27 * cell_cap), 1, src)
-        idx = torch.where(slot_valid, idx, rows[:, None])
-        r12 = torch.where(slot_valid[:, :, None], r12,
-                          torch.full_like(r12, _FAR))
-        out.append((idx.to(torch.int32), r12, slot_valid.to(dtype), cnt))
-    idx, r12, smask, count = (torch.cat(x) for x in zip(*out))
-    return NeighborList(idx=idx, r12=r12, mask=smask, count=count)
+    return _cat_lists(
+        cell_rows(position, box, real,
+                  torch.arange(s0, min(s0 + row_block, n),
+                               device=position.device),
+                  bins, rc=rc, mn=mn, grid=grid, cell_cap=cell_cap)
+        for s0 in range(0, n, row_block))
 
 
 def neighbor_cell_dense(position: torch.Tensor, box: Box, mask: torch.Tensor,

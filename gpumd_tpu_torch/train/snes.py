@@ -27,15 +27,25 @@ Matching reference conventions:
 The normal draws z come from a torch.Generator on the device, seeded from
 cfg.seed (a resumed run from (seed, generation)); the JAX package draws
 them with jax.random, a different stream.  The numpy draws (mu at the
-start) are the same in both packages.  Population sharding over several
-devices is not ported: one device runs the whole population.
+start) are the same in both packages.
+
+The population may be cut over a `devices` list (SNESTrainer(devices=...);
+by default every visible card when there are several, as the JAX package
+shards the population over its mesh): the population is rounded up to a
+multiple of their number (ref: parameters.cu:132-140), each device
+evaluates its share on its own copy of the batches (the reference's
+round-robin of individuals over GPUs, fitness.cu:158-199), and the
+fitness is gathered on the first device, which ranks and updates.  One
+process drives every device; a devices list may repeat an entry.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import os
 import time
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -430,6 +440,44 @@ def make_generation_step(model: NepModel, cfg: NepTrainConfig, q_scaler,
     return step
 
 
+def batch_on(batch: StructureBatch, device) -> StructureBatch:
+    """The batch with its tensors on `device`."""
+    return batch._replace(**{k: v.to(device)
+                             for k, v in batch._asdict().items()
+                             if isinstance(v, torch.Tensor)})
+
+
+def sharded_evaluate(evaluate, devices: Sequence[torch.device]):
+    """`evaluate(thetas, batch)` with the population cut into one equal
+    share a device: each share runs on its device against that device's
+    copy of the batch (made once a batch), and the RMSEs come back to the
+    first device in population order."""
+    devices = [torch.device(d) for d in devices]
+    copies = {}
+
+    def ctx(dev):
+        return (torch.cuda.device(dev) if dev.type == "cuda"
+                else contextlib.nullcontext())
+
+    def run(thetas, batch: StructureBatch):
+        key = id(batch)
+        if key not in copies:
+            copies[key] = (batch, [batch if batch.r12.device == d
+                                   else batch_on(batch, d)
+                                   for d in devices])
+        share = thetas.shape[0] // len(devices)
+        outs = []
+        for j, (dev, b) in enumerate(zip(devices, copies[key][1])):
+            with ctx(dev):
+                outs.append(evaluate(
+                    thetas[j * share:(j + 1) * share].to(dev), b))
+        dev0 = thetas.device
+        return tuple(torch.cat([o[k].to(dev0) for o in outs])
+                     for k in range(len(outs[0])))
+
+    return run
+
+
 def _generator(seed: int, gen_offset: int, device) -> torch.Generator:
     """The draws' generator: seeded from cfg.seed, and from (seed,
     generation) on a resumed run, which branches the stream instead of
@@ -449,13 +497,28 @@ class SNESTrainer:
     def __init__(self, model: NepModel, cfg: NepTrainConfig,
                  batches: List[StructureBatch], workdir: str = ".",
                  dtype=torch.float32,
-                 test_batches: List[StructureBatch] = ()):
+                 test_batches: List[StructureBatch] = (),
+                 devices: Optional[Sequence] = None):
+        device = batches[0].r12.device
+        # the population over several devices: every visible card when
+        # there are several (the JAX package's default mesh), else an
+        # explicit list; rounded up to a multiple of their number
+        if devices is None:
+            count = (torch.cuda.device_count() if device.type == "cuda"
+                     else 0)
+            devices = ([torch.device("cuda", i) for i in range(count)]
+                       if count > 1 else [device])
+        self.devices = [torch.device(d) for d in devices]
+        nd = len(self.devices)
+        if cfg.population_size % nd:
+            cfg = dataclasses.replace(
+                cfg, population_size=cfg.population_size + nd
+                - cfg.population_size % nd)
         self.model = model
         self.cfg = cfg
         self.batches = batches
         self.test_batches = list(test_batches)
         self.workdir = workdir
-        device = batches[0].r12.device
         d = num_trainable(model)
         self.d = d
         lam_auto = float(np.sqrt(d * 1.0e-6 / model.num_types))
@@ -508,6 +571,8 @@ class SNESTrainer:
                                else np.float32), batches))
         self._sample, self._eval, self._update = make_population_pieces(
             model, cfg, self.q_scaler, self.lambda_1, self.lambda_2)
+        if nd > 1:
+            self._eval = sharded_evaluate(self._eval, self.devices)
         self.best_theta = self.state.mu.detach().cpu().numpy()
         self._b1_idx = global_bias_index(model)
         # wall seconds and generations of the train() loops run so far

@@ -237,21 +237,22 @@ def test_unknown_keyword_raises_value_error(tmp_path):
     ("potential lj.txt\ncompute_lsqt x 10 100 -5 5 6\nrun 10\n", 8)])
 def test_unported_keywords_name_their_item(tmp_path, example, item):
     """The keywords ROADMAP queue 1 items 8 (`compute_lsqt`) and 10
-    (`minimize`, `mc`) ported run their decks to the end; the one module
-    left, item 11's several-device engine, still raises
-    NotImplementedError naming its item before any run (every potential
-    header is ported: a `dp` file without deepmd-kit raises its
-    RuntimeError, tests/test_torch_fcp_dp.py)."""
+    (`minimize`, `mc`) ported run their decks to the end, and so does
+    each deck under item 11's `engine auto 2` (the several-device engine
+    parses; on the CPU auto takes the list path for these LJ decks, and
+    tests/test_torch_sharded_app.py runs `engine dense N` decks); no
+    keyword is left to raise (every potential header is ported: a `dp`
+    file without deepmd-kit raises its RuntimeError,
+    tests/test_torch_fcp_dp.py)."""
     assert item in (8, 10) and not tapp.UNPORTED
     d = _deck_dir(tmp_path, example, {"dp.txt": "dp 1 Si\n"})
     s = tapp.Session(str(d), quiet=True, device="cpu")
     s.execute()
     assert s.global_step == 10
-    d = _deck_dir(tmp_path / "sharded", "engine dense 2\n" + example)
+    d = _deck_dir(tmp_path / "sharded", "engine auto 2\n" + example)
     s = tapp.Session(str(d), quiet=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11\\)"):
-        s.execute()
-    assert s.global_step == 0
+    s.execute()
+    assert s.global_step == 10 and s.engine_devices == 2
 
 
 def test_every_jax_keyword_is_ported_or_raises():

@@ -32,6 +32,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import gpumd_tpu_torch.app.gpumd as tapp
 from gpumd_tpu.app import gpumd as japp
@@ -171,9 +172,13 @@ def test_engine_dense_refuses_what_it_cannot_carry(tmp_path):
         "potential nep.txt\nengine dense\nfix 0 1\nrun 2\n")
     with pytest.raises(ValueError, match="fix groups"):
         tapp.Session(str(tmp_path), quiet=True, device="cpu").execute()
-    (tmp_path / "run.in").write_text("potential nep.txt\nengine dense 2\n")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tapp.Session(str(tmp_path), quiet=True, device="cpu").execute()
+    # several slabs (the sharded engine) run the deck: here both on the CPU
+    (tmp_path / "run.in").write_text(
+        "potential nep.txt\nengine dense 2\nrun 2\n")
+    s = tapp.Session(str(tmp_path), quiet=True, device="cpu")
+    s.execute()
+    assert s.global_step == 2 and s.md.ndev == 2
+    assert s.md.devices == [torch.device("cpu")] * 2
 
 
 DECKS = {

@@ -319,6 +319,35 @@ def test_fold_matches_plain_every_plan(dev, bx, cap, grid, pbc, c, wl,
     assert torch.equal(TF.fold_windows_to_rows(dw, plan, bx), got)
 
 
+# The fold's z-halo mode (a slab of the sharded engine): x and y folded as
+# above, z never wrapped, nz + 2 rows; 4- and 12-channel PbTe slab plans
+# and odd caps.
+@pytest.mark.parametrize("bx,cap,grid,pbc,c,offset", [
+    (2, 64, (16, 22, 6), (True, True, False), 4, 0),
+    (2, 64, (16, 22, 6), (True, True, False), 12, 0),
+    (1, 40, (3, 4, 1), (True, False, False), 5, 0),
+    (2, 6, (4, 3, 2), (False, True, False), 3, 1),
+])
+def test_fold_halo_matches_plain(dev, bx, cap, grid, pbc, c, offset):
+    plan = TG.DenseGridPlan(grid=grid, cap=cap, rc=4.0, skin=1.0, pbc=pbc)
+    nx, ny, nz = grid
+    wl = TG.round_up(9 * (bx + 2) * cap, 128)
+    shape = (nz, ny, c, nx // bx, wl)
+    flat = torch.randn(offset + int(np.prod(shape)), device=dev,
+                       generator=torch.Generator(dev).manual_seed(1))
+    dw = flat[offset:].view(shape)
+    fp = TF.fold_plan(plan, bx, c, wl, aligned=dw.data_ptr() % 16 == 0,
+                      halo=True)
+    assert fp.blocks == (nz + 2) * ny * c
+    before = cuda_build.launches["fold_halo"]
+    got = TF.fold_windows_to_halo_rows(dw, plan, bx)
+    assert cuda_build.launches["fold_halo"] == before + 1
+    assert got.shape == (nz + 2, ny, c, nx * cap)
+    assert _rel(got, TF.fold_windows_to_halo_rows_plain(dw, plan, bx)) \
+        <= 1e-5
+    assert torch.equal(TF.fold_windows_to_halo_rows(dw, plan, bx), got)
+
+
 def test_wrappers_reject_wrong_dtype(dev):
     plan = TG.DenseGridPlan(grid=(3, 3, 3), cap=16, rc=4.0, skin=1.0,
                             pbc=(True, True, True))

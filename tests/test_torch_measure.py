@@ -178,6 +178,23 @@ def test_frame_correlations_match_jax(tmp_path, case):
     assert_files_match(dirs, names)
 
 
+def test_ionic_conductivity_volume_in_float64(tmp_path):
+    """compute_ic takes the cell volume in float64 from a float32 state:
+    the float32 product is ~1e-7 off, enough to flip a printed digit of
+    ic.out against a float64 recomputation (chip_smoke measure (a))."""
+    s = snapshots("rocksalt", 1)[0]
+    edge = 105.12
+    st = tmake_state(s["position"], s["mass"], s["type"],
+                     TBox.orthogonal([edge] * 3, dtype=torch.float32,
+                                     device="cpu"))
+    st = st._replace(unwrapped_position=st.position)
+    m = tprops.IonicConductivity(5, 6, 1, 2.0, DT, 300.0)
+    m.sample_state(Sess(tmp_path, len(s["position"]), st), st, 5)
+    want = float(np.float32(edge)) ** 3
+    assert m._volume == want
+    assert float(st.box.volume) != want  # the float32 product
+
+
 def test_squared_displacements_equal_the_loop():
     """The Gram-matrix sums of the port against the direct loop over lags,
     on positions 100 A from the origin (the centring keeps the digits)."""
